@@ -1,0 +1,560 @@
+"""QueryPlan IR: one planner and one executor behind every search path
+(port of the local half of ``repro.core.plan``).
+
+* **IR** — a :class:`QueryPlan` of four typed stages: :class:`ProbeStage`,
+  :class:`CandidateStage` (full scan, and which physical layout it
+  streams), :class:`SelectStage` (the top-k select path + its scan
+  granularity) and :class:`MergeStage`.
+* **Planner** — ``plan_local`` inspects :class:`StoreStats` and emits a
+  plan; ``resolve_select`` is THE place ``"auto"`` becomes a concrete path.
+  Forced knobs route through the same functions as forced-plan overrides
+  (``parse_force``). Paths and reason strings match ``repro``'s, so a plan
+  made by either package for the same store reads the same.
+* **Executor** — :func:`execute` runs a non-sharded full-scan plan over
+  concrete tensors; ``_scan_select`` holds the ``fused``, ``fused_scan``,
+  ``composite``, ``counting`` and ``bisect`` paths.
+
+Not ported yet, and raising ``NotImplementedError`` rather than running
+another path: the approximate tier (``select="approx"``, ROADMAP queue 1
+item 9), the materializing distance kernel (``method="pallas"``, K3,
+ROADMAP queue 2), sharded plans (queue 1 item 8) and index-probed plans
+with block-mask or gather candidates (queue 1 item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.core import binary, layout as layout_mod, topk
+
+DEFAULT_CHUNK = 1 << 16
+
+SELECT_PATHS = ("composite", "counting", "bisect", "fused", "fused_scan",
+                "approx")
+_SELECT_ALIASES = {"auto": "auto", "composite": "composite",
+                   "counting": "counting", "bisect": "bisect",
+                   "fused": "fused", "fused_scan": "fused_scan",
+                   "approx": "approx"}
+
+_NOT_PORTED = {
+    "approx": "the approximate tier (select='approx') is not ported yet: "
+              "ROADMAP queue 1 item 9 (kernels/approx_select.py)",
+    "pallas": "method='pallas' needs the materializing distance kernel K3, "
+              "not ported yet: ROADMAP queue 2",
+    "sharded": "sharded plans are not ported yet: ROADMAP queue 1 item 8",
+    "candidates": "index-probed candidate stages (block_mask, gather) are "
+                  "not ported yet: ROADMAP queue 1 item 6",
+}
+
+
+class DistanceMethod:
+    XOR = "xor"          # bit-packed popcount
+    MXU = "mxu"          # +/-1 float matmul
+    PALLAS = "pallas"    # materializing distance kernel (K3, not ported)
+
+
+# ---------------------------------------------------------------------------
+# the IR
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ProbeStage:
+    """Index traversal: which buckets/leaves feed the candidate stage."""
+
+    kind: str = "none"          # none | kmeans | lsh | kdtree
+    nprobe: int = 0
+    n_tables: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class CandidateStage:
+    """How the candidate set is restricted, and over which physical layout.
+
+    ``layout``: "none" streams insertion order; "prebuilt" streams a
+    BucketLayout's reordered codes (winners map back through the
+    permutation); "local_sort" re-sorts per call by a static Hamming key."""
+
+    kind: str = "full"          # full | block_mask | gather
+    layout: str = "none"        # none | prebuilt | local_sort
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectStage:
+    """The top-k select path."""
+
+    path: str = "composite"     # one of SELECT_PATHS
+    method: str = DistanceMethod.XOR  # distance method, materializing paths
+    chunk: int = DEFAULT_CHUNK  # scan granularity (ignored by "fused")
+    recall_target: float = 1.0  # approx tier only
+
+
+@dataclasses.dataclass(frozen=True)
+class MergeStage:
+    """The sharded merge stage ("none" on every plan the port runs)."""
+
+    kind: str = "none"          # none | sharded
+    k_local: int = 0
+    axes: Tuple[str, ...] = ()
+    reorder_local: bool = False
+    strategy: str = ""
+    fanout: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class StoreStats:
+    """What the planner inspects — static facts about one search call."""
+
+    n: int                      # datastore rows
+    d: int                      # code bits
+    w: int                      # packed words per code
+    q: int                      # query batch size
+    k: int = 0
+    has_layout: bool = False
+    mean_bucket_rows: int = 0
+    n_buckets: int = 0
+    index: str = "none"
+    n_shards: int = 1
+    backend: str = ""           # "" -> device.default_backend() at explain
+
+
+def stats_for(n: int, d: int, w: int, q: int, *,
+              layout: Optional[layout_mod.BucketLayout] = None,
+              n_buckets: Optional[int] = None, **kw) -> StoreStats:
+    """StoreStats from counts; THE place layout fields are derived."""
+    if n_buckets is None:
+        n_buckets = layout.n_buckets if layout is not None else 0
+    return StoreStats(
+        n=n, d=d, w=w, q=q, has_layout=layout is not None,
+        mean_bucket_rows=layout.mean_bucket_rows if layout is not None else 0,
+        n_buckets=n_buckets, **kw)
+
+
+def stats_of(codes: torch.Tensor, q_packed: torch.Tensor, d: int,
+             layout: Optional[layout_mod.BucketLayout] = None,
+             **kw) -> StoreStats:
+    """StoreStats from concrete tensors."""
+    return stats_for(codes.shape[0], d, codes.shape[1], q_packed.shape[0],
+                     layout=layout, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPlan:
+    """One search, fully decided: Probe -> Candidates -> Select -> Merge."""
+
+    probe: ProbeStage
+    candidates: CandidateStage
+    select: SelectStage
+    merge: MergeStage
+    n: int
+    d: int
+    w: int
+    q: int
+    k: int
+    n_shards: int = 1
+    mean_bucket_rows: int = 0
+    backend: str = ""
+    reason: str = ""
+
+    def compact(self) -> str:
+        """One token, safe for benchmark ``derived`` fields (no , ; =)."""
+        p = self.probe.kind
+        if self.probe.nprobe:
+            p += f"@{self.probe.nprobe}"
+        c = self.candidates.kind
+        if self.candidates.layout != "none":
+            c += f"+{self.candidates.layout}"
+        s = self.select.path
+        if s == "approx":
+            s += f"@r{self.select.recall_target:g}"
+        m = self.merge.kind
+        if self.merge.kind == "sharded":
+            m = self.merge.strategy or "sharded"
+            if m == "hist_tree":
+                m += f"@f{self.merge.fanout}"
+            elif m != "hist_merge":
+                m += f"@k{self.merge.k_local}"
+        return f"probe:{p}|cand:{c}|select:{s}|merge:{m}"
+
+    def _kernels(self) -> Tuple[str, ...]:
+        path = self.select.path
+        if path == "approx":
+            raise NotImplementedError(_NOT_PORTED["approx"])
+        if path in ("fused", "fused_scan"):
+            ks = ("kernels.topk_select.hamming_hist_kernel (K1, CUDA)",
+                  "kernels.topk_select.hamming_emit_kernel (K2, CUDA)")
+            if path == "fused_scan":
+                ks += ("chunk loop + topk.merge_topk",)
+            return ks
+        dist = {"xor": "binary.hamming_xor", "mxu": "binary.hamming_mxu",
+                "pallas": "kernels.hamming (K3, not ported)"}[
+                    self.select.method]
+        sel = {"composite": "topk.composite_topk (torch.topk)",
+               "counting": "topk.counting_topk",
+               "bisect": "topk.counting_topk_bisect"}[path]
+        return (dist, sel, "chunk loop + topk.merge_topk")
+
+    def _predicted_pruning(self) -> str:
+        if self.select.path not in ("fused", "fused_scan"):
+            return "none (materializing path)"
+        if self.candidates.layout != "none":
+            return ("block-min pruning over bucket-clustered tiles "
+                    "(bites even on uniform data)")
+        return "block-min pruning only where the data layout has locality"
+
+    def geometry(self) -> dict:
+        """Block geometry + cost hints the kernels will run under, computed
+        by the SAME heuristic the kernels consult (kernels/tuning.py)."""
+        from repro_torch.kernels import tuning
+
+        if self.merge.kind == "sharded":
+            raise NotImplementedError(_NOT_PORTED["sharded"])
+        if self.select.path == "approx":
+            raise NotImplementedError(_NOT_PORTED["approx"])
+        backend = self.backend or device_mod.default_backend()
+        if self.select.path not in ("fused", "fused_scan"):
+            eff = min(self.select.chunk or DEFAULT_CHUNK, self.n)
+            if self.select.path == "composite":
+                eff = _auto_chunk(eff, self.d)
+            return dict(kind="scan", chunk=eff,
+                        n_chunks=-(-self.n // max(eff, 1)),
+                        **tuning.cost_hints(self.q, self.n, self.w,
+                                            self.d + 1, path=self.select.path,
+                                            chunk=eff, backend=backend))
+        hints = tuning.cost_hints(
+            self.q, max(self.n, 1), self.w,
+            max(self.d + 1, min(self.k, max(self.n, 1))),
+            path=self.select.path,
+            chunk=((self.select.chunk or DEFAULT_CHUNK)
+                   if self.select.path == "fused_scan" else 0),
+            backend=backend)
+        return dict(kind=self.select.path, **hints)
+
+    def explain(self) -> dict:
+        """JSON-able plan summary: stages, kernels, geometry, prediction."""
+        return {
+            "shape": {"n": self.n, "d": self.d, "w": self.w, "q": self.q,
+                      "k": self.k},
+            "stages": {
+                "probe": dataclasses.asdict(self.probe),
+                "candidates": dataclasses.asdict(self.candidates),
+                "select": dataclasses.asdict(self.select),
+                "merge": dataclasses.asdict(self.merge),
+            },
+            "kernels": list(self._kernels()),
+            "geometry": self.geometry(),
+            "predicted_pruning": self._predicted_pruning(),
+            "reason": self.reason,
+            "compact": self.compact(),
+        }
+
+    def explain_str(self) -> str:
+        e = self.explain()
+        g = ", ".join(f"{k}={v}" for k, v in e["geometry"].items())
+        return "\n".join([
+            f"QueryPlan[{self.compact()}]",
+            f"  shape: N={self.n} d={self.d} W={self.w} Q={self.q} k={self.k}",
+            f"  kernels: {'; '.join(e['kernels'])}",
+            f"  geometry: {g}",
+            f"  pruning: {e['predicted_pruning']}",
+            f"  reason: {self.reason}",
+        ])
+
+
+# ---------------------------------------------------------------------------
+# legacy-knob deprecation (forced-plan overrides)
+# ---------------------------------------------------------------------------
+
+_WARNED: set = set()
+
+
+def _warn_legacy(api: str, knob: str, value) -> None:
+    """Once-per-process deprecation nudge for the forced-path knobs."""
+    key = (api, knob, str(value))
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    warnings.warn(
+        f"{api}({knob}={value!r}) is a legacy forced-path knob; it now "
+        f"routes through repro_torch.core.plan as a forced-plan override "
+        f"(bit-identical). Prefer the plan API.", DeprecationWarning,
+        stacklevel=3)
+
+
+def parse_force(spec: str) -> dict:
+    """Parse a forced-plan override string: comma-separated ``key=value``
+    pairs, e.g. ``"select=fused_scan,chunk=4096,layout=off"``."""
+    out = {}
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        key, eq, val = part.partition("=")
+        if not eq:
+            raise ValueError(f"force_plan entry {part!r} is not key=value")
+        out[key.strip()] = val.strip()
+    return out
+
+
+_FORCE_KEYS = {"select", "method", "chunk", "layout", "candidates", "k_local",
+               "reorder_local", "merge", "recall_target", "fanout"}
+
+
+def _apply_force(plan: QueryPlan, force) -> QueryPlan:
+    """Apply a forced-plan override to a local plan (``repro``'s rules; the
+    sharded-merge keys only ever record that a local plan ignores them)."""
+    if not force:
+        return plan
+    if plan.merge.kind == "sharded":
+        raise NotImplementedError(_NOT_PORTED["sharded"])
+    f = parse_force(force) if isinstance(force, str) else dict(force)
+    sel, cand = plan.select, plan.candidates
+    reason = plan.reason
+    if "select" in f:
+        path = _SELECT_ALIASES.get(f["select"], f["select"])
+        if path == "auto" or path not in SELECT_PATHS:
+            raise ValueError(f"force_plan select={f['select']!r}")
+        sel = dataclasses.replace(sel, path=path)
+        reason += f"; forced select={path}"
+    if "method" in f:
+        sel = dataclasses.replace(sel, method=f["method"])
+    if "chunk" in f:
+        sel = dataclasses.replace(sel, chunk=int(f["chunk"]))
+    if "recall_target" in f:
+        rt = float(f["recall_target"])
+        if not 0.0 < rt <= 1.0:
+            raise ValueError(f"force_plan recall_target={f['recall_target']!r}"
+                             f" (must be in (0, 1])")
+        if sel.path == "approx":
+            sel = dataclasses.replace(sel, recall_target=rt)
+            reason += f"; forced recall_target={rt:g}"
+        else:
+            reason += (f"; forced recall_target ignored "
+                       f"(select={sel.path} is exact)")
+    if "layout" in f:
+        lay = {"off": "none", "on": "prebuilt"}.get(f["layout"], f["layout"])
+        if lay not in ("none", "prebuilt", "local_sort"):
+            raise ValueError(f"force_plan layout={f['layout']!r}")
+        cand = dataclasses.replace(cand, layout=lay)
+        reason = _scrub_layout_notes(reason) + f"; forced layout={lay}"
+    if "candidates" in f:
+        ck = f["candidates"]
+        if ck not in ("full", "block_mask", "gather"):
+            raise ValueError(f"force_plan candidates={ck!r}")
+        if ck != cand.kind:
+            reason += (f"; forced candidates={ck} ignored "
+                       f"(no operands for it on a {cand.kind} plan)")
+    if "k_local" in f:
+        reason += "; forced k_local ignored (local plan has no merge)"
+    if "reorder_local" in f:
+        reason += "; forced reorder_local ignored (local plan)"
+    if "merge" in f:
+        if f["merge"] not in ("hist_merge", "hist_tree", "concat_sort"):
+            raise ValueError(f"force_plan merge={f['merge']!r}")
+        reason += "; forced merge ignored (local plan has no merge)"
+    if "fanout" in f:
+        int(f["fanout"])
+        reason += "; forced fanout ignored (only hist_tree merges have one)"
+    unknown = set(f) - _FORCE_KEYS
+    if unknown:
+        raise ValueError(f"unknown force_plan keys: {sorted(unknown)}")
+    # only the fused/approx selects consume a layout (materializing selects
+    # must scan the original order, or tie ids drift from the legacy paths)
+    if (cand.kind == "full" and sel.path not in ("fused", "approx")
+            and cand.layout != "none"):
+        cand = dataclasses.replace(cand, layout="none")
+        reason = (_scrub_layout_notes(reason)
+                  + f"; layout dropped (select={sel.path} never consumes one)")
+    return dataclasses.replace(plan, select=sel, candidates=cand,
+                               reason=reason)
+
+
+def _scrub_layout_notes(reason: str) -> str:
+    """Remove the planner's layout notes from a reason string whose layout
+    decision an override just replaced."""
+    for note in ("; streams the prebuilt BucketLayout",
+                 "; per-call local_sort (no prebuilt layout)",
+                 "; per-shard local_sort before the scan"):
+        reason = reason.replace(note, "")
+    return reason
+
+
+# ---------------------------------------------------------------------------
+# the planner
+# ---------------------------------------------------------------------------
+
+def resolve_select(select: Optional[str], stats: StoreStats,
+                   layout_policy: str = "auto") -> Tuple[str, str]:
+    """THE select-resolution rule. ``"auto"`` becomes "fused" whenever a
+    layout is available (prebuilt) or demanded by config
+    (``layout_policy="require"``): only the fused kernels consume a layout.
+    Without a layout, "auto" stays on the composite-key path. Any concrete
+    name is a forced path, passed through untouched.
+    Returns (path, reason)."""
+    req = "auto" if select is None else select
+    if req not in _SELECT_ALIASES:
+        raise ValueError(
+            f"unknown select {select!r}; known: auto|{'|'.join(SELECT_PATHS)}")
+    req = _SELECT_ALIASES[req]
+    if req != "auto":
+        return req, f"forced select={req}"
+    if stats.has_layout:
+        return "fused", ("auto->fused: prebuilt layout present, block-min "
+                         "pruning + permutation mapping apply")
+    if layout_policy == "require":
+        return "fused", ("auto->fused: config demands a layout; only the "
+                         "fused select consumes one")
+    return "composite", ("auto->composite: no layout; top_k over the "
+                         "f32 composite key is the best materializing path")
+
+
+def _resolve_layout(path: str, stats: StoreStats, layout_policy: str
+                    ) -> Tuple[str, str]:
+    """Which physical layout the full-scan candidate stage streams."""
+    if path not in ("fused", "approx") or layout_policy == "off":
+        return "none", ""
+    if stats.has_layout:
+        return "prebuilt", "streams the prebuilt BucketLayout"
+    if layout_policy == "require":
+        warnings.warn(
+            "layout required but no prebuilt layout exists: re-sorting the "
+            "datastore per call; prebuild it (KNNEngine.with_layout) to "
+            "amortize", stacklevel=4)
+        return "local_sort", "per-call local_sort (no prebuilt layout)"
+    return "none", ""
+
+
+def plan_local(stats: StoreStats, k: int, select: Optional[str] = "auto",
+               method: str = DistanceMethod.XOR, chunk: int = DEFAULT_CHUNK,
+               layout_policy: str = "auto", recall_target: float = 1.0,
+               force=None) -> QueryPlan:
+    """Plan a single-device full scan (the ``search_chunked`` /
+    ``KNNEngine.search`` shape).
+
+    ``layout_policy``: "auto" uses a prebuilt layout when present;
+    "require" falls back to a per-call local_sort; "off" never streams a
+    layout."""
+    path, reason = resolve_select(select, stats, layout_policy)
+    lay, lay_note = _resolve_layout(path, stats, layout_policy)
+    if lay_note:
+        reason += "; " + lay_note
+    if path == "approx" and recall_target >= 1.0:
+        reason += "; recall_target=1 keeps the full block (exact pool)"
+    plan = QueryPlan(
+        probe=ProbeStage(), candidates=CandidateStage(kind="full", layout=lay),
+        select=SelectStage(path=path, method=method, chunk=chunk,
+                           recall_target=recall_target),
+        merge=MergeStage(), n=stats.n, d=stats.d, w=stats.w, q=stats.q, k=k,
+        mean_bucket_rows=stats.mean_bucket_rows,
+        backend=stats.backend, reason=reason)
+    return _apply_force(plan, force)
+
+
+# ---------------------------------------------------------------------------
+# the executor
+# ---------------------------------------------------------------------------
+
+def _distances(q_packed: torch.Tensor, chunk_codes: torch.Tensor, d: int,
+               method: str) -> torch.Tensor:
+    if method == DistanceMethod.XOR:
+        return binary.hamming_xor(q_packed, chunk_codes)
+    if method == DistanceMethod.MXU:
+        qb = binary.unpack_bits(q_packed, d)
+        xb = binary.unpack_bits(chunk_codes, d)
+        return binary.hamming_mxu(qb, xb, d)
+    if method == DistanceMethod.PALLAS:
+        raise NotImplementedError(_NOT_PORTED["pallas"])
+    raise ValueError(method)
+
+
+def _auto_chunk(chunk: int, d: int) -> int:
+    """Composite-key representability guard — the composite select only:
+    the f32 key ``dist * chunk + idx`` is exact only while
+    (d + 1) * chunk < 2^24."""
+    if (d + 1) * chunk < (1 << 24):
+        return chunk
+    return max(1024, ((1 << 24) // (d + 1)) // 1024 * 1024)
+
+
+def _scan_select(codes_packed: torch.Tensor, q_packed: torch.Tensor, k: int,
+                 plan: QueryPlan, id_offset=0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full-scan select stage.
+
+    codes: (N, W) int32, q: (Q, W); returns (dists (Q, k) ascending,
+    global ids (Q, k)). All select paths are bit-identical at any chunk."""
+    sel = plan.select
+    N, W = codes_packed.shape
+    Q = q_packed.shape[0]
+    d = plan.d
+    dev = codes_packed.device
+
+    if sel.path == "fused":
+        from repro_torch.kernels import ops
+
+        bd, bi = ops.hamming_topk(q_packed, codes_packed, k, d + 1)
+        return bd, bi + id_offset
+    if sel.path == "approx":
+        raise NotImplementedError(_NOT_PORTED["approx"])
+
+    chunk = min(sel.chunk or DEFAULT_CHUNK, N)
+    if sel.path == "composite":
+        chunk = _auto_chunk(chunk, d)
+    n_chunks = (N + chunk - 1) // chunk
+    if N % chunk:
+        # pad with all-ones codes; ids beyond N rank last (materializing
+        # paths) or are masked by n_valid (fused_scan)
+        codes_packed = torch.cat([codes_packed, torch.full(
+            (n_chunks * chunk - N, W), -1, dtype=codes_packed.dtype,
+            device=dev)])
+    chunks = codes_packed.reshape(n_chunks, chunk, W)
+
+    best_d = torch.full((Q, k), d + 1, dtype=torch.int32, device=dev)
+    best_i = torch.full((Q, k), N, dtype=torch.int32, device=dev)
+    if sel.path == "fused_scan":
+        from repro_torch.kernels import ops
+
+        for ci in range(n_chunks):
+            n_valid = min(max(N - ci * chunk, 0), chunk)
+            cd, cidx = ops.hamming_topk(q_packed, chunks[ci], min(k, chunk),
+                                        d + 1, n_valid=n_valid)
+            best_d, best_i = topk.merge_topk(best_d, best_i, cd,
+                                             cidx + ci * chunk, k)
+        return best_d, best_i + id_offset
+
+    select_fn = {"composite": topk.composite_topk,
+                 "counting": topk.counting_topk,
+                 "bisect": topk.counting_topk_bisect}[sel.path]
+    for ci in range(n_chunks):
+        dist = _distances(q_packed, chunks[ci], d, sel.method)
+        # padding rows (global id >= N) must rank strictly last
+        gids = ci * chunk + torch.arange(chunk, device=dev)
+        dist = torch.where(gids[None, :] < N, torch.clamp(dist, max=d), d + 1)
+        cd, cidx = select_fn(dist, min(k, chunk), d + 1)
+        best_d, best_i = topk.merge_topk(best_d, best_i, cd,
+                                         cidx + ci * chunk, k)
+    return best_d, best_i + id_offset
+
+
+def execute(plan: QueryPlan, q_packed: torch.Tensor, *,
+            codes: Optional[torch.Tensor] = None,
+            layout: Optional[layout_mod.BucketLayout] = None,
+            id_offset=0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run a non-sharded full-scan plan over concrete tensors: ``codes``,
+    plus ``layout`` when the plan streams a prebuilt one."""
+    if plan.merge.kind == "sharded":
+        raise NotImplementedError(_NOT_PORTED["sharded"])
+    if plan.candidates.kind != "full":
+        raise NotImplementedError(_NOT_PORTED["candidates"])
+    if plan.candidates.layout == "prebuilt":
+        if layout is None:
+            raise ValueError("the plan streams a prebuilt layout; pass it")
+        dd, ii = _scan_select(layout.codes, q_packed, plan.k, plan)
+        return dd, layout_mod.to_original_ids(layout.perm, ii)
+    if codes is None:
+        raise ValueError("a full-scan plan needs the codes")
+    if plan.candidates.layout == "local_sort":
+        codes_l, perm = layout_mod.local_sort(codes, plan.d)
+        dd, ii = _scan_select(codes_l, q_packed, plan.k, plan)
+        return dd, layout_mod.to_original_ids(perm, ii)
+    return _scan_select(codes, q_packed, plan.k, plan, id_offset=id_offset)

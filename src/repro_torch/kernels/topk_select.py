@@ -1,0 +1,281 @@
+"""The fused two-pass counting select (port of ``repro.kernels.topk_select``).
+
+The (Q, N) distance matrix never leaves the kernels:
+
+* **K1, pass 1** (``hamming_hist_kernel``, the "race"): XOR+popcount each
+  (query block, data block) tile, accumulate the per-query distance
+  histogram (Q, bins) and write the (Q/bq, N/bn) block-min summary — the
+  minimum valid distance of each tile, ``bins`` for a disabled or
+  all-padding tile.
+* **K2, pass 2** (``hamming_emit_kernel``, the "reports"): recompute the
+  distances of every tile that can hold a winner and scatter the winners
+  into their output slots — dist < r* rows at ``slot_base`` + their running
+  count, dist == r* ties at ``n_lt`` + theirs, both in global row order;
+  slots >= k are dropped, ids get ``id_base`` added, untouched slots are 0.
+
+Both take the valid-row count ``n_valid`` (rows with global id >= n_valid
+are excluded exactly), a per-tile enable mask (a zero tile is outside the
+candidate set) and the (bq, bn, sub) geometry; ``sub`` is the TPU kernels'
+VMEM sub-step, kept for parity and unused here.
+
+Each wrapper runs its CUDA kernel (``csrc/topk_select.cu``, built at first
+use) for CUDA tensors and its plain PyTorch version for CPU tensors, and
+counts its kernel launches in ``<wrapper>.launches``. The plain versions
+compute the same function tile for tile, one chunk of whole query blocks at
+a time so the (chunk, N) distance tensor stays bounded; ``chip_smoke.py``
+holds each kernel against its plain version on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.binary import hamming_xor
+
+_SOURCE = "topk_select.cu"
+# plain versions: whole query blocks per chunk, so (chunk, N) stays under
+# this many elements
+_PLAIN_CHUNK_ELEMS = 1 << 27
+# K1: threads per CTA ~ 256 (bq * R), CTAs ~ this many per launch
+_HIST_THREADS = 256
+_HIST_TARGET_CTAS = 2048
+_SMEM_LIMIT = 232448
+
+
+def _check_geometry(Q: int, N: int, bq: int, bn: int, sub: int):
+    bq, bn = min(bq, Q), min(bn, N)
+    sub = min(sub, bn)
+    if Q % bq or N % bn or bn % sub:
+        raise ValueError(f"geometry does not tile: Q={Q} N={N} bq={bq} "
+                         f"bn={bn} sub={sub}")
+    return bq, bn, sub
+
+
+def _tile_mask(mask, shape, fill: int, dev) -> torch.Tensor:
+    if mask is None:
+        return torch.full(shape, fill, dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(mask, device=dev).to(torch.int32).contiguous()
+    if tuple(mask.shape) != shape:
+        raise ValueError(f"tile mask shape {tuple(mask.shape)} != {shape}")
+    return mask
+
+
+def _vec(v, Q: int, fill: int, dev) -> torch.Tensor:
+    if v is None:
+        return torch.full((Q,), fill, dtype=torch.int32, device=dev)
+    return torch.as_tensor(v, device=dev).to(torch.int32).reshape(Q).contiguous()
+
+
+def _codes(a: torch.Tensor) -> torch.Tensor:
+    a = a.to(torch.int32).contiguous()
+    # the d = 256 kernels read rows of 8 words as 16-byte vectors
+    if a.shape[1] == 8 and a.data_ptr() % 16:
+        a = a.clone()
+    return a
+
+
+def _device_of(*tensors) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    lib = _build.load(_SOURCE)
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.topk_hist_launch.argtypes = [p] * 5 + [i] * 9 + [p]
+        lib.topk_hist_launch.restype = i
+        lib.topk_emit_launch.argtypes = [p] * 9 + [i] * 10 + [p]
+        lib.topk_emit_launch.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def _query_chunks(nqb: int, bq: int, N: int):
+    step = max(1, _PLAIN_CHUNK_ELEMS // max(bq * N, 1))
+    for qb0 in range(0, nqb, step):
+        yield qb0, min(nqb, qb0 + step)
+
+
+def _expand_tiles(tiles: torch.Tensor, bq: int, bn: int) -> torch.Tensor:
+    """(nq, nn) per-tile flags -> (nq*bq, nn*bn) per-(query, row) flags."""
+    return tiles.repeat_interleave(bq, dim=0).repeat_interleave(bn, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# K1: pass 1, distance histogram + block-min summary (the "race")
+# ---------------------------------------------------------------------------
+
+def hamming_hist_plain(q: torch.Tensor, x: torch.Tensor, bins: int,
+                       n_valid: int, en: torch.Tensor, bq: int, bn: int):
+    """Plain PyTorch K1 on padded, tiled inputs -> (hist, block_min)."""
+    Q, N = q.shape[0], x.shape[0]
+    dev = q.device
+    nqb, nnb = Q // bq, N // bn
+    hist = torch.zeros((Q, bins), dtype=torch.int32, device=dev)
+    bmin = torch.empty((nqb, nnb), dtype=torch.int32, device=dev)
+    valid = torch.arange(N, device=dev) < n_valid
+    enabled = en != 0
+    for qb0, qb1 in _query_chunks(nqb, bq, N):
+        rows = slice(qb0 * bq, qb1 * bq)
+        dist = torch.clamp(hamming_xor(q[rows], x), max=bins - 1)
+        counted = _expand_tiles(enabled[qb0:qb1], bq, bn) & valid
+        hist[rows].scatter_add_(1, dist.long(), counted.to(torch.int32))
+        tile_min = torch.where(valid, dist, bins).reshape(
+            qb1 - qb0, bq, nnb, bn).amin(dim=(1, 3))
+        bmin[qb0:qb1] = torch.where(enabled[qb0:qb1], tile_min, bins)
+    return hist, bmin
+
+
+def hamming_hist_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
+                        bins: int, n_valid=None, block_mask=None,
+                        bq: int = 64, bn: int = 1024, sub: int = 64):
+    """q: (Q, W), x: (N, W) -> (hist (Q, bins) int32,
+    block_min (Q/bq, N/bn) int32). Replaces ``hamming_hist_pallas``.
+
+    Rows with global id >= n_valid (default N) are excluded from both
+    outputs; ``block_mask`` (Q/bq, N/bn) disables tiles (None = all
+    enabled). Q and N must be multiples of bq and bn."""
+    dev = _device_of(q_packed, x_packed)
+    Q, W = q_packed.shape
+    N = x_packed.shape[0]
+    bq, bn, sub = _check_geometry(Q, N, bq, bn, sub)
+    q32, x32 = _codes(q_packed), _codes(x_packed)
+    nv = N if n_valid is None else int(n_valid)
+    en = _tile_mask(block_mask, (Q // bq, N // bn), 1, dev)
+    if dev.type == "cpu":
+        return hamming_hist_plain(q32, x32, bins, nv, en, bq, bn)
+
+    if bq > _HIST_THREADS * 4 or 4 * (bq * bins + 1) > _SMEM_LIMIT:
+        raise ValueError(f"K1 takes bq <= 1024 and bq * bins <= 58111; "
+                         f"got bq={bq} bins={bins}")
+    nqb, nnb = Q // bq, N // bn
+    if nqb > 65535:
+        raise ValueError(f"K1 takes at most 65535 query blocks, got {nqb}")
+    hist = torch.zeros((Q, bins), dtype=torch.int32, device=dev)
+    bmin = torch.empty((nqb, nnb), dtype=torch.int32, device=dev)
+    threads = bq * max(1, _HIST_THREADS // bq)
+    n_split = max(1, min(nnb, -(-_HIST_TARGET_CTAS // nqb)))
+    tiles_per_cta = -(-nnb // n_split)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().topk_hist_launch(
+        q32.data_ptr(), x32.data_ptr(), en.data_ptr(), hist.data_ptr(),
+        bmin.data_ptr(), Q, N, W, nv, bins, bq, bn, tiles_per_cta, threads,
+        stream)
+    _raise_on(err, "K1 (topk_hist_launch)")
+    hamming_hist_kernel.launches += 1
+    return hist, bmin
+
+
+hamming_hist_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: pass 2, in-order emit of the winners (the "reports")
+# ---------------------------------------------------------------------------
+
+def hamming_emit_plain(q: torch.Tensor, x: torch.Tensor, r_star, n_lt,
+                       bins: int, k: int, n_valid: int, bm: torch.Tensor,
+                       en: torch.Tensor, slot_base, id_base: int, bq: int,
+                       bn: int):
+    """Plain PyTorch K2 on padded, tiled inputs -> (dists, ids) (Q, k).
+
+    A winner's slot adds into the output, as the Pallas kernel's one-hot
+    sum does; on consistent inputs (r*, n_lt and slot_base from the pass-1
+    histogram) every slot has at most one winner."""
+    Q, N = q.shape[0], x.shape[0]
+    dev = q.device
+    nqb = Q // bq
+    out_d = torch.zeros((Q, k), dtype=torch.int32, device=dev)
+    out_i = torch.zeros((Q, k), dtype=torch.int32, device=dev)
+    gid = torch.arange(N, dtype=torch.int32, device=dev)
+    valid = gid < n_valid
+    max_r = r_star.reshape(nqb, bq).amax(dim=1)
+    runs = (en != 0) & (bm <= max_r[:, None])
+    for qb0, qb1 in _query_chunks(nqb, bq, N):
+        rows = slice(qb0 * bq, qb1 * bq)
+        dist = torch.clamp(hamming_xor(q[rows], x), max=bins - 1)
+        active = _expand_tiles(runs[qb0:qb1], bq, bn) & valid
+        r = r_star[rows, None]
+        is_lt = active & (dist < r)
+        is_tie = active & (dist == r)
+        rank_lt = (slot_base[rows, None]
+                   + torch.cumsum(is_lt, dim=1, dtype=torch.int32) - 1)
+        rank_tie = (n_lt[rows, None]
+                    + torch.cumsum(is_tie, dim=1, dtype=torch.int32) - 1)
+        slot = torch.where(is_lt, rank_lt, torch.where(is_tie, rank_tie, k))
+        qi, ri = torch.nonzero((slot >= 0) & (slot < k), as_tuple=True)
+        s = slot[qi, ri].long()
+        qi = qi + qb0 * bq
+        out_d.index_put_((qi, s), dist[qi - qb0 * bq, ri], accumulate=True)
+        out_i.index_put_((qi, s), ri.to(torch.int32) + id_base,
+                         accumulate=True)
+    return out_d, out_i
+
+
+def hamming_emit_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
+                        r_star, n_lt, bins: int, k: int, n_valid=None,
+                        block_min=None, block_mask=None, slot_base=None,
+                        id_base=None, bq: int = 64, bn: int = 1024,
+                        sub: int = 64):
+    """Emit the top-k winners given the pass-1 radius. Replaces
+    ``hamming_emit_pallas``.
+
+    q: (Q, W), x: (N, W); r_star/n_lt: (Q,) int32. ``block_min``: the
+    (Q/bq, N/bn) pruning summary from K1 (None = every tile runs);
+    ``block_mask``: the same enable mask pass 1 ran under (None = all
+    enabled). ``slot_base`` (Q,) starts the below-r* counter (None =
+    zeros); ``id_base`` is added to every emitted row id (None = 0).
+
+    Returns (dists (Q, k), ids (Q, k)) int32, slot-ordered: dist < r* rows
+    in index order from ``slot_base``, then r*-ties in index order from
+    ``n_lt``; untouched slots are 0."""
+    dev = _device_of(q_packed, x_packed)
+    Q, W = q_packed.shape
+    N = x_packed.shape[0]
+    bq, bn, sub = _check_geometry(Q, N, bq, bn, sub)
+    q32, x32 = _codes(q_packed), _codes(x_packed)
+    nv = N if n_valid is None else int(n_valid)
+    ib = 0 if id_base is None else int(id_base)
+    tiles = (Q // bq, N // bn)
+    bm = _tile_mask(block_min, tiles, 0, dev)
+    en = _tile_mask(block_mask, tiles, 1, dev)
+    r = _vec(r_star, Q, 0, dev)
+    nlt = _vec(n_lt, Q, 0, dev)
+    sb = _vec(slot_base, Q, 0, dev)
+    if dev.type == "cpu":
+        return hamming_emit_plain(q32, x32, r, nlt, bins, k, nv, bm, en, sb,
+                                  ib, bq, bn)
+
+    out_d = torch.zeros((Q, k), dtype=torch.int32, device=dev)
+    out_i = torch.zeros((Q, k), dtype=torch.int32, device=dev)
+    threads = 32 * min(bq, 32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().topk_emit_launch(
+        q32.data_ptr(), x32.data_ptr(), en.data_ptr(), bm.data_ptr(),
+        r.data_ptr(), nlt.data_ptr(), sb.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), Q, N, W, nv, ib, bins, k, bq, bn, threads, stream)
+    _raise_on(err, "K2 (topk_emit_launch)")
+    hamming_emit_kernel.launches += 1
+    return out_d, out_i
+
+
+hamming_emit_kernel.launches = 0
+
+
+def reset_launch_counts() -> None:
+    hamming_hist_kernel.launches = 0
+    hamming_emit_kernel.launches = 0

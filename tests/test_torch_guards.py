@@ -1,0 +1,111 @@
+"""Guards of the PyTorch port: it stands alone, it never runs on the CPU
+unless asked to, and its kernel wrappers take the plain path only for CPU
+tensors — without counting a launch."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import carry, device
+from repro_torch.core import engine, layout
+from repro_torch.kernels import ops
+from repro_torch.kernels import topk_select as tsel
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            names = [str(node.args[0].value)]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    codes = np.zeros((10, 2), np.uint32)
+    if torch.cuda.is_available():
+        assert device.resolve().type == "cuda"
+        return
+    for call in (device.resolve,
+                 lambda: carry.codes(codes),
+                 lambda: carry.engine(codes, 64),
+                 lambda: carry.layout(codes, np.arange(10), np.arange(10),
+                                      np.array([0, 10]))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert device.resolve("cpu").type == "cpu"
+    assert device.default_backend() == "cpu"
+
+
+def test_cpu_tensors_take_the_plain_path_without_launching():
+    before = (tsel.hamming_hist_kernel.launches,
+              tsel.hamming_emit_kernel.launches)
+    rng = np.random.default_rng(0)
+    x = carry.codes(rng.integers(0, 1 << 32, (600, 2), dtype=np.uint32), "cpu")
+    q = carry.codes(rng.integers(0, 1 << 32, (8, 2), dtype=np.uint32), "cpu")
+    hist, bmin = tsel.hamming_hist_kernel(q, x, 65, bq=8, bn=200, sub=8)
+    out = tsel.hamming_emit_kernel(q, x, torch.full((8,), 30), torch.zeros(8),
+                                   65, 4, bq=8, bn=200, sub=8)
+    eng = engine.KNNEngine(codes=x, d=64).with_layout()
+    dd, ii = eng.search(q, 5)
+    assert int(hist.sum()) == 8 * 600 and bmin.shape == (1, 3)
+    assert out[0].shape == (8, 4) and dd.shape == (8, 5)
+    assert eng.query_plan(q, 5).select.path == "fused"
+    assert (tsel.hamming_hist_kernel.launches,
+            tsel.hamming_emit_kernel.launches) == before == (0, 0)
+    assert device.backend_of(x) == "cpu"
+
+
+def test_wrappers_refuse_other_devices_instead_of_falling_back():
+    q = torch.zeros((8, 2), dtype=torch.int32, device="meta")
+    x = torch.zeros((64, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsel.hamming_hist_kernel(q, x, 65, bq=8, bn=64, sub=8)
+    with pytest.raises(ValueError, match="tensors on"):
+        tsel.hamming_hist_kernel(torch.zeros((8, 2), dtype=torch.int32), x,
+                                 65, bq=8, bn=64, sub=8)
+
+
+def test_layout_runs_on_the_codes_device():
+    x = torch.zeros((300, 2), dtype=torch.int32)
+    lay = layout.build_layout(x, 64)
+    assert lay.codes.device == lay.perm.device == x.device
+    assert ops.topk_geometry(4, 300, 2, 65, backend="gpu")[0] == 8
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path, where):
+    """No CUDA card here, and a copy alone in an empty directory has no
+    port to import: either way a non-zero exit and no result line."""
+    script = REPO / "chip_smoke.py"
+    if where == "alone":
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    elif torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the checkout run would pass")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

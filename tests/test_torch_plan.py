@@ -1,0 +1,131 @@
+"""PyTorch port vs the JAX reference: the local planner
+(repro_torch.core.plan). For the same StoreStats, select requests,
+layout policies and forced-plan overrides, both packages must choose the
+same stages, and write the same reason and compact strings; the cost hints
+``explain()`` reports must agree; what the port has not ported raises."""
+import dataclasses
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import plan as jplan
+from repro_torch.core import plan as tplan
+
+FLAT = dict(n=1 << 17, d=128, w=4, q=256, backend="cpu")
+LAY = dict(FLAT, has_layout=True, mean_bucket_rows=256, n_buckets=512)
+
+SELECTS = [None, "auto", "composite", "counting", "bisect", "fused",
+           "fused_scan", "approx"]
+FORCES = [None, "layout=off", "select=fused_scan,chunk=4096",
+          "layout=local_sort", "select=counting,layout=prebuilt", "k_local=4",
+          "merge=hist_merge", "fanout=4", "reorder_local=1",
+          "candidates=gather", "candidates=full", "recall_target=0.9",
+          "select=approx,recall_target=0.9", "method=mxu",
+          {"select": "bisect", "chunk": "1000"}]
+
+
+def _norm(reason: str) -> str:
+    # the reference names XLA's top_k; the port's composite path is
+    # torch.topk — the only wording that differs
+    return reason.replace("XLA top_k", "top_k")
+
+
+def _plans(stats_kw, **kw):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the local_sort fallback warns
+        return (jplan.plan_local(jplan.StoreStats(**stats_kw), 16, **kw),
+                tplan.plan_local(tplan.StoreStats(**stats_kw), 16, **kw))
+
+
+def _same(jp, tp):
+    assert dataclasses.asdict(tp.select) == dataclasses.asdict(jp.select)
+    assert dataclasses.asdict(tp.candidates) == dataclasses.asdict(
+        jp.candidates)
+    assert dataclasses.asdict(tp.probe) == dataclasses.asdict(jp.probe)
+    assert tp.merge.kind == jp.merge.kind == "none"
+    assert tp.reason == _norm(jp.reason)
+    assert tp.compact() == jp.compact()
+
+
+@pytest.mark.parametrize("stats", ["flat", "layout"])
+@pytest.mark.parametrize("policy", ["auto", "require", "off"])
+@pytest.mark.parametrize("select", SELECTS)
+def test_plan_local_matches_reference(stats, policy, select):
+    jp, tp = _plans(FLAT if stats == "flat" else LAY, select=select,
+                    layout_policy=policy)
+    _same(jp, tp)
+
+
+@pytest.mark.parametrize("force", FORCES, ids=str)
+@pytest.mark.parametrize("stats", ["flat", "layout"])
+def test_forced_plan_overrides_match_reference(stats, force):
+    jp, tp = _plans(FLAT if stats == "flat" else LAY, force=force)
+    _same(jp, tp)
+
+
+@pytest.mark.parametrize("select", ["auto", "composite", "counting", "fused",
+                                    "fused_scan"])
+@pytest.mark.parametrize("stats", ["flat", "layout"])
+def test_explain_matches_reference(stats, select):
+    """Everything but the kernel names (the port names its own kernels)."""
+    jp, tp = _plans(FLAT if stats == "flat" else LAY, select=select)
+    je, te = jp.explain(), tp.explain()
+    for key in ("shape", "stages", "geometry", "predicted_pruning",
+                "compact"):
+        assert te[key] == je[key], key
+    assert te["reason"] == _norm(je["reason"])
+    assert te["kernels"] and "QueryPlan[" in tp.explain_str()
+
+
+def test_bad_requests_raise_like_reference():
+    stats = tplan.StoreStats(**FLAT)
+    with pytest.raises(ValueError):
+        tplan.plan_local(stats, 16, select="nope")
+    for bad in ("select=auto", "select=nope", "layout=sideways",
+                "candidates=nope", "merge=nope", "recall_target=2",
+                "bogus=1", "novalue"):
+        with pytest.raises(ValueError):
+            jplan.plan_local(jplan.StoreStats(**FLAT), 16, force=bad)
+        with pytest.raises(ValueError):
+            tplan.plan_local(stats, 16, force=bad)
+    assert tplan.parse_force("a=1, b = 2,,") == jplan.parse_force(
+        "a=1, b = 2,,")
+
+
+def test_unported_paths_raise_not_implemented():
+    """The approximate tier, K3 (method='pallas') and sharded plans name
+    their ROADMAP queue instead of quietly running another path."""
+    stats = tplan.StoreStats(**FLAT)
+    q = torch.zeros((2, 4), dtype=torch.int32)
+    codes = torch.zeros((64, 4), dtype=torch.int32)
+    approx = tplan.plan_local(stats, 4, select="approx")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        tplan.execute(approx, q, codes=codes)
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        approx.explain()
+    pallas = tplan.plan_local(stats, 4, select="counting", method="pallas")
+    with pytest.raises(NotImplementedError, match="K3"):
+        tplan.execute(pallas, q, codes=codes)
+    sharded = dataclasses.replace(
+        tplan.plan_local(stats, 4), merge=tplan.MergeStage(kind="sharded"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tplan.execute(sharded, q, codes=codes)
+    gather = dataclasses.replace(
+        tplan.plan_local(stats, 4),
+        candidates=tplan.CandidateStage(kind="gather"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tplan.execute(gather, q, codes=codes)
+
+
+def test_stats_and_auto_chunk_match_reference():
+    codes = np.zeros((1000, 8), np.uint32)
+    q = np.zeros((7, 8), np.uint32)
+    js = jplan.stats_of(codes, q, 256)
+    ts = tplan.stats_of(torch.from_numpy(codes.view(np.int32)),
+                        torch.from_numpy(q.view(np.int32)), 256)
+    assert dataclasses.asdict(ts) == dataclasses.asdict(js)
+    for d in (8, 64, 128, 256, 1024):
+        for chunk in (1000, 1 << 16, 1 << 20):
+            assert tplan._auto_chunk(chunk, d) == jplan._auto_chunk(chunk, d)
