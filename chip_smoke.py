@@ -5,30 +5,39 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed 0]
 
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each kernel (K1 pass-1 histogram, K2 pass-2 emit) bit-for-bit against its
-plain PyTorch version on the card, then drives the main path — exact
-Hamming kNN through the fused two-pass counting select,
-``KNNEngine(...).with_layout().search(q, k=16)`` — at Q=4096, N=2^20,
-d=256 on seeded clustered codes, checks the answers against an on-card
-brute force and that both kernels ran once per search, and times it. The
-same store then runs through ``select="fused"`` on insertion order.
+It builds the port's CUDA kernels from the sources in the checkout (one
+nvcc per source, all at once) and drives two paths, each with the kernel
+launch counts set to 0 just before it and read just after:
 
-The plain versions also run once at the main path's full shape, and
-their outputs are held bit-for-bit against the kernels' there too.
+* exact Hamming kNN — ``KNNEngine(...).with_layout().search(q, k=16)`` at
+  Q=4096, N=2^20, d=256 on seeded clustered codes, through K1 (pass-1
+  histogram) and K2 (pass-2 emit), checked against an on-card brute force;
+  the same store then runs through ``select="fused"`` on insertion order.
+  K1 and K2 are held bit-for-bit against their plain PyTorch versions on
+  edge cases and at the main path's full shape.
+* kNN-LM serving of gemma-2b at its registered width (18 layers, d_model
+  2048, MQA with hd 256, vocab 256000, bf16), weights from a seeded
+  generator: a flash prefill of 8 x 2048 tokens through K4 (flash
+  attention, 18 launches per prefill), checked against the plain blockwise
+  path; a datastore of 512 x 2047 = 1,048,064 entries built from the
+  model's own hidden states with 256-bit ITQ codes; the continuous-batching
+  server answering 16 requests with retrieval in every decode step; and
+  one decode batch's retrieval through the fused select (K1 + K2), equal
+  to the composite path the config's plan picks. K4 is held against its
+  plain version on edge cases and at the main shape.
 
-Output: progress lines; a ``kernels`` JSON line (launches on the main
-path, error against the plain version, kernel / plain / bound ms, and
-what sets the bound: the faster of CUDA-core popcounts and an int8
-tensor-core plane product, the histogram counts, or HBM bytes); the
-card's name and power limit as nvidia-smi reports them; and, last,
-``{"ok": true, "device": {...}}``. Any failing phase exits non-zero and
-prints no result. Without a CUDA device, or outside a checkout, it exits
-non-zero at once.
+Output: progress lines; a ``main_path`` and a ``serving_path`` JSON line;
+a ``kernels`` JSON line (launches on the paths, error against the plain
+version, kernel / plain / library ms, and the bound: the least time for
+the operations or the HBM bytes, whichever is larger); the card's name and
+power limit as nvidia-smi reports them; and, last, ``{"ok": true,
+"device": {...}}``. Any failing phase exits non-zero and prints no result.
+Without a CUDA device, or outside a checkout, it exits non-zero at once.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,9 +52,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import carry  # noqa: E402
-from repro_torch.core import binary, topk  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import binary, plan, quantize, retrieval, topk  # noqa: E402
+from repro_torch.dist import steps  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import topk_select as tsel  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.runtime import server  # noqa: E402
 
 N_ROWS = 1 << 20         # 1M codes: SIFT1M/GIST1M-class store
 D_BITS = 256             # kNN-TagSpace: d = 256, k = 16, 4096 queries
@@ -62,7 +76,29 @@ POPC_PER_CLK_SM = 16
 INT8_OPS_PER_S = 1.979e15
 SMEM_OPS_PER_CLK_SM = 32
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores (data sheet, 700 W)
 DEV = "cuda"
+
+# the serving path: gemma-2b at its registered config, nothing cut
+ARCH = "gemma-2b"
+PREFILL_BATCH, PREFILL_LEN = 8, 2048
+CORPUS_SEQS, CORPUS_BATCH = 512, 4     # 512 x 2047 = 1,048,064 entries
+ITQ_ITERS = 8
+N_REQUESTS, PROMPT_LEN, MAX_NEW = 16, 16, 32
+SERVE_BATCH, SERVE_LEN = 8, 256
+# flash vs the plain blockwise path. bf16, 18 layers: relative L2 of the
+# final hidden state. 18 random-init layers amplify any rounding
+# difference: on one H100 with seed 0, the blockwise path against itself
+# at chunk 256 instead of 1024 (printed beside it) differs by 1.6e-2,
+# flash by 2.0e-2, so the limit is 3e-2. f32, 2 layers: max |diff| of the final hidden state,
+# where rounding no longer hides a wrong kernel.
+FLASH_XLA_REL_L2_BF16 = 3e-2
+FLASH_XLA_ATOL_F32 = 1e-4
+# K4 vs its plain version: f32 atol; bf16 within 2 bf16 ulps of the plain
+# output plus the f32 atol (both round one f32 value that differs only in
+# summation order)
+K4_ATOL_F32 = 1e-5
+K4_BF16_ULPS = 2
 
 
 def fail(msg: str) -> int:
@@ -346,6 +382,328 @@ def bound_ms(pairs: int, words: int, hist_adds: int, nbytes: int,
     return t[0] * 1e3, ("bytes" if t[1] == "HBM bytes" else "operations"), t[1]
 
 
+# ---------------------------------------------------------------------------
+# phase 6: K4 against its plain version
+# ---------------------------------------------------------------------------
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values at |x| (8 significand bits)."""
+    e = torch.floor(torch.log2(torch.clamp(x.abs(), min=1e-30)))
+    return torch.exp2(e - 7)
+
+
+def k4_case(name, B, S, H, KV, hd, dtype, bq=512, bk=512, seed=0):
+    """K4 through ``ops.flash_attention`` (padding, strided views) against
+    the plain version on the same padded inputs; returns (max |err|, max
+    err in bf16 ulps or None)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=DEV).to(dtype)
+               for n in (H, KV, KV))
+    out = ops.flash_attention(q, k, v, bq=bq, bk=bk)
+    s_pad = -(-S // max(bq, bk)) * max(bq, bk)
+    pad = lambda a: torch.nn.functional.pad(
+        a, (0, 0, 0, 0, 0, s_pad - S)).transpose(1, 2)
+    ref = fa.flash_attention_plain(pad(q), pad(k), pad(v), min(bq, s_pad),
+                                   min(bk, s_pad)).transpose(1, 2)[:, :S]
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"K4 {name}: {tuple(out.shape)} {out.dtype} != "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+    diff = (out.float() - ref.float()).abs()
+    err, ulps = float(diff.max()), None
+    if dtype == torch.bfloat16:
+        ulp = bf16_ulp(ref.float())
+        ulps = float((diff / ulp).max())
+        ok = bool((diff <= K4_BF16_ULPS * ulp + K4_ATOL_F32).all())
+    else:
+        ok = err <= K4_ATOL_F32
+    print(f"  K4 case {name}: B={B} S={S} H={H} KV={KV} hd={hd} "
+          f"{str(dtype).split('.')[-1]} bq={bq} bk={bk} max_abs_err={err:.3e}"
+          + (f" ({ulps:.2f} ulps)" if ulps is not None else ""), flush=True)
+    if not ok:
+        raise AssertionError(f"K4 {name} disagrees with its plain version")
+    return err
+
+
+def run_k4_cases():
+    cases = [(f"{s}", *s, dt) for s in
+             [(2, 256, 4, 2, 64, 64, 64), (2, 256, 4, 2, 64, 128, 64),
+              (1, 192, 4, 4, 64, 64, 128), (2, 200, 2, 1, 32, 64, 64)]
+             for dt in (torch.float32, torch.bfloat16)]
+    err = 0.0
+    for name, B, S, H, KV, hd, bq, bk, dt in cases:
+        err = max(err, k4_case("tests/test_kernels.py " + name, B, S, H, KV,
+                               hd, dt, bq, bk))
+    for name, shape, dt in [
+            ("S=1", (2, 1, 8, 1, 256), torch.bfloat16),
+            ("S=1", (2, 1, 8, 1, 256), torch.float32),
+            ("GQA G=2, hd=128, ragged", (2, 300, 4, 2, 128), torch.float32),
+            ("GQA G=2, hd=128, ragged", (2, 300, 4, 2, 128), torch.bfloat16),
+            ("main shape", (PREFILL_BATCH, PREFILL_LEN, 8, 1, 256),
+             torch.bfloat16),
+            ("main shape", (PREFILL_BATCH, PREFILL_LEN, 8, 1, 256),
+             torch.float32)]:
+        err = max(err, k4_case(name, *shape, dt))
+    return err
+
+
+def k4_timings():
+    """K4, its plain version and SDPA at the main shape (bf16, the kernel
+    layout), and the bound: 2 * B * H * S^2 * hd FLOPs (QK^T and PV over
+    the causal half) on the bf16 tensor cores, or q, k, v and o once
+    through HBM, whichever takes longer."""
+    B, H, KV, S, hd = PREFILL_BATCH, 8, 1, PREFILL_LEN, 256
+    g = torch.Generator(device=DEV).manual_seed(7)
+    q = torch.randn((B, H, S, hd), generator=g, device=DEV).bfloat16()
+    k, v = (torch.randn((B, KV, S, hd), generator=g, device=DEV).bfloat16()
+            for _ in range(2))
+    ms, _ = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v), N_TIMED)
+    plain_ms, _ = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 1)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True, scale=hd ** -0.5)
+    lib_ms, _ = cuda_ms(sdpa, N_TIMED)
+    flops = 2 * B * H * S * S * hd
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t = max((flops / BF16_FLOPS_PER_S, "operations"),
+            (nbytes / HBM_BYTES_PER_S, "bytes"))
+    print(f"  K4 at the main shape (B={B} H={H} KV={KV} S={S} hd={hd} bf16): "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} "
+          f"ms; bound {t[0] * 1e3:.4f} ms by {t[1]} ({flops / 1e9:.1f} "
+          f"GFLOP, {nbytes / 2**20:.0f} MiB)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": t[0] * 1e3, "bound_by": t[1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: kNN-LM serving of gemma-2b
+# ---------------------------------------------------------------------------
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def final_hidden(model, cfg, tokens, impl, chunk=1024):
+    with torch.inference_mode():
+        _, _, h = lm.forward(model, cfg, tokens, return_hidden=True,
+                             ctx=lm.RunCtx(attn_impl=impl, attn_chunk=chunk))
+    return h
+
+
+def flash_vs_xla_f32(cfg, seed):
+    """A 2-layer, full-width float32 copy of the model: flash (K4) and the
+    plain blockwise path agree to FLASH_XLA_ATOL_F32."""
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    model = lm.init_params(torch.Generator(device=DEV).manual_seed(seed + 1),
+                           small, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(seed + 2)
+    tok = torch.randint(0, cfg.vocab_size, (2, PREFILL_LEN), generator=g,
+                        device=DEV)
+    a = final_hidden(model, small, tok, "flash")
+    b = final_hidden(model, small, tok, "xla")
+    err = float((a - b).abs().max())
+    print(f"  2-layer f32 copy: flash vs xla max_abs_err {err:.3e} "
+          f"(limit {FLASH_XLA_ATOL_F32})", flush=True)
+    if err > FLASH_XLA_ATOL_F32:
+        raise AssertionError("flash and xla prefill disagree in f32")
+    return err
+
+
+def build_corpus_store(model, cfg, corpus):
+    """Hidden states of every corpus sequence (flash forward, batches of
+    CORPUS_BATCH) -> (hidden[:, :-1], tokens[:, 1:]) pairs -> the store."""
+    n_seq, S = corpus.shape
+    hid = torch.empty((n_seq, S - 1, cfg.d_model), dtype=torch.bfloat16,
+                      device=DEV)
+    t0 = time.perf_counter()
+    for i in range(0, n_seq, CORPUS_BATCH):
+        hid[i:i + CORPUS_BATCH] = final_hidden(
+            model, cfg, corpus[i:i + CORPUS_BATCH], "flash")[:, :-1]
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    with torch.inference_mode():
+        store = retrieval.build_datastore(
+            hid.reshape(-1, cfg.d_model), corpus[:, 1:].reshape(-1),
+            cfg.retrieval.code_bits, itq_iters=ITQ_ITERS,
+            generator=torch.Generator(device=DEV).manual_seed(11))
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    del hid
+    n = store.codes.shape[0]
+    print(f"  datastore: N={n} entries ({n_seq} x {S - 1}), "
+          f"{cfg.retrieval.code_bits}-bit codes, "
+          f"{store.codes.numel() * 4 / 2**20:.1f} MiB of codes; hidden "
+          f"states {t_fwd:.1f} s, ITQ + encode {t_all - t_fwd:.1f} s, "
+          f"build {t_all:.1f} s", flush=True)
+    return store, t_fwd, t_all
+
+
+def decode_breakdown(model, cfg, store, srv):
+    """Where a decode step's time goes, at the server's batch: the decode
+    step alone, the retrieval on the config's plan and on fused, and the
+    whole serve step (CUDA events, median of N_TIMED)."""
+    rcfg = cfg.retrieval
+    tok = torch.from_numpy(srv.last_token).to(DEV)
+    active = torch.ones(SERVE_BATCH, dtype=torch.bool, device=DEV)
+    with torch.inference_mode():
+        _, _, h = lm.decode_step(model, cfg, tok, srv.state,
+                                 return_hidden=True)
+        h = h[:, 0, :]
+        out = {
+            "decode_step_ms": cuda_ms(lambda: lm.decode_step(
+                model, cfg, tok, srv.state, active=active)[0], N_TIMED)[0],
+            "knn_logits_ms": cuda_ms(lambda: retrieval.knn_logits(
+                store, h, rcfg, cfg.vocab_size), N_TIMED)[0],
+            "knn_logits_fused_ms": cuda_ms(lambda: retrieval.knn_logits(
+                store, h, rcfg, cfg.vocab_size, select="fused"),
+                N_TIMED)[0],
+        }
+    serve = steps.make_serve_step(cfg, SERVE_LEN)
+    out["serve_step_ms"] = cuda_ms(lambda: serve(model, tok, srv.state,
+                                                 active, store)[0],
+                                   N_TIMED)[0]
+    print("  decode step at batch {}: {}".format(SERVE_BATCH, ", ".join(
+        f"{k} {v:.2f}" for k, v in out.items())), flush=True)
+    return out
+
+
+def serving_path(seed: int):
+    cfg = get_config(ARCH)
+    rcfg = cfg.retrieval
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=DEV).manual_seed(seed),
+                           cfg, device=DEV)
+    torch.cuda.synchronize()
+    n_params = lm.param_count(cfg)
+    if sum(p.numel() for p in model.parameters()) != n_params:
+        raise AssertionError("the model's parameters != param_count")
+    print(f"model: {ARCH} {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV head, hd "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+          f"param_count {n_params:,}; {torch.cuda.memory_allocated() / 1e9:.3f}"
+          f" GB in use; init {time.perf_counter() - t0:.2f} s", flush=True)
+
+    g = torch.Generator(device=DEV).manual_seed(seed + 5)
+    corpus = torch.randint(0, cfg.vocab_size, (CORPUS_SEQS, PREFILL_LEN),
+                           generator=g, device=DEV)
+    prompts = corpus[:PREFILL_BATCH]
+
+    # the prefill, through K4: the launch count over one call
+    prefill = steps.make_prefill_step(cfg, seq_len=PREFILL_LEN,
+                                      attn_impl="flash", device=DEV)
+    batch = {"tokens": prompts}
+    fa.reset_launch_counts()
+    logits, state = prefill(model, batch)
+    torch.cuda.synchronize()
+    k4_launches = fa.flash_attention_kernel.launches
+    if k4_launches != cfg.num_layers:
+        raise AssertionError(f"K4 launched {k4_launches} times in one "
+                             f"prefill, expected {cfg.num_layers}")
+    if (tuple(logits.shape) != (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())
+            or state["cache"].k.shape[:3] != (cfg.num_layers, PREFILL_BATCH,
+                                              PREFILL_LEN)):
+        raise AssertionError("prefill output shape or values wrong")
+    del logits, state
+    pre_ms, _ = cuda_ms(lambda: prefill(model, batch)[1]["pos"], N_TIMED)
+    tok_s = PREFILL_BATCH * PREFILL_LEN / pre_ms * 1e3
+    print(f"  prefill (flash, {PREFILL_BATCH} x {PREFILL_LEN}): K4 launches "
+          f"{k4_launches}, median {pre_ms:.1f} ms, {tok_s:.0f} tokens/s",
+          flush=True)
+    h_xla = final_hidden(model, cfg, prompts, "xla")
+    err_bf16 = rel_l2(final_hidden(model, cfg, prompts, "flash"), h_xla)
+    noise = rel_l2(final_hidden(model, cfg, prompts, "xla", chunk=256), h_xla)
+    del h_xla
+    print(f"  flash vs xla final hidden state, {cfg.num_layers} bf16 layers: "
+          f"relative L2 {err_bf16:.3e} (limit {FLASH_XLA_REL_L2_BF16}); xla "
+          f"chunk 256 vs 1024: {noise:.3e}", flush=True)
+    if not err_bf16 <= FLASH_XLA_REL_L2_BF16:
+        raise AssertionError("flash and xla prefill disagree in bf16")
+    err_f32 = flash_vs_xla_f32(cfg, seed)
+
+    store, t_hidden, t_build = build_corpus_store(model, cfg, corpus)
+
+    srv = server.Server(cfg, model, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                        store=store, device=DEV)
+    print(f"  server plan: {srv.retrieval_plan.compact()} "
+          f"({srv.retrieval_plan.reason})", flush=True)
+    reqs = [server.Request(uid=i, prompt=corpus[i, :PROMPT_LEN].cpu().numpy()
+                           .astype(np.int32), max_new_tokens=MAX_NEW)
+            for i in range(N_REQUESTS)]
+    for r in reqs:
+        if not srv.submit(r):
+            raise AssertionError(f"request {r.uid} shed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = srv.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = srv.stats()
+    if (st["lost"] != 0 or st["done"] != N_REQUESTS
+            or any(r.status != "done" or len(r.out_tokens) != MAX_NEW
+                   for r in reqs)
+            or any(not 0 <= t < cfg.vocab_size
+                   for r in reqs for t in r.out_tokens)):
+        raise AssertionError(f"serving failed: {st}")
+    new_tok = N_REQUESTS * MAX_NEW
+    print(f"  served {st['done']}/{N_REQUESTS} requests ({PROMPT_LEN}-token "
+          f"prompts, {MAX_NEW} new tokens each) in {ticks} ticks, "
+          f"{wall:.2f} s: p50 token {st['p50_token_s'] * 1e3:.2f} ms, p99 "
+          f"token {st['p99_token_s'] * 1e3:.2f} ms, {new_tok / wall:.1f} new "
+          f"tokens/s; lost {st['lost']}, rung {st['rung']}", flush=True)
+
+    # one decode batch's hidden states through the config's plan and fused
+    with torch.inference_mode():
+        tok = torch.from_numpy(srv.last_token).to(DEV)
+        _, _, h = lm.decode_step(model, cfg, tok, srv.state,
+                                 return_hidden=True)
+        h = h[:, 0, :]
+        q_codes = binary.pack_bits(quantize.itq_encode(h, store.itq))
+        p_cfg = retrieval.plan_for_store(store, rcfg, SERVE_BATCH)
+        p_fused = retrieval.plan_for_store(store, rcfg, SERVE_BATCH,
+                                           select="fused")
+        d0, i0 = plan.execute(p_cfg, q_codes, codes=store.codes)
+        d1, i1 = plan.execute(p_fused, q_codes, codes=store.codes)
+        lp0 = retrieval.knn_logits(store, h, rcfg, cfg.vocab_size)
+        tsel.reset_launch_counts()
+        lp1 = retrieval.knn_logits(store, h, rcfg, cfg.vocab_size,
+                                   select="fused")
+        torch.cuda.synchronize()
+    fused_launches = (tsel.hamming_hist_kernel.launches,
+                      tsel.hamming_emit_kernel.launches)
+    if not (torch.equal(d0, d1) and torch.equal(i0, i1)
+            and torch.equal(lp0, lp1)) or fused_launches != (1, 1):
+        raise AssertionError(f"fused retrieval != {p_cfg.select.path} "
+                             f"(launches K1, K2 = {fused_launches})")
+    print(f"  decode batch retrieval: {p_cfg.select.path} == fused "
+          f"(dists, ids, log-probs identical; K1, K2 launched "
+          f"{fused_launches})", flush=True)
+    steps_ms = decode_breakdown(model, cfg, store, srv)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {"arch": ARCH, "param_count": n_params,
+           "prefill_batch": PREFILL_BATCH, "prefill_len": PREFILL_LEN,
+           "prefill_ms": pre_ms, "prefill_tokens_per_s": tok_s,
+           "k4_launches_per_prefill": k4_launches,
+           "flash_vs_xla_rel_l2_bf16": err_bf16,
+           "xla_chunk_rel_l2_bf16": noise,
+           "flash_vs_xla_max_abs_err_f32_2layer": err_f32,
+           "store_entries": int(store.codes.shape[0]),
+           "store_code_bytes": store.codes.numel() * 4,
+           "store_hidden_s": t_hidden, "store_build_s": t_build,
+           "serve_plan": p_cfg.compact(), "serve_ticks": ticks,
+           "serve_wall_s": wall, "p50_token_ms": st["p50_token_s"] * 1e3,
+           "p99_token_ms": st["p99_token_s"] * 1e3,
+           "new_tokens_per_s": new_tok / wall, "lost": st["lost"],
+           "peak_gb": peak, **steps_ms}
+    del srv, store, model, corpus
+    torch.cuda.empty_cache()
+    return out
+
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -364,10 +722,14 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     sms, clk_hz = props.multi_processor_count, max_clk_mhz * 1e6
 
-    # phase 2: build the kernels from the checkout's sources
+    # phase 2: build the kernels from the checkout's sources, one nvcc per
+    # source, all started together
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+    sources = [tsel._SOURCE, fa._SOURCE]
     t0 = time.perf_counter()
-    logs = _build.build([tsel._SOURCE])
-    print(f"build: {tsel._SOURCE} in {time.perf_counter() - t0:.1f} s",
+    logs = _build.build(sources)
+    print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for log in logs.values():
         for line in log.splitlines():
@@ -400,8 +762,8 @@ def main() -> int:
         np.random.default_rng(args.seed + 1).choice(N_QUERIES, N_CHECK,
                                                     replace=False)).to(DEV)
     print(f"main path: Q={N_QUERIES} N={N_ROWS} d={D_BITS} k={K}", flush=True)
-    plan = eng.query_plan(q, K)
-    print(f"  plan: {plan.compact()} ({plan.reason})", flush=True)
+    qplan = eng.query_plan(q, K)
+    print(f"  plan: {qplan.compact()} ({qplan.reason})", flush=True)
     launches, main_ms = drive("with_layout().search", eng, q, sample)
     kt = kernel_timings(q, eng.layout.codes, "layout order")
     if kt["k1_err"] or kt["k2_err"]:
@@ -421,6 +783,17 @@ def main() -> int:
                                sms, clk_hz)
     print(f"bounds: K1 {b1:.4f} ms set by {route1}; K2 {b2:.4f} ms set by "
           f"{route2}", flush=True)
+
+    # phase 6: K4 against its plain version, then its times at the main
+    # shape
+    print("K4 vs plain (f32 atol {0}; bf16 {1} ulps + {0}):".format(
+        K4_ATOL_F32, K4_BF16_ULPS), flush=True)
+    k4_err = run_k4_cases()
+    k4 = k4_timings()
+
+    # phase 7: kNN-LM serving of gemma-2b, prefill through K4
+    print(f"serving path: {ARCH}", flush=True)
+    sp = serving_path(args.seed)
     print("main_path: " + json.dumps({
         "search_ms": main_ms, "queries_per_s": N_QUERIES / main_ms * 1e3,
         "blocks_skipped_frac": kt["skipped"],
@@ -428,6 +801,7 @@ def main() -> int:
         "insertion_order_blocks_skipped_frac": ft["skipped"],
         "insertion_order_k1_ms": ft["k1_ms"],
         "insertion_order_k2_ms": ft["k2_ms"]}), flush=True)
+    print("serving_path: " + json.dumps(sp), flush=True)
     src = "src/repro_torch/kernels/csrc/topk_select.cu"
     print(json.dumps({"kernels": [
         {"name": "K1 hamming_hist_kernel", "route": "cuda", "source": src,
@@ -440,6 +814,14 @@ def main() -> int:
          "launches": launches["K2"], "max_abs_err": k2_err,
          "ms": kt["k2_ms"], "plain_ms": kt["k2_plain"], "bound_ms": b2,
          "bound_by": by2, "bound_route": route2, "library_ms": None},
+        {"name": "K4 flash_attention_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:30",
+         "launches": sp["k4_launches_per_prefill"], "max_abs_err": k4_err,
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "bound_route": "bf16 tensor cores" if k4["bound_by"] ==
+         "operations" else "HBM bytes", "library_ms": k4["library_ms"]},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """Carry ``repro``'s state across to the port.
 
-``repro`` hands its state over as numpy arrays: packed codes (uint32), and
-optionally a ``BucketLayout``'s ``codes``/``perm``/``inv``/``starts``. These
-functions return the port's tensors, ``BucketLayout`` and ``KNNEngine`` on
-the given device (CUDA unless ``device="cpu"`` is asked for; with no
-device given and no CUDA device present they raise). Codes keep their bit
-pattern: uint32 words are reinterpreted as int32, not converted.
+``repro`` hands its state over as numpy arrays: packed codes (uint32),
+optionally a ``BucketLayout``'s ``codes``/``perm``/``inv``/``starts``, an
+``lm.init_params`` pytree, ``ITQParams`` and a ``DataStore``. These
+functions return the port's tensors, ``BucketLayout``, ``KNNEngine``,
+model, ``ITQParams`` and ``DataStore`` on the given device (CUDA unless
+``device="cpu"`` is asked for; with no device given and no CUDA device
+present they raise). Codes keep their bit pattern: uint32 words are
+reinterpreted as int32, not converted; bfloat16 leaves (numpy's
+``ml_dtypes.bfloat16``) keep theirs through a 16-bit view.
 """
 from __future__ import annotations
 
@@ -13,8 +16,11 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quantize, retrieval
 from repro_torch.core.engine import KNNEngine
 from repro_torch.core.layout import BucketLayout
+from repro_torch.models import lm
 
 
 def codes(packed, device=None) -> torch.Tensor:
@@ -43,3 +49,69 @@ def engine(packed, d: int, layout_arrays=None, device=None) -> KNNEngine:
     dev = device_mod.resolve(device)
     lay = None if layout_arrays is None else layout(*layout_arrays, device=dev)
     return KNNEngine(codes=codes(packed, dev), d=d, layout=lay)
+
+
+def tensor(a, device=None) -> torch.Tensor:
+    """A numpy array (float32, int32 or bfloat16) -> tensor, same bits."""
+    dev = device_mod.resolve(device)
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def lm_params(tree, cfg: ModelConfig, device=None) -> lm.LM:
+    """``repro``'s ``lm.init_params`` pytree as numpy (``blocks`` leaves
+    stacked on a leading layer axis) -> the port's model."""
+    dev = device_mod.resolve(device)
+    model = lm._build(cfg, dev)
+    flat = {"embed.table": tree["embed"]["table"],
+            "final_norm.scale": tree["final_norm"]["scale"]}
+    if "unembed" in tree:
+        flat["unembed.table"] = tree["unembed"]["table"]
+    for part, leaves in tree["blocks"].items():
+        for leaf, stacked in _leaves(leaves):
+            for i in range(cfg.num_layers):
+                flat[f"blocks.{i}.{part}.{leaf}"] = np.asarray(stacked)[i]
+    params = dict(model.named_parameters())
+    if set(flat) != set(params):
+        raise ValueError(f"pytree leaves {sorted(set(flat) ^ set(params))} "
+                         f"do not match the model")
+    for name, p in params.items():
+        t = tensor(flat[name], dev)
+        if t.shape != p.shape or t.dtype != p.dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} != "
+                             f"{tuple(p.shape)} {p.dtype}")
+        p.copy_(t)
+    return model
+
+
+def _leaves(d, prefix=""):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def itq(params, device=None) -> quantize.ITQParams:
+    """``repro`` ``ITQParams`` (mean, proj, rot) as numpy -> the port's."""
+    dev = device_mod.resolve(device)
+    return quantize.ITQParams(*(tensor(np.asarray(a, np.float32), dev)
+                                for a in params))
+
+
+def datastore(store, device=None) -> retrieval.DataStore:
+    """``repro`` ``DataStore`` as numpy -> the port's. Its layout, when it
+    has one, is carried too; frozen key positions are not (mutable stores
+    are not ported)."""
+    dev = device_mod.resolve(device)
+    lay = None
+    if store.layout is not None:
+        L = store.layout
+        lay = layout(L.codes, L.perm, L.inv, L.starts, device=dev)
+    return retrieval.DataStore(
+        codes=codes(store.codes, dev),
+        values=_int32(store.values, dev),
+        itq=itq(store.itq, dev), layout=lay)

@@ -23,6 +23,16 @@ def resolve(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def same(a, b) -> bool:
+    """Whether two devices are one: ``cuda`` and ``cuda:<current>`` are."""
+    def canon(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return canon(a) == canon(b)
+
+
 def backend_of(dev) -> str:
     """Backend name of a device (or of a tensor's device)."""
     if isinstance(dev, torch.Tensor):

@@ -1,0 +1,93 @@
+"""Step builders: the one place the prefill and serve computations are
+assembled (port of the single-device half of ``repro.dist.steps``).
+
+Without a mesh there are no partition specs to return, so each builder
+returns its step function alone. Steps run under ``torch.inference_mode``.
+The serve builder is memoized per (cfg, max_len, retrieval variant), as
+``repro``'s is: the server asks for its rungs' steps again mid-serve, and
+failover must find the step it already has. The train step and the
+per-unit search steps wait (ROADMAP queue 1 items 11 and 8).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import retrieval as retrieval_mod
+from repro_torch.models import lm
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(cfg: ModelConfig, seq_len: int, *,
+                      causal_skip: bool = False, attn_p_bf16: bool = False,
+                      attn_chunk: int = 1024, attn_impl: str = "xla",
+                      device=None):
+    """Returns ``prefill_fn(model, batch) -> (logits, decode_state)`` over
+    the full prompt, with ``batch["tokens"]`` (B, S) moved to ``device`` —
+    CUDA unless ``device="cpu"``. ``seq_len`` is ``repro``'s argument; as
+    there, the prompts' own length is what runs."""
+    dev = device_mod.resolve(device)
+    ctx = lm.RunCtx(causal_skip=causal_skip, attn_p_bf16=attn_p_bf16,
+                    attn_chunk=attn_chunk, attn_impl=attn_impl)
+
+    @torch.inference_mode()
+    def prefill_fn(model, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        return lm.prefill(model, cfg, tokens, batch.get("prefix_emb"), ctx)
+
+    return prefill_fn
+
+
+# ---------------------------------------------------------------------------
+# serve
+# ---------------------------------------------------------------------------
+
+# (cfg, max_len, with_retrieval, select) -> serve_fn
+_SERVE_CACHE: dict = {}
+
+
+def make_serve_step(cfg: ModelConfig, max_len: int, *,
+                    with_retrieval: Optional[bool] = None, nprobe: int = 0,
+                    probe_positions=None, select: Optional[str] = None,
+                    recall_target: Optional[float] = None):
+    """Returns ``serve_fn(model, token (B,1), state, active (B,)[, store])
+    -> (logits (B,1,V) f32, new_state)`` — one decode step for every active
+    slot; the store argument exists iff retrieval is on. The degraded
+    variants (``nprobe > 0``, ``select="approx"``) raise: ROADMAP queue 1
+    items 6 and 9."""
+    if with_retrieval is None:
+        with_retrieval = cfg.retrieval.enabled
+    if nprobe > 0 or probe_positions is not None:
+        raise NotImplementedError(retrieval_mod._NOT_PORTED["probe"])
+    if select == "approx" or recall_target is not None:
+        raise NotImplementedError(retrieval_mod._NOT_PORTED["approx"])
+    key = (cfg, int(max_len), bool(with_retrieval), select)
+    if key in _SERVE_CACHE:
+        return _SERVE_CACHE[key]
+
+    rcfg = cfg.retrieval
+    if with_retrieval:
+        @torch.inference_mode()
+        def serve_fn(model, token, state, active, store):
+            logits, new_state, hidden = lm.decode_step(
+                model, cfg, token, state, active=active, return_hidden=True)
+            knn = retrieval_mod.knn_logits(store, hidden[:, 0, :], rcfg,
+                                           cfg.vocab_size, select=select)
+            mixed = retrieval_mod.interpolate(logits[:, 0, :], knn,
+                                              rcfg.interpolation)
+            return mixed[:, None, :], new_state
+    else:
+        @torch.inference_mode()
+        def serve_fn(model, token, state, active):
+            logits, new_state = lm.decode_step(model, cfg, token, state,
+                                               active=active)
+            return logits.float(), new_state
+
+    _SERVE_CACHE[key] = serve_fn
+    return serve_fn

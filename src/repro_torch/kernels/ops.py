@@ -1,5 +1,5 @@
-"""Public wrappers around the two-pass kernels (port of the single-device
-half of ``repro.kernels.ops``).
+"""Public wrappers around the two-pass kernels and flash attention (port
+of the single-device half of ``repro.kernels.ops``).
 
 Shapes are padded to block multiples here so the kernels stay simple;
 padded dataset rows are masked exactly inside the kernels by ``n_valid``.
@@ -17,6 +17,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.core.topk import sort_key_val
 from repro_torch.kernels import tuning
+from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.topk_select import (hamming_emit_kernel,
                                              hamming_hist_kernel)
 
@@ -179,3 +180,20 @@ def hamming_topk(q_packed: torch.Tensor, x_packed: torch.Tensor, k: int,
             "p1_blocks_skipped": (~enabled).sum(dtype=torch.int32),
             "block_min": block_min}
     return out_d, out_i
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bq: int = 512, bk: int = 512) -> torch.Tensor:
+    """Causal flash-attention forward. q: (B, S, H, hd); k, v: (B, S, KV, hd)
+    -> (B, S, H, hd). Pads S to a block multiple (future positions are
+    causally invisible); the kernel reads the (B, H, S, hd) views through
+    their strides, so the transposes copy nothing."""
+    B, S, H, hd = q.shape
+    s_pad = _round_up(S, max(bq, bk))
+    if s_pad != S:
+        pz = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, s_pad - S))
+        q, k, v = pz(q), pz(k), pz(v)
+    out = flash_attention_kernel(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        bq=min(bq, s_pad), bk=min(bk, s_pad))
+    return out.transpose(1, 2)[:, :S]

@@ -1,0 +1,107 @@
+"""PyTorch port vs the JAX reference: K4, the causal GQA flash-attention
+forward (``ops.flash_attention`` and ``flash_attention_kernel``).
+
+On CPU tensors the port runs K4's plain version; the reference runs its
+Pallas kernel in interpret mode. Inputs come from a numpy seed.
+Tolerances: float32 atol 3e-6 / rtol 1e-5 against the reference kernel
+(tests/test_kernels.py's bound against the blockwise oracle: only the
+summation order differs); bfloat16 within 0.05 of the f32 blockwise oracle
+(the reference's own bf16 bound) and within one bf16 ulp plus 1e-6 of the
+reference kernel's bf16 output (both compute in f32 and round once)."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import flash_attention as jfa
+from repro.kernels import ops as jops
+from repro.models import attention as jattn
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+
+# tests/test_kernels.py's shapes (ragged S=200, bq != bk) plus gemma-2b's
+# head: hd=256 with one KV head
+SHAPES = [(2, 256, 4, 2, 64, 64, 64), (2, 256, 4, 2, 64, 128, 64),
+          (1, 192, 4, 4, 64, 64, 128), (2, 200, 2, 1, 32, 64, 64),
+          (1, 160, 8, 1, 256, 64, 32)]
+
+
+def _qkv(shape, seed=0):
+    B, S, H, KV, hd = shape[:5]
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, hd), np.float32),
+            rng.standard_normal((B, S, KV, hd), np.float32),
+            rng.standard_normal((B, S, KV, hd), np.float32))
+
+
+def _bf16(a: np.ndarray):
+    return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(a).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_flash_attention_f32_matches_reference(shape):
+    bq, bk = shape[5:]
+    q, k, v = _qkv(shape)
+    ref = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               bq=bq, bk=bk)
+    out = tops.flash_attention(*map(torch.from_numpy, (q, k, v)), bq=bq,
+                               bk=bk)
+    assert out.shape == tuple(ref.shape) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=3e-6,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_flash_attention_bf16_within_reference_bounds(shape):
+    bq, bk = shape[5:]
+    q, k, v = _qkv(shape, seed=1)
+    truth = np.asarray(jattn.blockwise_causal_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), chunk=64))
+    (qj, qt), (kj, kt), (vj, vt) = _bf16(q), _bf16(k), _bf16(v)
+    out = tops.flash_attention(qt, kt, vt, bq=bq, bk=bk)
+    assert out.dtype == torch.bfloat16
+    got = out.float().numpy()
+    assert np.abs(got - truth).max() < 0.05
+    ref = np.asarray(jops.flash_attention(qj, kj, vj, bq=bq, bk=bk),
+                     np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+    assert np.all(np.abs(got - ref) <= ulp + 1e-6)
+
+
+def test_kernel_wrapper_takes_the_kernel_layout_and_checks_tiles():
+    """``flash_attention_kernel`` is ``flash_attention_fwd``'s counterpart:
+    (B, H, S, hd) in, the same output, and S must tile by bq and bk."""
+    B, S, H, KV, hd = 2, 128, 4, 1, 64
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((B, H, S, hd), np.float32)
+    k = rng.standard_normal((B, KV, S, hd), np.float32)
+    v = rng.standard_normal((B, KV, S, hd), np.float32)
+    ref = jfa.flash_attention_fwd(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), bq=64, bk=32,
+                                  interpret=True)
+    out = tfa.flash_attention_kernel(*map(torch.from_numpy, (q, k, v)),
+                                     bq=64, bk=32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=3e-6,
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention_kernel(*map(torch.from_numpy, (q, k, v)),
+                                   bq=48, bk=32)
+
+
+def test_padding_is_invisible_and_sliced_off():
+    """A ragged S pads to max(bq, bk) with future positions: every real
+    row equals the unpadded attention, whatever the tile."""
+    q, k, v = map(torch.from_numpy, _qkv((1, 37, 2, 1, 32), seed=3))
+    a = tops.flash_attention(q, k, v, bq=16, bk=64)
+    b = tops.flash_attention(q, k, v, bq=512, bk=512)
+    assert a.shape == (1, 37, 2, 32)
+    torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+def test_single_token():
+    q, k, v = _qkv((2, 1, 4, 2, 64), seed=4)
+    out = tops.flash_attention(*map(torch.from_numpy, (q, k, v)))
+    # one key: the output is that key's value for every head of its group
+    np.testing.assert_allclose(out.numpy(), np.repeat(v, 2, axis=2),
+                               atol=1e-6)

@@ -13,9 +13,15 @@ import pytest
 import torch
 
 from repro_torch import carry, device
+from repro_torch.configs import get_config, scaled_down
 from repro_torch.core import engine, layout
+from repro_torch.dist import steps
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import topk_select as tsel
+from repro_torch.launch import serve
+from repro_torch.models import lm
+from repro_torch.runtime import server
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -43,6 +49,14 @@ def test_port_imports_neither_jax_nor_repro(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+def test_the_scan_covers_every_module_of_the_port():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("configs/base.py", "kernels/flash_attention.py",
+                "models/lm.py", "core/retrieval.py", "runtime/server.py",
+                "runtime/faults.py", "dist/steps.py", "launch/serve.py"):
+        assert f"src/repro_torch/{mod}" in names
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     codes = np.zeros((10, 2), np.uint32)
     if torch.cuda.is_available():
@@ -57,6 +71,41 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
             call()
     assert device.resolve("cpu").type == "cpu"
     assert device.default_backend() == "cpu"
+
+
+def test_serving_entry_points_raise_without_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the entry points would run")
+    cfg = scaled_down(get_config("gemma-2b"))
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tree = {"embed": {"table": np.zeros((512, 128), np.float32)}}
+    for call in (lambda: carry.lm_params(tree, cfg),
+                 lambda: lm.init_params(torch.Generator(), cfg),
+                 lambda: lm.init_decode_state(cfg, 1, 8),
+                 lambda: server.Server(cfg, model, max_batch=1, max_len=8),
+                 lambda: serve.main(["--arch", "gemma-2b", "--scaled"]),
+                 lambda: steps.make_prefill_step(cfg, 16,
+                                                 attn_impl="flash")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_flash_attention_on_cpu_tensors_takes_the_plain_path():
+    tfa.reset_launch_counts()
+    cfg = scaled_down(get_config("gemma-2b"), dtype="float32")
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    prefill = steps.make_prefill_step(cfg, 24, attn_impl="flash",
+                                      device="cpu")
+    logits, state = prefill(model, {"tokens": np.zeros((2, 24), np.int32)})
+    q = torch.randn((1, 2, 40, 32))
+    kv = torch.randn((1, 1, 40, 32))
+    out = tfa.flash_attention_kernel(q, kv, kv, bq=8, bk=8)
+    assert torch.equal(out, tfa.flash_attention_plain(q, kv, kv, 8, 8))
+    assert logits.shape == (2, 24, 512) and state["pos"].tolist() == [24, 24]
+    assert tfa.flash_attention_kernel.launches == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_attention_kernel(q.to("meta"), kv.to("meta"),
+                                   kv.to("meta"))
 
 
 def test_cpu_tensors_take_the_plain_path_without_launching():

@@ -1,0 +1,315 @@
+"""PyTorch port vs the JAX reference: the model layers, attention (prefill
+in both impls and schedules, decode) and the LM's forward, prefill and
+decode steps on the same carried weights.
+
+Weights come from ``repro.models.lm.init_params`` and cross through
+``carry.lm_params``; inputs from a numpy seed. The config is
+``scaled_down(get_config("gemma-2b"))`` (2 layers, d_model 128, 4 heads,
+1 KV head, hd 32, vocab 512). Tolerances: float32 atol 2e-5 / rtol 1e-5
+(only the order of sums differs); bfloat16 atol 0.08 on logits, which
+the two frameworks round at different places (one bf16 ulp at 8 is
+0.0625)."""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import scaled_down as jscaled_down
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import lm as jlm
+from repro_torch import carry
+from repro_torch.configs import (BlockKind, MoEConfig, get_config,
+                                  scaled_down)
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models import lm as tlm
+
+F32 = dict(atol=2e-5, rtol=1e-5)
+
+
+def _cfgs(dtype="float32", **kw):
+    return (jscaled_down(jget_config("gemma-2b"), dtype=dtype, **kw),
+            scaled_down(get_config("gemma-2b"), dtype=dtype, **kw))
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _close(t, j, **tol):
+    np.testing.assert_allclose(t.float().numpy(),
+                               np.asarray(j, np.float32), **(tol or F32))
+
+
+@pytest.fixture(scope="module")
+def f32_model():
+    jc, tc = _cfgs()
+    params = jlm.init_params(jax.random.PRNGKey(0), jc)
+    return jc, tc, params, carry.lm_params(_np(params), tc, device="cpu")
+
+
+def _tokens(B, S, vocab, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(
+        np.int32)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_config_and_param_count_match_reference():
+    jc, tc = jget_config("gemma-2b"), get_config("gemma-2b")
+    assert tc.resolved_head_dim == jc.resolved_head_dim == 256
+    assert tlm.param_count(tc) == jlm.param_count(jc) == 2_506_172_416
+    j_small, t_small = _cfgs()
+    assert tlm.param_count(t_small) == jlm.param_count(j_small)
+
+
+def test_rmsnorm_rope_embed_unembed_and_cross_entropy():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 9, 128), np.float32)
+    scale = rng.standard_normal(128, np.float32)
+    norm = tlayers.rmsnorm_init(128, "cpu")
+    norm.scale.copy_(torch.from_numpy(scale))
+    _close(tlayers.rmsnorm(norm, torch.from_numpy(x), 1e-6),
+           jlayers.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x),
+                           1e-6))
+
+    h = rng.standard_normal((2, 9, 4, 32), np.float32)
+    pos = rng.integers(0, 500, (2, 9)).astype(np.int32)
+    _close(tlayers.apply_rope(torch.from_numpy(h), torch.from_numpy(pos),
+                              10000.0),
+           jlayers.apply_rope(jnp.asarray(h), jnp.asarray(pos), 10000.0))
+
+    table = rng.standard_normal((50, 128), np.float32)
+    emb = tlayers.Embedding(50, 128, torch.float32, "cpu")
+    emb.table.copy_(torch.from_numpy(table))
+    tok = rng.integers(0, 50, (2, 9)).astype(np.int32)
+    _close(tlayers.embed(emb, torch.from_numpy(tok)), table[tok])
+    logits_t = tlayers.unembed(emb, torch.from_numpy(x))
+    logits_j = jlayers.unembed({"table": jnp.asarray(table)}, jnp.asarray(x))
+    _close(logits_t, logits_j)
+    mask = rng.integers(0, 2, (2, 9)).astype(np.float32)
+    for m in (None, mask):
+        _close(tlayers.cross_entropy(
+                   logits_t, torch.from_numpy(tok),
+                   None if m is None else torch.from_numpy(m)),
+               jlayers.cross_entropy(logits_j, jnp.asarray(tok),
+                                     None if m is None else jnp.asarray(m)))
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu", "relu_sq"])
+def test_mlp_activations(activation):
+    p = _np(jlayers.mlp_init(jax.random.PRNGKey(3), 128, 256, activation,
+                             jnp.float32))
+    m = tlayers.MLP(128, 256, activation, torch.float32, "cpu")
+    assert set(dict(m.named_parameters())) == set(p)
+    for name, w in p.items():
+        getattr(m, name).copy_(torch.from_numpy(w.copy()))
+    x = np.random.default_rng(4).standard_normal((2, 5, 128), np.float32)
+    _close(tlayers.mlp(m, torch.from_numpy(x), activation),
+           jlayers.mlp(p, jnp.asarray(x), activation))
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _attn(f32_model, layer=0):
+    _, _, params, model = f32_model
+    jp = jax.tree_util.tree_map(lambda a: a[layer], params["blocks"]["attn"])
+    return jp, model.blocks[layer].attn
+
+
+@pytest.mark.parametrize("impl,causal_skip",
+                         [("xla", False), ("xla", True), ("flash", False)])
+def test_attention_prefill(f32_model, impl, causal_skip):
+    jp, tp = _attn(f32_model)
+    x = np.random.default_rng(5).standard_normal((2, 70, 128), np.float32)
+    pos = np.broadcast_to(np.arange(70, dtype=np.int32), (2, 70))
+    kw = dict(chunk=32, causal_skip=causal_skip, impl=impl,
+              return_cache=True)
+    jy, jcache = jattn.attention_prefill(jp, jnp.asarray(x), jnp.asarray(pos),
+                                         10000.0, **kw)
+    ty, tcache = tattn.attention_prefill(tp, torch.from_numpy(x),
+                                         torch.from_numpy(pos.copy()),
+                                         10000.0, **kw)
+    _close(ty, jy)
+    _close(tcache.k, jcache.k)
+    _close(tcache.v, jcache.v)
+
+
+def test_blockwise_bf16_probabilities():
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.standard_normal((1, 50, n, 32), np.float32)
+               for n in (4, 1, 1))
+    for skip in (False, True):
+        ref = jattn.blockwise_causal_attention(
+            *map(jnp.asarray, (q, k, v)), chunk=16, causal_skip=skip,
+            p_bf16=True)
+        out = tattn.blockwise_causal_attention(
+            *map(torch.from_numpy, (q, k, v)), chunk=16, causal_skip=skip,
+            p_bf16=True)
+        _close(out, ref, atol=1e-2)
+
+
+def test_attention_decode_per_row_pos_and_active(f32_model):
+    jp, tp = _attn(f32_model)
+    rng = np.random.default_rng(7)
+    B, S_max = 3, 12
+    x = rng.standard_normal((B, 1, 128), np.float32)
+    ck = rng.standard_normal((B, S_max, 1, 32), np.float32)
+    cv = rng.standard_normal((B, S_max, 1, 32), np.float32)
+    pos = np.array([0, 5, 11], np.int32)
+    active = np.array([True, False, True])
+    jy, jc = jattn.attention_decode(jp, jnp.asarray(x),
+                                    jattn.KVCache(jnp.asarray(ck),
+                                                  jnp.asarray(cv)),
+                                    jnp.asarray(pos), 10000.0,
+                                    active=jnp.asarray(active))
+    cache = tattn.KVCache(torch.from_numpy(ck), torch.from_numpy(cv))
+    ty, tc = tattn.attention_decode(tp, torch.from_numpy(x), cache,
+                                    torch.from_numpy(pos), 10000.0,
+                                    active=torch.from_numpy(active))
+    _close(ty, jy)
+    _close(tc.k, jc.k)
+    _close(tc.v, jc.v)
+    assert np.array_equal(cache.k.numpy(), ck)       # the input is kept
+    assert np.array_equal(tc.k[1].numpy(), ck[1])    # inactive row untouched
+
+
+# ---------------------------------------------------------------------------
+# the LM
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_forward_logits_and_hidden(f32_model, impl):
+    jc, tc, params, model = f32_model
+    tok = _tokens(2, 40, tc.vocab_size)
+    jl, jaux, jh = jlm.forward(params, jc, jnp.asarray(tok),
+                               ctx=jlm.RunCtx(attn_impl=impl, attn_chunk=16),
+                               return_hidden=True)
+    tl, taux, th = tlm.forward(model, tc, torch.from_numpy(tok),
+                               ctx=tlm.RunCtx(attn_impl=impl, attn_chunk=16),
+                               return_hidden=True)
+    _close(tl, jl)
+    _close(th, jh)
+    assert float(taux) == float(jaux) == 0.0
+
+
+def test_forward_bf16():
+    jc, tc = _cfgs("bfloat16")
+    params = jlm.init_params(jax.random.PRNGKey(1), jc)
+    model = carry.lm_params(_np(params), tc, device="cpu")
+    assert model.embed.table.dtype == torch.bfloat16
+    assert np.array_equal(
+        model.blocks[1].attn.wq.view(torch.uint16).numpy(),
+        np.asarray(params["blocks"]["attn"]["wq"][1]).view(np.uint16))
+    tok = _tokens(2, 24, tc.vocab_size, seed=1)
+    for impl in ("xla", "flash"):
+        jl, _ = jlm.forward(params, jc, jnp.asarray(tok),
+                            ctx=jlm.RunCtx(attn_impl=impl))
+        tl, _ = tlm.forward(model, tc, torch.from_numpy(tok),
+                            ctx=tlm.RunCtx(attn_impl=impl))
+        assert tl.dtype == torch.bfloat16
+        _close(tl, jl, atol=0.08, rtol=0)
+
+
+def test_prefill_logits_and_cache(f32_model):
+    jc, tc, params, model = f32_model
+    tok = _tokens(2, 33, tc.vocab_size, seed=2)
+    ctx = dict(attn_impl="flash", attn_chunk=16)
+    jl, js = jlm.prefill(params, jc, jnp.asarray(tok), ctx=jlm.RunCtx(**ctx))
+    tl, ts = tlm.prefill(model, tc, torch.from_numpy(tok),
+                         ctx=tlm.RunCtx(**ctx))
+    _close(tl, jl)
+    _close(ts["cache"].k, js["cache"].k)
+    _close(ts["cache"].v, js["cache"].v)
+    assert ts["pos"].tolist() == np.asarray(js["pos"]).tolist() == [33, 33]
+
+
+def test_decode_chain_after_prefill(f32_model):
+    """prefill -> pad the cache -> decode steps with per-row positions and
+    an inactive row: logits, hidden states and caches track the
+    reference's at every step."""
+    jc, tc, params, model = f32_model
+    tok = _tokens(3, 10, tc.vocab_size, seed=3)
+    _, js = jlm.prefill(params, jc, jnp.asarray(tok))
+    _, ts = tlm.prefill(model, tc, torch.from_numpy(tok))
+    js = jlm.pad_decode_state(jc, js, 16)
+    ts = tlm.pad_decode_state(tc, ts, 16)
+    js = dict(js, pos=jnp.asarray([10, 4, 7], jnp.int32))
+    ts = dict(ts, pos=torch.tensor([10, 4, 7], dtype=torch.int32))
+    active = np.array([True, True, False])
+    nxt = tok[:, -1:]
+    for _ in range(4):
+        jl, js, jh = jlm.decode_step(params, jc, jnp.asarray(nxt), js,
+                                     active=jnp.asarray(active),
+                                     return_hidden=True)
+        tl, ts, th = tlm.decode_step(model, tc, torch.from_numpy(nxt), ts,
+                                     active=torch.from_numpy(active),
+                                     return_hidden=True)
+        _close(tl, jl)
+        _close(th, jh)
+        nxt = np.asarray(jl).argmax(-1).astype(np.int32)
+    assert ts["pos"].tolist() == np.asarray(js["pos"]).tolist() == [14, 8, 7]
+    _close(ts["cache"].k, js["cache"].k)
+    _close(ts["cache"].v, js["cache"].v)
+
+
+def test_decode_from_zero_state_matches_forward(f32_model):
+    """Token-by-token decode from ``init_decode_state`` reproduces the
+    full-sequence logits (the server's prompt replay relies on it)."""
+    jc, tc, params, model = f32_model
+    tok = _tokens(2, 6, tc.vocab_size, seed=4)
+    state = tlm.init_decode_state(tc, 2, 8, device="cpu")
+    jstate = jlm.init_decode_state(jc, 2, 8)
+    assert state["cache"].k.shape == jstate["cache"].k.shape
+    steps = []
+    for t in range(6):
+        logits, state = tlm.decode_step(model, tc,
+                                        torch.from_numpy(tok[:, t:t + 1]),
+                                        state)
+        steps.append(logits)
+    full, _ = tlm.forward(model, tc, torch.from_numpy(tok))
+    torch.testing.assert_close(torch.cat(steps, 1), full, **F32)
+    _close(full, jlm.forward(params, jc, jnp.asarray(tok))[0])
+
+
+@pytest.mark.parametrize("change", [
+    dict(block_pattern=(BlockKind.MOE,),
+         moe=MoEConfig(num_experts=8, experts_per_token=2, expert_d_ff=64)),
+    dict(block_pattern=(BlockKind.MAMBA2,)),
+    dict(block_pattern=(BlockKind.RWKV6,)),
+    dict(shared_attn_every=2),
+    dict(frontend="vision_patches", frontend_positions=4),
+], ids=["moe", "mamba2", "rwkv6", "hybrid", "frontend"])
+def test_unported_families_raise(change):
+    cfg = dataclasses.replace(scaled_down(get_config("gemma-2b")), **change)
+    for call in (lambda: tlm.init_params(torch.Generator(), cfg, "cpu"),
+                 lambda: tlm.param_count(cfg),
+                 lambda: tlm.init_decode_state(cfg, 1, 4, device="cpu")):
+        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+            call()
+
+
+def test_keep_active_selects_rows_as_the_reference():
+    rng = np.random.default_rng(8)
+    new = [rng.standard_normal((3, 2, 4)).astype(np.float32) for _ in range(2)]
+    old = [rng.standard_normal((3, 2, 4)).astype(np.float32) for _ in range(2)]
+    active = np.array([True, False, True])
+    ref = jlm._keep_active(jnp.asarray(active),
+                           jattn.KVCache(*map(jnp.asarray, new)),
+                           jattn.KVCache(*map(jnp.asarray, old)))
+    out = tlm._keep_active(torch.from_numpy(active),
+                           tattn.KVCache(*map(torch.from_numpy, new)),
+                           tattn.KVCache(*map(torch.from_numpy, old)))
+    assert isinstance(out, tattn.KVCache)
+    for a, b in zip(out, ref):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    assert tlm._keep_active(None, out, None) is out
