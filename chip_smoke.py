@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py [--seed 0]
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-nvcc per source, all at once) and drives two paths, each with the kernel
+nvcc per source, all at once) and drives four paths, each with the kernel
 launch counts set to 0 just before it and read just after:
 
 * exact Hamming kNN — ``KNNEngine(...).with_layout().search(q, k=16)`` at
@@ -15,6 +15,23 @@ launch counts set to 0 just before it and read just after:
   the same store then runs through ``select="fused"`` on insertion order.
   K1 and K2 are held bit-for-bit against their plain PyTorch versions on
   edge cases and at the main path's full shape.
+* the board scan — the same store through ``KNNEngine.search(...,
+  method="pallas")`` under the counting (the paper's temporal sort over
+  board-sized chunks of 65,536 rows), composite and bisect selects: K3
+  materializes each chunk's (4096, chunk) distances, 16, 17 and 16 launches
+  per search; each result equals the fused one bit-for-bit. K3 is held
+  bit-for-bit against its plain version on edge cases and at 4096 x 65,536.
+* index-probed search — a seeded float store of 2^20 x 256 (1024 Gaussian
+  centres) with 256-bit ITQ codes, under IVF (``kmeans_build``, 1024
+  clusters; nprobe 1, 8, 32 masked and 8 gathered), LSH (4 tables of 12
+  bits, masked and gathered) and a kd-tree forest (4 trees, leaves of 512,
+  gathered), and hamming-prefix probing of the first path's layout at
+  nprobe 8 (the serving ladder's degraded rung). Each masked search is one
+  K1 and one K2 launch; on sampled queries its mask row enables exactly
+  the blocks that the probed buckets' row ranges (rounded out to blocks)
+  and the candidates' positions cover, worked out on the host, and its
+  result equals a brute force over those rows; masked k-th distances never
+  exceed the gathered ones; the kd-tree equals a brute force over its candidate lists.
 * kNN-LM serving of gemma-2b at its registered width (18 layers, d_model
   2048, MQA with hd 256, vocab 256000, bf16), weights from a seeded
   generator: a flash prefill of 8 x 2048 tokens through K4 (flash
@@ -26,7 +43,8 @@ launch counts set to 0 just before it and read just after:
   to the composite path the config's plan picks. K4 is held against its
   plain version on edge cases and at the main shape.
 
-Output: progress lines; a ``main_path`` and a ``serving_path`` JSON line;
+Output: progress lines; ``main_path``, ``board_scan``, ``index_path`` and
+``serving_path`` JSON lines;
 a ``kernels`` JSON line (launches on the paths, error against the plain
 version, kernel / plain / library ms, and the bound: the least time for
 the operations or the HBM bytes, whichever is larger); the card's name and
@@ -43,6 +61,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -51,12 +70,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import carry  # noqa: E402
+from repro_torch import carry, device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import binary, plan, quantize, retrieval, topk  # noqa: E402
+from repro_torch.core import binary, index, layout, plan  # noqa: E402
+from repro_torch.core import quantize, retrieval, topk  # noqa: E402
 from repro_torch.dist import steps  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import _build, ops, tuning  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import hamming as tham  # noqa: E402
 from repro_torch.kernels import topk_select as tsel  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.runtime import server  # noqa: E402
@@ -78,6 +99,28 @@ SMEM_OPS_PER_CLK_SM = 32
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores (data sheet, 700 W)
 DEV = "cuda"
+
+# K3's main shape: the query batch against one board-sized chunk. The
+# counting and bisect board scans take chunks of K3_CHUNK rows; composite
+# takes COMPOSITE_CHUNK, the largest multiple of 1024 whose f32 keys
+# dist * chunk + idx stay exact ((D_BITS + 1) * chunk < 2^24). So at
+# N_ROWS = 2^20 they launch K3 16, 17 and 16 times.
+K3_CHUNK = 1 << 16
+COMPOSITE_CHUNK = 64512
+BOARD_SELECTS = ("counting", "composite", "bisect")
+N_BOARD_TIMED = 3
+# the index path: a float store of N_ROWS x IDX_DIM, unit Gaussian spread
+# around IDX_CENTRES centres drawn with spread IDX_CENTRE_STD
+IDX_DIM = 256
+IDX_CENTRES = 1024
+IDX_CENTRE_STD = 1.0
+IDX_ITQ_ITERS = 10
+IVF_CLUSTERS, IVF_ITERS = 1024, 10
+IVF_NPROBES, IVF_GATHER_NPROBE = (1, 8, 32), 8
+LSH_TABLES, LSH_BITS = 4, 12
+KD_TREES, KD_LEAF = 4, 512
+PREFIX_NPROBE = 8
+N_GATE = 16              # sampled queries held against each brute force
 
 # the serving path: gemma-2b at its registered config, nothing cut
 ARCH = "gemma-2b"
@@ -302,7 +345,7 @@ def drive(label, eng, q, sample, **kw):
     print(f"  {label}: launches {launches}, brute-force check ok, "
           f"median search {ms:.3f} ms, {N_QUERIES / ms * 1e3:.0f} queries/s",
           flush=True)
-    return launches, ms
+    return launches, ms, (dd, ii)
 
 
 def kernel_timings(q, x, stats_label, with_plain=True):
@@ -380,6 +423,338 @@ def bound_ms(pairs: int, words: int, hist_adds: int, nbytes: int,
                 "shared-memory histogram counts"),
             (nbytes / HBM_BYTES_PER_S, "HBM bytes"))
     return t[0] * 1e3, ("bytes" if t[1] == "HBM bytes" else "operations"), t[1]
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: K3 against its plain version; phase 5b: the board scan
+# ---------------------------------------------------------------------------
+
+def run_k3_cases(main_q, main_x):
+    """K3 through ``ops.hamming_distance`` (padding, slicing) against the
+    plain version on the same card inputs; returns the max |err|."""
+    rng = np.random.default_rng(2)
+
+    def words(n, w):
+        return carry.codes(rng.integers(0, 1 << 32, size=(n, w),
+                                        dtype=np.uint32), DEV)
+
+    ones = torch.full((33, 8), -1, dtype=torch.int32, device=DEV)
+    cases = [(f"33 x 4097, W={w}", words(33, w), words(4097, w), {})
+             for w in (1, 5, 8)]
+    cases += [
+        ("all-ones query words (top bit set), W=8", ones, words(4097, 8), {}),
+        ("Q, N off the tile (100 x 1000, bq=64, bn=256), W=4",
+         words(100, 4), words(1000, 4), {"bq": 64, "bn": 256}),
+        ("generic width W=12", words(40, 12), words(3000, 12), {}),
+        (f"main shape {main_q.shape[0]} x {main_x.shape[0]}, W=8", main_q,
+         main_x, {}),
+    ]
+    err = 0
+    for name, q, x, kw in cases:
+        out = ops.hamming_distance(q, x, **kw)
+        ref = tham.hamming_distance_plain(q, x)
+        torch.cuda.synchronize()
+        e = max_abs_diff([(out, ref)])
+        print(f"  K3 case {name}: err={e}", flush=True)
+        err = max(err, e)
+    return err
+
+
+def int_mm_distances(qb: torch.Tensor, xbt: torch.Tensor, d: int):
+    """The library route to K3's output: the +-1 int8 plane product
+    (``torch._int_mm``, int32 sums) and its affine (d - dot) / 2."""
+    dot = torch._int_mm(qb, xbt)
+    return dot.neg_().add_(d).bitwise_right_shift_(1)
+
+
+def k3_timings(q, x, sms, clk_hz):
+    """K3, its plain version and the ``torch._int_mm`` route at the main
+    shape (the library route is checked equal and timed only; the port
+    never calls it), and the bound: the (Q, N) int32 output plus the codes
+    once through HBM, or the distances' operations, whichever is larger."""
+    Q, W = q.shape
+    N = x.shape[0]
+    bq, bn = tuning.distance_blocks(Q, N, W, backend="gpu")
+    ms, out = cuda_ms(lambda: tham.hamming_distance_kernel(q, x, bq=bq,
+                                                           bn=bn), N_TIMED)
+    plain_ms, ref = cuda_ms(lambda: tham.hamming_distance_plain(q, x), 1)
+    err = max_abs_diff([(out, ref)])
+    del ref
+    pm = lambda c: (binary.unpack_bits(c, 32 * W).to(torch.int8) * 2 - 1)
+    # x's planes enter as the column-major (d, N) view of the row-major
+    # (N, d) planes: the TN layout of cuBLASLt's int8 GEMM
+    qb, xbt = pm(q), pm(x).t()
+    lib_ms, lib = cuda_ms(lambda: int_mm_distances(qb, xbt, 32 * W), N_TIMED)
+    if not torch.equal(lib, out):
+        raise AssertionError("the _int_mm route's distances != K3's")
+    del lib, out, qb, xbt
+    nbytes = 4 * (Q * W + N * W + Q * N)
+    b, by, route = bound_ms(Q * N, W, 0, nbytes, sms, clk_hz)
+    print(f"  K3 at the main shape (Q={Q} N={N} W={W}, bq={bq} bn={bn}): "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, _int_mm (x planes "
+          f"column-major) + affine {lib_ms:.3f} ms; bound {b:.4f} ms set by {route} "
+          f"({nbytes / 2**30:.3f} GiB); kernel vs plain err={err}",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b, "bound_by": by, "bound_route": route, "err": err}
+
+
+def board_scan(flat, q, fused):
+    """The paper-faithful board scan: ``KNNEngine.search(method="pallas")``
+    under each materializing select, K3 once per chunk; each must equal
+    the fused result bit-for-bit. Launch counts are read from a run with
+    the counts zeroed just before it."""
+    out = {}
+    for select in BOARD_SELECTS:
+        geo = flat.query_plan(q, K, method="pallas",
+                              select=select).geometry()
+        chunk = min(COMPOSITE_CHUNK if select == "composite" else K3_CHUNK,
+                    flat.n)
+        want = -(-flat.n // chunk)
+        if (geo["chunk"], geo["n_chunks"]) != (chunk, want):
+            raise AssertionError(f"board scan {select}: the plan takes "
+                                 f"{geo['n_chunks']} chunks of "
+                                 f"{geo['chunk']} rows, not {want} of "
+                                 f"{chunk}")
+        tham.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            dd, ii = flat.search(q, K, method="pallas", select=select)
+            torch.cuda.synchronize()
+            launches = tham.hamming_distance_kernel.launches
+            if launches != want:
+                raise AssertionError(f"board scan {select}: K3 launched "
+                                     f"{launches} times for {want} chunks")
+            if not (torch.equal(dd, fused[0]) and torch.equal(ii, fused[1])):
+                raise AssertionError(f"board scan {select} != fused")
+            ms, _ = cuda_ms(lambda: flat.search(q, K, method="pallas",
+                                                select=select), N_BOARD_TIMED)
+        print(f"  board scan, select={select}: {geo['n_chunks']} chunks of "
+              f"{geo['chunk']} rows, K3 launches {launches}, == fused on all "
+              f"{q.shape[0]} queries; median search {ms:.3f} ms, "
+              f"{q.shape[0] / ms * 1e3:.0f} queries/s", flush=True)
+        out[select] = {"chunk": geo["chunk"], "k3_launches": launches,
+                       "search_ms": ms,
+                       "queries_per_s": q.shape[0] / ms * 1e3}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: index-probed search
+# ---------------------------------------------------------------------------
+
+def recall_at(ids, exact):
+    """Mean share of each query's exact top-k ids among its returned ids."""
+    hit = (ids[:, :, None] == exact[:, None, :]).any(dim=1)
+    return float(hit.float().mean())
+
+
+def check_masked(label, lay, q, dd, ii, probe, cand_ids, sample):
+    """For each sampled query, the blocks its query block may scan are
+    worked out here on the host, apart from the program's mask code: each
+    probed bucket's [start, next start) rounded outward to bn, plus the
+    blocks that hold the candidate ids' positions, over every query of the
+    block. The program's mask row must enable exactly those blocks, and
+    the result must equal a brute force over their rows (ties by layout
+    position)."""
+    mask, bq, bn, _ = layout._enable_mask(
+        lay, q.shape[0], q.shape[1], K, D_BITS, probe, cand_ids,
+        backend=device.backend_of(q))
+    starts = lay.starts.cpu().numpy().astype(np.int64)
+    inv = np.empty(lay.n, np.int64)
+    inv[lay.perm.cpu().numpy()] = np.arange(lay.n)
+    n_nblocks = mask.shape[1]
+    for i in sample.tolist():
+        rows = slice(i // bq * bq, min(i // bq * bq + bq, q.shape[0]))
+        want = np.zeros(n_nblocks, bool)
+        if probe is not None:
+            for b in np.unique(probe[rows].cpu().numpy()):
+                lo, hi = starts[b], starts[b + 1]
+                if hi > lo:
+                    want[lo // bn:(hi - 1) // bn + 1] = True
+        if cand_ids is not None:
+            c = cand_ids[rows].cpu().numpy().ravel()
+            want[inv[c[c >= 0]] // bn] = True
+        got = mask[i // bq].cpu().numpy() != 0
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"{label}: the mask row of query {i}'s block enables "
+                f"{int(got.sum())} blocks, its probes {int(want.sum())} "
+                f"({int((got != want).sum())} differ)")
+        pos = torch.cat([torch.arange(j * bn, min(j * bn + bn, lay.n))
+                         for j in np.flatnonzero(want).tolist()]
+                        or [torch.zeros(0, dtype=torch.long)]).to(DEV)
+        dist = binary.hamming_xor(q[i:i + 1], lay.codes[pos])[0]
+        order = torch.argsort(dist, stable=True)[:K]
+        m = order.shape[0]
+        if not (torch.equal(dd[i, :m], dist[order])
+                and torch.equal(ii[i, :m], lay.perm[pos[order]])
+                and bool((dd[i, m:] == D_BITS + 1).all())
+                and bool((ii[i, m:] == -1).all())):
+            raise AssertionError(f"{label}: query {i} != the brute force "
+                                 f"over its enabled rows")
+
+
+def masked_search(label, fn, lay, q, exact, sample, probe, cand_ids):
+    """One masked search with the counts zeroed just before it: one K1 and
+    one K2 launch, the brute-force gate, the pass-1 skip share, recall@K
+    against the exact search, then its median time."""
+    tsel.reset_launch_counts()
+    dd, ii, st = fn()
+    torch.cuda.synchronize()
+    launches = (tsel.hamming_hist_kernel.launches,
+                tsel.hamming_emit_kernel.launches)
+    if launches != (1, 1):
+        raise AssertionError(f"{label}: K1, K2 launched {launches}")
+    check_masked(label, lay, q, dd, ii, probe, cand_ids, sample)
+    ms, _ = cuda_ms(fn, N_TIMED)
+    p1 = int(st["p1_blocks_skipped"]) / max(st["blocks_total"], 1)
+    p2 = int(st["blocks_skipped"]) / max(st["blocks_total"], 1)
+    rec = recall_at(ii, exact)
+    print(f"  {label}: K1, K2 launches {launches}, mask rows == the "
+          f"probes' blocks and brute force over them ok; {ms:.3f} ms, pass-1 tiles skipped {p1:.4f}, "
+          f"pass-2 {p2:.4f}, recall@{K} {rec:.4f}", flush=True)
+    return dd, {"ms": ms, "p1_skipped_frac": p1, "p2_skipped_frac": p2,
+                "recall": rec, "k1_launches": launches[0],
+                "k2_launches": launches[1]}
+
+
+def gathered_search(label, fn, exact, masked_dd=None):
+    """A gather-path search: its time and recall; the masked search of the
+    same probes may only do better (k-th distance never larger)."""
+    dd, ii = fn()
+    torch.cuda.synchronize()
+    if masked_dd is not None and not bool(
+            (masked_dd[:, -1] <= dd[:, -1]).all()):
+        raise AssertionError(f"{label}: a masked k-th distance exceeds the "
+                             f"gathered one")
+    ms, _ = cuda_ms(fn, N_TIMED)
+    rec = recall_at(ii, exact)
+    print(f"  {label}: {ms:.3f} ms, recall@{K} {rec:.4f}"
+          + ("; masked k-th <= gathered k-th on every query"
+             if masked_dd is not None else ""), flush=True)
+    return dd, ii, {"ms": ms, "recall": rec}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def index_path(seed, eng, q_main, exact_main):
+    g = torch.Generator(device=DEV).manual_seed(seed + 20)
+    n = eng.n
+    centres = torch.randn((IDX_CENTRES, IDX_DIM), generator=g,
+                          device=DEV) * IDX_CENTRE_STD
+    own = torch.randint(0, IDX_CENTRES, (n + N_QUERIES,), generator=g,
+                        device=DEV)
+    pts = centres[own]
+    pts += torch.randn(pts.shape, generator=g, device=DEV)
+    data, qx = pts[:n], pts[n:].clone()
+    del pts
+    (itq, t_itq) = timed(lambda: quantize.itq_train(
+        data, D_BITS, iters=IDX_ITQ_ITERS,
+        generator=torch.Generator(device=DEV).manual_seed(seed + 21)))
+    codes = binary.pack_bits(quantize.itq_encode(data, itq))
+    qc = binary.pack_bits(quantize.itq_encode(qx, itq))
+    exact = plan.execute(plan.plan_local(plan.stats_of(codes, qc, D_BITS), K,
+                                         select="fused"), qc, codes=codes)
+    sample = torch.from_numpy(np.random.default_rng(seed + 22).choice(
+        N_QUERIES, N_GATE, replace=False))
+    print(f"  store: {n} x {IDX_DIM} f32 from {IDX_CENTRES} centres "
+          f"({n * IDX_DIM * 4 / 2**30:.2f} GiB), {D_BITS}-bit ITQ codes "
+          f"trained in {t_itq:.2f} s", flush=True)
+
+    kmi, t_km = timed(lambda: index.kmeans_build(
+        data, codes, D_BITS, IVF_CLUSTERS, iters=IVF_ITERS,
+        generator=torch.Generator(device=DEV).manual_seed(seed + 23)))
+    lshi, t_lsh = timed(lambda: index.lsh_build(
+        codes, D_BITS, n_tables=LSH_TABLES, bits_per_table=LSH_BITS,
+        generator=torch.Generator(device=DEV).manual_seed(seed + 24)))
+    data_np = data.cpu().numpy()
+    kdi, t_kd = timed(lambda: index.KDTreeIndex(
+        data_np, codes, D_BITS, n_trees=KD_TREES, leaf_size=KD_LEAF,
+        seed=seed))
+    del data
+    print(f"  builds: IVF {IVF_CLUSTERS} clusters x {IVF_ITERS} iters "
+          f"{t_km:.2f} s; LSH {LSH_TABLES} x {LSH_BITS} bits {t_lsh:.2f} s; "
+          f"kd-tree {KD_TREES} trees, leaves <= {KD_LEAF}, {t_kd:.2f} s",
+          flush=True)
+
+    ex_ids = exact[1]
+    searches = {}
+    masked = {}
+    for npr in IVF_NPROBES:
+        probe = index._kmeans_probe(kmi, qx, npr)
+        masked[npr], searches[f"ivf_masked_nprobe{npr}"] = masked_search(
+            f"IVF masked, nprobe {npr}",
+            lambda npr=npr: index.kmeans_search(kmi, qx, qc, K, nprobe=npr,
+                                                return_stats=True),
+            kmi.layout, qc, ex_ids, sample, probe, None)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        *_, searches[f"ivf_gather_nprobe{IVF_GATHER_NPROBE}"] = \
+            gathered_search(
+                f"IVF gather, nprobe {IVF_GATHER_NPROBE}",
+                lambda: index.kmeans_search(kmi, qx, qc, K,
+                                            nprobe=IVF_GATHER_NPROBE,
+                                            use_layout=False),
+                ex_ids, masked[IVF_GATHER_NPROBE])
+        keys = index._hash_codes(binary.unpack_bits(qc, D_BITS),
+                                 lshi.bit_ids).long()
+        others = torch.cat([lshi.buckets[t][keys[t]]
+                            for t in range(1, LSH_TABLES)], dim=-1)
+        lsh_dd, searches["lsh_masked"] = masked_search(
+            f"LSH masked, {LSH_TABLES} tables",
+            lambda: index.lsh_search(lshi, qc, K, return_stats=True),
+            lshi.layout, qc, ex_ids, sample, keys[0][:, None], others)
+        *_, searches["lsh_gather"] = gathered_search(
+            "LSH gather", lambda: index.lsh_search(lshi, qc, K,
+                                                   use_layout=False),
+            ex_ids, lsh_dd)
+
+    qx_np = qx.cpu().numpy()
+    kd_dd, kd_ii, searches["kdtree_gather"] = gathered_search(
+        "kd-tree gather (host traversal + card scan)",
+        lambda: kdi.search(qx_np, qc, K), ex_ids)
+    cand = torch.from_numpy(kdi._candidates(qx_np[sample.numpy()])).to(DEV)
+    for j, i in enumerate(sample.tolist()):
+        c = cand[j][cand[j] >= 0].long()
+        dist = binary.hamming_xor(qc[i:i + 1], codes[c])[0]
+        order = torch.argsort(dist, stable=True)[:K]
+        if not (torch.equal(kd_dd[i, :order.shape[0]], dist[order])
+                and torch.equal(kd_ii[i, :order.shape[0]],
+                                c[order].to(torch.int32))):
+            raise AssertionError(f"kd-tree: query {i} != the brute force "
+                                 f"over its candidate list")
+    print(f"  kd-tree: == the brute force over the candidate lists of "
+          f"{N_GATE} sampled queries", flush=True)
+
+    # the serving ladder's degraded rung on the first path's store
+    lay = eng.layout
+    bits = lay.n_buckets.bit_length() - 1
+    _, positions = layout.hamming_prefix_assign(eng.codes, D_BITS, bits)
+    pplan = plan.plan_index(plan.stats_of(eng.codes, q_main, D_BITS,
+                                          layout=lay), K,
+                            kind="hamming_prefix", nprobe=PREFIX_NPROBE)
+    probe = index.hamming_prefix_probe(q_main, positions, lay.n_buckets,
+                                       PREFIX_NPROBE, D_BITS)
+    _, searches[f"hamming_prefix_nprobe{PREFIX_NPROBE}"] = masked_search(
+        f"hamming-prefix probe ({pplan.compact()}), first path's store",
+        lambda: plan.execute(pplan, q_main, layout=lay,
+                             probe=index.hamming_prefix_probe(
+                                 q_main, positions, lay.n_buckets,
+                                 PREFIX_NPROBE, D_BITS),
+                             return_stats=True),
+        lay, q_main, exact_main, sample, probe, None)
+    del kmi, lshi, kdi, codes
+    torch.cuda.empty_cache()
+    return {"n": n, "dim": IDX_DIM, "centres": IDX_CENTRES,
+            "itq_train_s": t_itq, "ivf_build_s": t_km, "lsh_build_s": t_lsh,
+            "kdtree_build_s": t_kd, "searches": searches}
 
 
 # ---------------------------------------------------------------------------
@@ -726,7 +1101,7 @@ def main() -> int:
     # source, all started together
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
-    sources = [tsel._SOURCE, fa._SOURCE]
+    sources = [tsel._SOURCE, tham._SOURCE, fa._SOURCE]
     t0 = time.perf_counter()
     logs = _build.build(sources)
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s",
@@ -756,6 +1131,9 @@ def main() -> int:
     k1_err, k2_err = run_cases(q, eng.layout.codes)
     if k1_err or k2_err:
         return fail(f"kernel != plain: K1 err {k1_err}, K2 err {k2_err}")
+    k3_err = run_k3_cases(q, eng.codes[:K3_CHUNK])
+    if k3_err:
+        return fail(f"kernel != plain: K3 err {k3_err}")
 
     # phase 4: the main path, KNNEngine.with_layout().search
     sample = torch.from_numpy(
@@ -764,7 +1142,7 @@ def main() -> int:
     print(f"main path: Q={N_QUERIES} N={N_ROWS} d={D_BITS} k={K}", flush=True)
     qplan = eng.query_plan(q, K)
     print(f"  plan: {qplan.compact()} ({qplan.reason})", flush=True)
-    launches, main_ms = drive("with_layout().search", eng, q, sample)
+    launches, main_ms, _ = drive("with_layout().search", eng, q, sample)
     kt = kernel_timings(q, eng.layout.codes, "layout order")
     if kt["k1_err"] or kt["k2_err"]:
         return fail(f"kernel != plain at the main path's shape: K1 err "
@@ -773,8 +1151,8 @@ def main() -> int:
 
     # phase 5: the same store on insertion order through select="fused"
     flat = eng._replace(layout=None)
-    _, flat_ms = drive("select='fused', insertion order", flat, q, sample,
-                       select="fused")
+    _, flat_ms, fused = drive("select='fused', insertion order", flat, q,
+                              sample, select="fused")
     ft = kernel_timings(q, flat.codes, "insertion order", with_plain=False)
 
     b1, by1, route1 = bound_ms(kt["k1_pairs"], kt["W"], kt["k1_pairs"],
@@ -783,6 +1161,20 @@ def main() -> int:
                                sms, clk_hz)
     print(f"bounds: K1 {b1:.4f} ms set by {route1}; K2 {b2:.4f} ms set by "
           f"{route2}", flush=True)
+
+    # phase 5b: the board scan through K3, then K3's times at its main
+    # shape (one chunk of the store)
+    print(f"board scan: KNNEngine.search(method='pallas'), Q={N_QUERIES} "
+          f"N={N_ROWS} d={D_BITS} k={K}", flush=True)
+    bs = board_scan(flat, q, fused)
+    k3 = k3_timings(q, flat.codes[:K3_CHUNK], sms, clk_hz)
+    if k3["err"]:
+        return fail(f"kernel != plain at K3's main shape: err {k3['err']}")
+
+    # phase 5c: index-probed search
+    print("index path: IVF, LSH, kd-tree, hamming-prefix probes", flush=True)
+    ip = index_path(args.seed, eng, q, fused[1])
+    del fused
 
     # phase 6: K4 against its plain version, then its times at the main
     # shape
@@ -801,6 +1193,8 @@ def main() -> int:
         "insertion_order_blocks_skipped_frac": ft["skipped"],
         "insertion_order_k1_ms": ft["k1_ms"],
         "insertion_order_k2_ms": ft["k2_ms"]}), flush=True)
+    print("board_scan: " + json.dumps(bs), flush=True)
+    print("index_path: " + json.dumps(ip), flush=True)
     print("serving_path: " + json.dumps(sp), flush=True)
     src = "src/repro_torch/kernels/csrc/topk_select.cu"
     print(json.dumps({"kernels": [
@@ -814,6 +1208,14 @@ def main() -> int:
          "launches": launches["K2"], "max_abs_err": k2_err,
          "ms": kt["k2_ms"], "plain_ms": kt["k2_plain"], "bound_ms": b2,
          "bound_by": by2, "bound_route": route2, "library_ms": None},
+        {"name": "K3 hamming_distance_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/hamming.cu",
+         "replaces": "src/repro/kernels/hamming.py:22",
+         "launches": bs["counting"]["k3_launches"],
+         "max_abs_err": max(k3_err, k3["err"]), "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "bound_route": k3["bound_route"],
+         "library_ms": k3["library_ms"]},
         {"name": "K4 flash_attention_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:30",

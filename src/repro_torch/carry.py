@@ -2,9 +2,10 @@
 
 ``repro`` hands its state over as numpy arrays: packed codes (uint32),
 optionally a ``BucketLayout``'s ``codes``/``perm``/``inv``/``starts``, an
-``lm.init_params`` pytree, ``ITQParams`` and a ``DataStore``. These
-functions return the port's tensors, ``BucketLayout``, ``KNNEngine``,
-model, ``ITQParams`` and ``DataStore`` on the given device (CUDA unless
+``lm.init_params`` pytree, ``ITQParams``, a ``DataStore`` and the arrays
+of a ``KMeansIndex`` or ``LSHIndex``. These functions return the port's
+tensors, ``BucketLayout``, ``KNNEngine``, model, ``ITQParams``,
+``DataStore`` and indexes on the given device (CUDA unless
 ``device="cpu"`` is asked for; with no device given and no CUDA device
 present they raise). Codes keep their bit pattern: uint32 words are
 reinterpreted as int32, not converted; bfloat16 leaves (numpy's
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import quantize, retrieval
+from repro_torch.core import index, quantize, retrieval
 from repro_torch.core.engine import KNNEngine
 from repro_torch.core.layout import BucketLayout
 from repro_torch.models import lm
@@ -115,3 +116,30 @@ def datastore(store, device=None) -> retrieval.DataStore:
         codes=codes(store.codes, dev),
         values=_int32(store.values, dev),
         itq=itq(store.itq, dev), layout=lay)
+
+
+def _index_parts(buckets, packed, layout_arrays, dev):
+    lay = None if layout_arrays is None else layout(*layout_arrays,
+                                                    device=dev)
+    return _int32(buckets, dev), codes(packed, dev), lay
+
+
+def kmeans_index(centroids, buckets, packed, layout_arrays, d: int,
+                 device=None) -> index.KMeansIndex:
+    """A ``repro`` ``KMeansIndex``'s arrays (centroids f32, buckets int32,
+    codes, optional layout (codes, perm, inv, starts)) -> the port's."""
+    dev = device_mod.resolve(device)
+    b, c, lay = _index_parts(buckets, packed, layout_arrays, dev)
+    return index.KMeansIndex(
+        centroids=tensor(np.asarray(centroids, np.float32), dev), buckets=b,
+        codes=c, d=d, layout=lay)
+
+
+def lsh_index(bit_ids, buckets, packed, layout_arrays, d: int,
+              device=None) -> index.LSHIndex:
+    """A ``repro`` ``LSHIndex``'s arrays (bit_ids, buckets int32, codes,
+    optional layout (codes, perm, inv, starts)) -> the port's."""
+    dev = device_mod.resolve(device)
+    b, c, lay = _index_parts(buckets, packed, layout_arrays, dev)
+    return index.LSHIndex(bit_ids=_int32(bit_ids, dev), buckets=b, codes=c,
+                          d=d, layout=lay)

@@ -1,5 +1,7 @@
-"""Layout-aware datastore (port of ``repro.core.layout`` through
-``original_ids``): bucket-clustered physical reordering of the packed codes.
+"""Layout-aware datastore (port of ``repro.core.layout`` up to the mutable
+arena): bucket-clustered physical reordering of the packed codes, and the
+translation from probed index buckets to the fused kernels' per-(query
+block, data block) enable mask.
 
 Physically reordering the codes so that similar codes share grid tiles lets
 a full fused scan prune even on uniform data: each tile then holds one
@@ -9,8 +11,13 @@ reordered codes plus the permutation and its inverse, so every search path
 still returns ORIGINAL ids; ties at equal distance break by layout
 position, not original id.
 
-The probe masks (``probe_block_mask`` and friends), ``masked_topk`` and the
-mutable ``Arena`` are not ported yet.
+Masking semantics: a disabled tile is outside the candidate set. The mask
+granularity is the grid tile, so probed buckets are rounded OUTWARD to
+tile boundaries — the masked candidate set is a superset of the probed
+buckets, and queries in one query block share the union of their probes.
+The mask therefore depends on (bq, bn): the planner's geometry for the
+tensors' backend unless given. The mutable ``Arena`` is not ported yet
+(ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch.core import binary
 
 
@@ -161,3 +169,138 @@ def original_ids(layout: BucketLayout, dists: torch.Tensor, ids: torch.Tensor,
     (dist > d or position >= N) become -1."""
     real = (ids < layout.n) & (dists <= d)
     return torch.where(real, to_original_ids(layout.perm, ids), -1)
+
+
+# ---------------------------------------------------------------------------
+# probed buckets -> grid enable mask
+# ---------------------------------------------------------------------------
+
+def _blocks_to_tiles(qmask: torch.Tensor, bq: int, n_qblocks: int
+                     ) -> torch.Tensor:
+    """(Q, n_nblocks) per-query flags -> (n_qblocks, n_nblocks) int32, a
+    tile enabled iff any query of its block enables it (padding rows
+    enable nothing)."""
+    q, n_nblocks = qmask.shape
+    qmask = torch.nn.functional.pad(qmask, (0, 0, 0, n_qblocks * bq - q))
+    return qmask.reshape(n_qblocks, bq, n_nblocks).any(dim=1).to(torch.int32)
+
+
+def probe_block_mask(layout: BucketLayout, probe: torch.Tensor, bq: int,
+                     bn: int, n_qblocks: int, n_nblocks: int) -> torch.Tensor:
+    """Per-query probed bucket ids (Q, P) -> the kernels' enable mask
+    (n_qblocks, n_nblocks) int32. Bucket ranges round OUTWARD to block
+    boundaries; empty buckets enable nothing. An interval scatter (+1 at
+    the first block, -1 past the last) and a running sum, instead of a
+    (Q, P, n_nblocks) broadcast."""
+    probe = probe.to(layout.starts.device).long()
+    q = probe.shape[0]
+    lo = layout.starts[probe].long()                       # (Q, P)
+    hi = layout.starts[probe + 1].long()                   # exclusive
+    first = lo // bn
+    last = torch.maximum(hi - 1, lo) // bn                 # inclusive
+    live = (hi > lo).to(torch.int32)                       # empty -> no-op
+    rows = torch.arange(q, device=probe.device)[:, None].expand_as(first)
+    inc = torch.zeros((q, n_nblocks + 1), dtype=torch.int32,
+                      device=probe.device)
+    # only an empty bucket can point past the last column; it adds 0
+    inc.index_put_((rows, torch.clamp(first, max=n_nblocks)), live,
+                   accumulate=True)
+    inc.index_put_((rows, torch.clamp(last + 1, max=n_nblocks)), -live,
+                   accumulate=True)
+    qmask = torch.cumsum(inc[:, :n_nblocks], dim=1) > 0
+    return _blocks_to_tiles(qmask, bq, n_qblocks)
+
+
+def position_block_mask(layout: BucketLayout, cand: torch.Tensor, bq: int,
+                        bn: int, n_qblocks: int, n_nblocks: int
+                        ) -> torch.Tensor:
+    """Enable mask from explicit candidate ids (Q, C), ORIGINAL ids, -1
+    padded (multi-table indexes whose extra tables cannot all be
+    layout-contiguous): each candidate enables the data block holding its
+    reordered position."""
+    return position_block_mask_from_inv(layout.inv, cand, bq, bn,
+                                        n_qblocks, n_nblocks)
+
+
+def position_block_mask_from_inv(inv: torch.Tensor, cand: torch.Tensor,
+                                 bq: int, bn: int, n_qblocks: int,
+                                 n_nblocks: int) -> torch.Tensor:
+    """The id->position mask body, keyed by a bare inverse permutation."""
+    cand = cand.to(inv.device).long()
+    pos = inv[torch.clamp(cand, min=0)].long()             # (Q, C)
+    blk = torch.where(cand >= 0, pos // bn, n_nblocks)     # pad -> dropped
+    qmask = torch.zeros((cand.shape[0], n_nblocks + 1), dtype=torch.bool,
+                        device=inv.device)
+    qmask.scatter_(1, blk, True)
+    return _blocks_to_tiles(qmask[:, :n_nblocks], bq, n_qblocks)
+
+
+# ---------------------------------------------------------------------------
+# the index-driven fused select
+# ---------------------------------------------------------------------------
+
+def _enable_mask(layout: BucketLayout, Q: int, W: int, k: int, d: int,
+                 probe=None, cand_ids=None, bq=None, bn=None, sub=None,
+                 backend=None):
+    """The geometry ``masked_topk`` runs under and its enable mask:
+    (mask or None, bq, bn, sub). ``bn`` defaults to
+    ``tuning.layout_blocks`` (aligned to the mean bucket size) when there
+    is a probe."""
+    from repro_torch.kernels import ops, tuning
+
+    n = layout.n
+    lanes = max(d + 1, min(k, n))
+    if bn is None and (probe is not None or cand_ids is not None):
+        _, bn, _ = tuning.layout_blocks(Q, n, W, lanes,
+                                        layout.mean_bucket_rows,
+                                        backend=backend)
+    bq, bn, sub, q_pad, n_pad = ops.topk_geometry(Q, n, W, lanes, bq, bn,
+                                                  sub, backend=backend)
+    n_qblocks, n_nblocks = q_pad // bq, n_pad // bn
+    mask = None
+    if probe is not None:
+        mask = probe_block_mask(layout, probe, bq, bn, n_qblocks, n_nblocks)
+    if cand_ids is not None:
+        pmask = position_block_mask(layout, cand_ids, bq, bn, n_qblocks,
+                                    n_nblocks)
+        mask = pmask if mask is None else torch.maximum(mask, pmask)
+    return mask, bq, bn, sub
+
+
+def masked_topk(layout: BucketLayout, q_packed: torch.Tensor, k: int, d: int,
+                probe: torch.Tensor | None = None,
+                cand_ids: torch.Tensor | None = None,
+                bq: int | None = None, bn: int | None = None,
+                sub: int | None = None, return_stats: bool = False):
+    """Index-probed top-k straight through the fused kernel pair (K1 + K2).
+
+    ``probe`` ((Q, P) bucket ids) and/or ``cand_ids`` ((Q, C) original
+    ids, -1 padded) select the candidate set (both: the union);
+    ``None``/``None`` is an unmasked full scan of the reordered codes.
+
+    Returns (dists, ids[, stats]): (Q, k) ascending, ORIGINAL ids, -1 in
+    sentinel slots, over exactly the rows the mask enables. Block sizes
+    default to the geometry of ``q_packed``'s backend."""
+    from repro_torch.kernels import ops
+
+    Q, W = q_packed.shape
+    mask, bq, bn, sub = _enable_mask(
+        layout, Q, W, k, d, probe, cand_ids, bq, bn, sub,
+        backend=device_mod.backend_of(q_packed))
+    out = ops.hamming_topk(q_packed, layout.codes, k, d + 1,
+                           block_mask=mask, bq=bq, bn=bn, sub=sub,
+                           return_stats=return_stats)
+    dd, ii = out[0], out[1]
+    ids = original_ids(layout, dd, ii, d)
+    return (dd, ids, out[2]) if return_stats else (dd, ids)
+
+
+def enabled_positions(layout: BucketLayout, mask_row, bn: int) -> np.ndarray:
+    """Host helper (tests, chip_smoke.py): the reordered row positions a
+    mask row enables, ascending — the exact candidate set, in scan order,
+    of every query in that query block."""
+    mask_row = np.asarray(torch.as_tensor(mask_row).cpu())
+    pos = [np.arange(j * bn, min((j + 1) * bn, layout.n))
+           for j in np.flatnonzero(mask_row)]
+    return (np.concatenate(pos) if pos
+            else np.zeros((0,), np.int64)).astype(np.int32)

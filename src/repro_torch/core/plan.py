@@ -5,20 +5,21 @@
   :class:`CandidateStage` (full scan, and which physical layout it
   streams), :class:`SelectStage` (the top-k select path + its scan
   granularity) and :class:`MergeStage`.
-* **Planner** — ``plan_local`` inspects :class:`StoreStats` and emits a
-  plan; ``resolve_select`` is THE place ``"auto"`` becomes a concrete path.
+* **Planner** — ``plan_local`` / ``plan_index`` inspect :class:`StoreStats`
+  and emit a plan; ``resolve_select`` is THE place ``"auto"`` becomes a
+  concrete path.
   Forced knobs route through the same functions as forced-plan overrides
   (``parse_force``). Paths and reason strings match ``repro``'s, so a plan
   made by either package for the same store reads the same.
-* **Executor** — :func:`execute` runs a non-sharded full-scan plan over
-  concrete tensors; ``_scan_select`` holds the ``fused``, ``fused_scan``,
-  ``composite``, ``counting`` and ``bisect`` paths.
+* **Executor** — :func:`execute` runs a non-sharded plan over concrete
+  tensors: full scans (``_scan_select``: the ``fused``, ``fused_scan``,
+  ``composite``, ``counting`` and ``bisect`` paths, the materializing ones
+  over ``xor``, ``mxu`` or K3 distances), block-mask candidates
+  (``layout.masked_topk``) and gather candidates (``gather_scan``).
 
 Not ported yet, and raising ``NotImplementedError`` rather than running
 another path: the approximate tier (``select="approx"``, ROADMAP queue 1
-item 9), the materializing distance kernel (``method="pallas"``, K3,
-ROADMAP queue 2), sharded plans (queue 1 item 8) and index-probed plans
-with block-mask or gather candidates (queue 1 item 6).
+item 9) and sharded plans (queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -43,18 +44,14 @@ _SELECT_ALIASES = {"auto": "auto", "composite": "composite",
 _NOT_PORTED = {
     "approx": "the approximate tier (select='approx') is not ported yet: "
               "ROADMAP queue 1 item 9 (kernels/approx_select.py)",
-    "pallas": "method='pallas' needs the materializing distance kernel K3, "
-              "not ported yet: ROADMAP queue 2",
     "sharded": "sharded plans are not ported yet: ROADMAP queue 1 item 8",
-    "candidates": "index-probed candidate stages (block_mask, gather) are "
-                  "not ported yet: ROADMAP queue 1 item 6",
 }
 
 
 class DistanceMethod:
     XOR = "xor"          # bit-packed popcount
     MXU = "mxu"          # +/-1 float matmul
-    PALLAS = "pallas"    # materializing distance kernel (K3, not ported)
+    PALLAS = "pallas"    # materializing distance kernel (K3)
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +177,8 @@ class QueryPlan:
         return f"probe:{p}|cand:{c}|select:{s}|merge:{m}"
 
     def _kernels(self) -> Tuple[str, ...]:
+        if self.candidates.kind == "gather":
+            return ("xor+popcount gather", "topk.counting_topk")
         path = self.select.path
         if path == "approx":
             raise NotImplementedError(_NOT_PORTED["approx"])
@@ -190,14 +189,19 @@ class QueryPlan:
                 ks += ("chunk loop + topk.merge_topk",)
             return ks
         dist = {"xor": "binary.hamming_xor", "mxu": "binary.hamming_mxu",
-                "pallas": "kernels.hamming (K3, not ported)"}[
-                    self.select.method]
+                "pallas": ("kernels.hamming.hamming_distance_kernel "
+                           "(K3, CUDA)")}[self.select.method]
         sel = {"composite": "topk.composite_topk (torch.topk)",
                "counting": "topk.counting_topk",
                "bisect": "topk.counting_topk_bisect"}[path]
         return (dist, sel, "chunk loop + topk.merge_topk")
 
     def _predicted_pruning(self) -> str:
+        if self.candidates.kind == "block_mask":
+            return ("pass 1 skips every tile outside the probed buckets; "
+                    "pass 2 composes the mask with the block-min bound")
+        if self.candidates.kind == "gather":
+            return "candidate lists bound the scan; no kernel-side pruning"
         if self.select.path not in ("fused", "fused_scan"):
             return "none (materializing path)"
         if self.candidates.layout != "none":
@@ -212,6 +216,9 @@ class QueryPlan:
 
         if self.merge.kind == "sharded":
             raise NotImplementedError(_NOT_PORTED["sharded"])
+        if self.candidates.kind == "gather":
+            return {"kind": "gather",
+                    "cand_width_hint": self.probe.nprobe or 1}
         if self.select.path == "approx":
             raise NotImplementedError(_NOT_PORTED["approx"])
         backend = self.backend or device_mod.default_backend()
@@ -230,6 +237,8 @@ class QueryPlan:
             path=self.select.path,
             chunk=((self.select.chunk or DEFAULT_CHUNK)
                    if self.select.path == "fused_scan" else 0),
+            bucket_rows=(self.mean_bucket_rows
+                         if self.candidates.kind == "block_mask" else 0),
             backend=backend)
         return dict(kind=self.select.path, **hints)
 
@@ -314,8 +323,13 @@ def _apply_force(plan: QueryPlan, force) -> QueryPlan:
         path = _SELECT_ALIASES.get(f["select"], f["select"])
         if path == "auto" or path not in SELECT_PATHS:
             raise ValueError(f"force_plan select={f['select']!r}")
-        sel = dataclasses.replace(sel, path=path)
-        reason += f"; forced select={path}"
+        if cand.kind == "block_mask" and path not in ("fused", "approx"):
+            # the masked candidate stage runs the fused kernels (or the
+            # approx tier); any other select cannot consume the mask
+            reason += f"; forced select={path} ignored (block_mask runs fused)"
+        else:
+            sel = dataclasses.replace(sel, path=path)
+            reason += f"; forced select={path}"
     if "method" in f:
         sel = dataclasses.replace(sel, method=f["method"])
     if "chunk" in f:
@@ -335,13 +349,24 @@ def _apply_force(plan: QueryPlan, force) -> QueryPlan:
         lay = {"off": "none", "on": "prebuilt"}.get(f["layout"], f["layout"])
         if lay not in ("none", "prebuilt", "local_sort"):
             raise ValueError(f"force_plan layout={f['layout']!r}")
-        cand = dataclasses.replace(cand, layout=lay)
-        reason = _scrub_layout_notes(reason) + f"; forced layout={lay}"
+        if cand.kind == "block_mask":
+            # the masked stage streams the layout by construction; to drop
+            # it force candidates=gather instead
+            reason += "; forced layout ignored (block_mask streams it)"
+        else:
+            cand = dataclasses.replace(cand, layout=lay)
+            reason = _scrub_layout_notes(reason) + f"; forced layout={lay}"
     if "candidates" in f:
         ck = f["candidates"]
         if ck not in ("full", "block_mask", "gather"):
             raise ValueError(f"force_plan candidates={ck!r}")
-        if ck != cand.kind:
+        if cand.kind == "block_mask" and ck == "gather":
+            # the one honoured transition: index call sites build gather
+            # operands whenever the plan says gather (= use_layout=False)
+            cand = dataclasses.replace(cand, kind="gather", layout="none")
+            sel = dataclasses.replace(sel, path="counting")
+            reason += "; forced candidates=gather"
+        elif ck != cand.kind:
             reason += (f"; forced candidates={ck} ignored "
                        f"(no operands for it on a {cand.kind} plan)")
     if "k_local" in f:
@@ -450,6 +475,49 @@ def plan_local(stats: StoreStats, k: int, select: Optional[str] = "auto",
     return _apply_force(plan, force)
 
 
+def plan_index(stats: StoreStats, k: int, kind: str, nprobe: int = 0,
+               n_tables: int = 0, use_layout: Optional[bool] = None,
+               select: Optional[str] = None, recall_target: float = 1.0,
+               force=None) -> QueryPlan:
+    """Plan an index-probed search (kmeans/lsh/kdtree/hamming_prefix
+    traversal feeds the candidate stage). Default: bucket-contiguous
+    indexes drive the MASKED fused kernels (probed buckets -> per-tile
+    enable mask, full buckets, so recall >= gather); indexes built with
+    ``reorder=False`` — and the host-traversed kd-trees, whose leaves are
+    not layout-contiguous — fall back to the gather scan."""
+    if use_layout is None:
+        use_layout = stats.has_layout and kind != "kdtree"
+    if use_layout:
+        if not stats.has_layout:
+            raise ValueError("index built with reorder=False has no layout "
+                             "to mask")
+        cand = CandidateStage(kind="block_mask", layout="prebuilt")
+        if select == "approx":
+            sel = SelectStage(path="approx", chunk=0,
+                              recall_target=recall_target)
+            reason = ("masked approx tier over the bucket-contiguous "
+                      "layout: probed buckets gate the score matmul at "
+                      "per-query block granularity")
+        else:
+            sel = SelectStage(path="fused", chunk=0)
+            reason = ("masked fused kernels over the bucket-contiguous "
+                      "layout: probed buckets become the pass-1 enable mask")
+    else:
+        cand = CandidateStage(kind="gather", layout="none")
+        sel = SelectStage(path="counting", chunk=0)
+        reason = ("gather scan: candidate id lists -> xor+popcount + "
+                  "counting select"
+                  + ("" if stats.has_layout or kind == "kdtree"
+                     else " (index has no layout)"))
+    plan = QueryPlan(
+        probe=ProbeStage(kind=kind, nprobe=nprobe, n_tables=n_tables),
+        candidates=cand, select=sel, merge=MergeStage(),
+        n=stats.n, d=stats.d, w=stats.w, q=stats.q, k=k,
+        mean_bucket_rows=stats.mean_bucket_rows,
+        backend=stats.backend, reason=reason)
+    return _apply_force(plan, force)
+
+
 # ---------------------------------------------------------------------------
 # the executor
 # ---------------------------------------------------------------------------
@@ -463,7 +531,8 @@ def _distances(q_packed: torch.Tensor, chunk_codes: torch.Tensor, d: int,
         xb = binary.unpack_bits(chunk_codes, d)
         return binary.hamming_mxu(qb, xb, d)
     if method == DistanceMethod.PALLAS:
-        raise NotImplementedError(_NOT_PORTED["pallas"])
+        from repro_torch.kernels import ops
+        return ops.hamming_distance(q_packed, chunk_codes)
     raise ValueError(method)
 
 
@@ -536,16 +605,57 @@ def _scan_select(codes_packed: torch.Tensor, q_packed: torch.Tensor, k: int,
     return best_d, best_i + id_offset
 
 
+def gather_scan(codes: torch.Tensor, q_packed: torch.Tensor,
+                cand: torch.Tensor, k: int, d: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force scan of per-query candidate lists (the gather stage).
+
+    codes: (N, W); cand: (Q, C) int32 with -1 padding -> (dists, ids), -1
+    in sentinel slots. The (Q, C) distances are summed one word at a time,
+    so the gathered (Q, C, W) codes never exist."""
+    cand = cand.to(device=codes.device, dtype=torch.int32)
+    safe = torch.clamp(cand, min=0).long()
+    q = q_packed.to(torch.int32)
+    dist = torch.zeros(cand.shape, dtype=torch.int32, device=codes.device)
+    for w in range(codes.shape[1]):
+        dist += binary.popcount32(q[:, w, None] ^ codes[:, w][safe])
+    dist = torch.where(cand < 0, d + 1, dist)
+    dd, ii = topk.counting_topk(dist, k, d + 1)
+    ids = torch.gather(cand, 1, torch.clamp(ii, max=cand.shape[1] - 1).long())
+    return dd, torch.where(dd > d, -1, ids)
+
+
 def execute(plan: QueryPlan, q_packed: torch.Tensor, *,
             codes: Optional[torch.Tensor] = None,
             layout: Optional[layout_mod.BucketLayout] = None,
-            id_offset=0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run a non-sharded full-scan plan over concrete tensors: ``codes``,
-    plus ``layout`` when the plan streams a prebuilt one."""
+            probe: Optional[torch.Tensor] = None,
+            cand_ids: Optional[torch.Tensor] = None,
+            cand: Optional[torch.Tensor] = None,
+            id_offset=0, return_stats: bool = False):
+    """Run a non-sharded plan over concrete tensors.
+
+    Operands per candidate stage: block_mask needs ``layout`` (+ ``probe``
+    (Q, P) bucket ids and/or ``cand_ids`` (Q, C) original ids, -1 padded;
+    core/layout.py semantics); gather needs ``codes`` + ``cand`` ((Q, C)
+    int32, -1 padded); full scans need ``codes`` (plus ``layout`` when the
+    plan streams a prebuilt one). ``return_stats`` (masked plans only)
+    appends the pruning telemetry."""
     if plan.merge.kind == "sharded":
         raise NotImplementedError(_NOT_PORTED["sharded"])
-    if plan.candidates.kind != "full":
-        raise NotImplementedError(_NOT_PORTED["candidates"])
+    if plan.candidates.kind == "block_mask":
+        if layout is None:
+            raise ValueError("a block_mask plan needs the layout")
+        if plan.select.path == "approx":
+            raise NotImplementedError(_NOT_PORTED["approx"])
+        return layout_mod.masked_topk(layout, q_packed, plan.k, plan.d,
+                                      probe=probe, cand_ids=cand_ids,
+                                      return_stats=return_stats)
+    if return_stats:
+        raise ValueError("pruning stats only exist on the masked path")
+    if plan.candidates.kind == "gather":
+        if codes is None or cand is None:
+            raise ValueError("a gather plan needs the codes and cand")
+        return gather_scan(codes, q_packed, cand, plan.k, plan.d)
     if plan.candidates.layout == "prebuilt":
         if layout is None:
             raise ValueError("the plan streams a prebuilt layout; pass it")

@@ -7,11 +7,13 @@ encoded, searched against the datastore (exact Hamming kNN — the paper's
 engine, ``plan.execute``), and the neighbor distribution is interpolated
 with the LM softmax.
 
+``nprobe > 0`` with the store's key positions runs the DEGRADED search the
+serving ladder downshifts to: the ``nprobe`` nearest hamming-prefix buckets
+through the masked fused kernels.
+
 Not ported yet, and raising ``NotImplementedError`` rather than running
-another path: sharded plans (a mesh or axes; ROADMAP queue 1 item 8), the
-degraded hamming-prefix probes (``nprobe > 0``, ``probe_key_positions``,
-``degraded_plan_for_store``; queue 1 item 6) and the approximate tier
-(``select="approx"``; queue 1 item 9).
+another path: sharded plans (a mesh or axes; ROADMAP queue 1 item 8) and
+the approximate tier (``select="approx"``; queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -21,14 +23,12 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig, RetrievalConfig
-from repro_torch.core import binary, layout as layout_mod, plan as plan_mod
-from repro_torch.core import quantize
+from repro_torch.core import binary, index as index_mod
+from repro_torch.core import layout as layout_mod, plan as plan_mod, quantize
 
 _NOT_PORTED = {
     "sharded": "sharded retrieval plans are not ported yet: ROADMAP queue 1 "
                "item 8",
-    "probe": "degraded hamming-prefix probes (nprobe > 0) are not ported "
-             "yet: ROADMAP queue 1 item 6 (layout.masked_topk)",
     "approx": "the approximate tier (select='approx') is not ported yet: "
               "ROADMAP queue 1 item 9",
 }
@@ -141,15 +141,46 @@ def log_store_plan(store: DataStore, rcfg: RetrievalConfig, q: int,
     return p
 
 
-def probe_key_positions(store: DataStore, rcfg: RetrievalConfig):
-    """The hamming-prefix key-bit positions the degraded probes aim by."""
-    raise NotImplementedError(_NOT_PORTED["probe"])
+def probe_key_positions(store: DataStore, rcfg: RetrievalConfig
+                        ) -> Optional[torch.Tensor]:
+    """The hamming-prefix key-bit positions of ``store.layout``.
+
+    ``build_layout``'s pure-Hamming fallback keys buckets by the
+    ``log2(n_buckets)`` most balanced bit positions — a deterministic
+    function of the codes, so recomputing the selection reproduces the
+    bucket ids the layout was clustered by. None when the store has no
+    layout or a bucket count that is not a power of two (a layout not
+    keyed by the hamming prefix): degraded probing is unavailable there."""
+    lay = store.layout
+    if lay is None:
+        return None
+    if store.key_positions is not None:
+        return store.key_positions     # frozen at build
+    bits = lay.n_buckets.bit_length() - 1
+    if (1 << bits) != lay.n_buckets:
+        return None
+    _, positions = layout_mod.hamming_prefix_assign(store.codes,
+                                                    rcfg.code_bits, bits)
+    return positions
 
 
 def degraded_plan_for_store(store: DataStore, rcfg: RetrievalConfig, q: int,
                             nprobe: int) -> plan_mod.QueryPlan:
-    """The reduced-nprobe masked plan a degradation rung serves with."""
-    raise NotImplementedError(_NOT_PORTED["probe"])
+    """The reduced-nprobe masked plan a degradation rung serves with:
+    hamming-prefix key probing feeds the block-mask fused kernels."""
+    stats = plan_mod.stats_for(store.codes.shape[0], rcfg.code_bits,
+                               store.codes.shape[1], q, k=rcfg.k,
+                               layout=store.layout)
+    return plan_mod.plan_index(stats, rcfg.k, kind="hamming_prefix",
+                               nprobe=nprobe)
+
+
+def _bucket_probe(q_codes: torch.Tensor, positions: torch.Tensor,
+                  n_buckets: int, nprobe: int, d: int) -> torch.Tensor:
+    """(Q, W) packed queries -> (Q, nprobe) bucket ids, nearest first
+    (``index.hamming_prefix_probe``)."""
+    return index_mod.hamming_prefix_probe(q_codes, positions, n_buckets,
+                                          nprobe, d)
 
 
 def knn_logits(store: DataStore, hidden: torch.Tensor, rcfg: RetrievalConfig,
@@ -162,19 +193,29 @@ def knn_logits(store: DataStore, hidden: torch.Tensor, rcfg: RetrievalConfig,
 
     A thin plan-builder: ``plan_for_store`` resolves the select path and
     layout use from the store's stats and the config, and ``plan.execute``
-    runs the search ("fused" runs K1 + K2 once over the whole store)."""
-    if nprobe > 0:
-        raise NotImplementedError(_NOT_PORTED["probe"])
+    runs the search ("fused" runs K1 + K2 once over the whole store).
+
+    ``nprobe > 0`` with ``probe_positions`` (``probe_key_positions``) on a
+    store with a layout switches to the DEGRADED masked search: only the
+    ``nprobe`` nearest hamming-prefix buckets are scanned."""
     q_codes = binary.pack_bits(quantize.itq_encode(hidden, store.itq))
-    p = plan_for_store(store, rcfg, hidden.shape[0], mesh=mesh, axes=axes,
-                       method=method, select=select,
-                       recall_target=recall_target)
-    dists, ids = plan_mod.execute(p, q_codes, codes=store.codes,
-                                  layout=store.layout)
+    if nprobe > 0 and store.layout is not None and probe_positions is not None:
+        p = degraded_plan_for_store(store, rcfg, hidden.shape[0], nprobe)
+        probe = _bucket_probe(q_codes, probe_positions,
+                              store.layout.n_buckets, nprobe, rcfg.code_bits)
+        dists, ids = plan_mod.execute(p, q_codes, layout=store.layout,
+                                      probe=probe)
+    else:
+        p = plan_for_store(store, rcfg, hidden.shape[0], mesh=mesh,
+                           axes=axes, method=method, select=select,
+                           recall_target=recall_target)
+        dists, ids = plan_mod.execute(p, q_codes, codes=store.codes,
+                                      layout=store.layout)
     n = store.values.shape[0]
-    # fewer than k valid neighbors -> the engine pads with sentinels
-    # (dist = d+1, id >= N): they get no softmax weight and no vote; an
-    # all-invalid row degenerates to p = 0 and hits the log floor below
+    # fewer than k valid neighbors -> the engine pads with sentinels (full
+    # scans: dist = d+1, id >= N; masked probes: id = -1): they get no
+    # softmax weight and no vote; an all-invalid row degenerates to p = 0
+    # and hits the log floor below
     valid = (ids >= 0) & (ids < n) & (dists <= rcfg.code_bits)   # (Q, k)
     neighbor_tokens = store.values[torch.clamp(ids, 0, n - 1).long()]
     w = torch.softmax(torch.where(valid, -dists.float() / temperature,

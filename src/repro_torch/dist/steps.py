@@ -4,8 +4,9 @@ assembled (port of the single-device half of ``repro.dist.steps``).
 Without a mesh there are no partition specs to return, so each builder
 returns its step function alone. Steps run under ``torch.inference_mode``.
 The serve builder is memoized per (cfg, max_len, retrieval variant), as
-``repro``'s is: the server asks for its rungs' steps again mid-serve, and
-failover must find the step it already has. The train step and the
+``repro``'s is (the degraded probe variant keys on the identity of its
+probe positions, as there): the server asks for its rungs' steps again
+mid-serve, and failover must find the step it already has. The train step and the
 per-unit search steps wait (ROADMAP queue 1 items 11 and 8).
 """
 from __future__ import annotations
@@ -48,7 +49,8 @@ def make_prefill_step(cfg: ModelConfig, seq_len: int, *,
 # serve
 # ---------------------------------------------------------------------------
 
-# (cfg, max_len, with_retrieval, select) -> serve_fn
+# (cfg, max_len, with_retrieval, nprobe, id(probe_positions), select)
+#   -> serve_fn
 _SERVE_CACHE: dict = {}
 
 
@@ -58,16 +60,18 @@ def make_serve_step(cfg: ModelConfig, max_len: int, *,
                     recall_target: Optional[float] = None):
     """Returns ``serve_fn(model, token (B,1), state, active (B,)[, store])
     -> (logits (B,1,V) f32, new_state)`` — one decode step for every active
-    slot; the store argument exists iff retrieval is on. The degraded
-    variants (``nprobe > 0``, ``select="approx"``) raise: ROADMAP queue 1
-    items 6 and 9."""
+    slot; the store argument exists iff retrieval is on. ``nprobe > 0``
+    (with the store's hamming-prefix ``probe_positions``) builds the
+    DEGRADED variant: a masked probe of the ``nprobe`` nearest buckets
+    instead of the full exact plan. The approx variant
+    (``select="approx"``) raises: ROADMAP queue 1 item 9."""
     if with_retrieval is None:
         with_retrieval = cfg.retrieval.enabled
-    if nprobe > 0 or probe_positions is not None:
-        raise NotImplementedError(retrieval_mod._NOT_PORTED["probe"])
     if select == "approx" or recall_target is not None:
         raise NotImplementedError(retrieval_mod._NOT_PORTED["approx"])
-    key = (cfg, int(max_len), bool(with_retrieval), select)
+    key = (cfg, int(max_len), bool(with_retrieval), int(nprobe),
+           id(probe_positions) if probe_positions is not None else None,
+           select)
     if key in _SERVE_CACHE:
         return _SERVE_CACHE[key]
 
@@ -77,8 +81,9 @@ def make_serve_step(cfg: ModelConfig, max_len: int, *,
         def serve_fn(model, token, state, active, store):
             logits, new_state, hidden = lm.decode_step(
                 model, cfg, token, state, active=active, return_hidden=True)
-            knn = retrieval_mod.knn_logits(store, hidden[:, 0, :], rcfg,
-                                           cfg.vocab_size, select=select)
+            knn = retrieval_mod.knn_logits(
+                store, hidden[:, 0, :], rcfg, cfg.vocab_size, select=select,
+                nprobe=nprobe, probe_positions=probe_positions)
             mixed = retrieval_mod.interpolate(logits[:, 0, :], knn,
                                               rcfg.interpolation)
             return mixed[:, None, :], new_state

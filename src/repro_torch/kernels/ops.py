@@ -1,5 +1,6 @@
-"""Public wrappers around the two-pass kernels and flash attention (port
-of the single-device half of ``repro.kernels.ops``).
+"""Public wrappers around the kernels: the two-pass select, the
+materializing distance kernel and flash attention (port of the
+single-device half of ``repro.kernels.ops``).
 
 Shapes are padded to block multiples here so the kernels stay simple;
 padded dataset rows are masked exactly inside the kernels by ``n_valid``.
@@ -18,6 +19,7 @@ from repro_torch import device as device_mod
 from repro_torch.core.topk import sort_key_val
 from repro_torch.kernels import tuning
 from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.hamming import hamming_distance_kernel
 from repro_torch.kernels.topk_select import (hamming_emit_kernel,
                                              hamming_hist_kernel)
 
@@ -31,6 +33,23 @@ def _pad_rows(a: torch.Tensor, target: int) -> torch.Tensor:
     if pad:
         a = torch.cat([a, a.new_zeros((pad, *a.shape[1:]))])
     return a
+
+
+def hamming_distance(q_packed: torch.Tensor, x_packed: torch.Tensor,
+                     bq: int | None = None,
+                     bn: int | None = None) -> torch.Tensor:
+    """(Q, W) x (N, W) packed -> (Q, N) int32 through K3. Arbitrary Q/N:
+    both are padded here to the tile, and the result sliced back."""
+    Q, W = q_packed.shape
+    N = x_packed.shape[0]
+    if Q == 0 or N == 0:
+        return torch.zeros((Q, N), dtype=torch.int32, device=q_packed.device)
+    hbq, hbn = tuning.distance_blocks(Q, N, W,
+                                      backend=device_mod.backend_of(q_packed))
+    bq, bn = bq or hbq, bn or hbn
+    qp = _pad_rows(q_packed.to(torch.int32), _round_up(Q, bq))
+    xp = _pad_rows(x_packed.to(torch.int32), _round_up(N, bn))
+    return hamming_distance_kernel(qp, xp, bq=bq, bn=bn)[:Q, :N]
 
 
 def topk_geometry(Q: int, N: int, W: int, lanes: int,

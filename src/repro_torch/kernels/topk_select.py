@@ -69,8 +69,8 @@ def _vec(v, Q: int, fill: int, dev) -> torch.Tensor:
 
 def _codes(a: torch.Tensor) -> torch.Tensor:
     a = a.to(torch.int32).contiguous()
-    # the d = 256 kernels read rows of 8 words as 16-byte vectors
-    if a.shape[1] == 8 and a.data_ptr() % 16:
+    # kernels read rows of 4 or 8 words as 16-byte vectors
+    if a.shape[1] % 4 == 0 and a.data_ptr() % 16:
         a = a.clone()
     return a
 

@@ -246,8 +246,8 @@ def cost_hints(Q: int, N: int, W: int, lanes: int, *, path: str = "fused",
 
 def distance_blocks(Q: int, N: int, W: int,
                     backend: str | None = None) -> tuple[int, int]:
-    """(bq, bn) for the materializing (Q, N) distance kernel (K3, not yet
-    ported): the same tile on every backend."""
+    """(bq, bn) for the materializing (Q, N) distance kernel (K3): the same
+    tile on every backend."""
     bq, bn = 128, 512
     bq = min(bq, _round_up(Q, _SUBLANE))
     bn = min(bn, _round_up(N, _LANE))

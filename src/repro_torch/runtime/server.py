@@ -11,11 +11,11 @@ the queue or their slot with a ``timed_out`` status.
 
 Transient search failures retry with bounded backoff, then fail over to
 retrieval-off decode (the last rung of the ladder). Not ported yet, and
-raising ``NotImplementedError``: the degradation policy's probe and approx
-rungs (``degradation=``; ROADMAP queue 1 items 6 and 9), datastore
-snapshots (``snapshot_dir``/``snapshot_every``), mutable stores and tenant
-arenas (queue 1 item 10), and the shard-fault-tolerance layer
-(``shard_search``, ``shard_axes``; queue 1 item 8).
+raising ``NotImplementedError``: the degradation policy's ladder
+(``degradation=``), which always adds approx rungs (ROADMAP queue 1 item
+9), datastore snapshots (``snapshot_dir``/``snapshot_every``), mutable
+stores and tenant arenas (queue 1 item 10), and the shard-fault-tolerance
+layer (``shard_search``, ``shard_axes``; queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -41,8 +41,8 @@ QUEUED, ACTIVE, DONE, SHED, TIMED_OUT = (
     "queued", "active", "done", "shed", "timed_out")
 
 _UNPORTED_OPTIONS = {
-    "degradation": "the degradation ladder's probe and approx rungs are "
-                   "not ported yet: ROADMAP queue 1 items 6 and 9",
+    "degradation": "the degradation ladder always adds the approx rungs, "
+                   "which are not ported yet: ROADMAP queue 1 item 9",
     "snapshot_dir": "datastore snapshots are not ported yet: ROADMAP queue "
                     "1 item 10",
     "snapshot_every": "datastore snapshots are not ported yet: ROADMAP "

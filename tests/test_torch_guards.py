@@ -17,6 +17,7 @@ from repro_torch.configs import get_config, scaled_down
 from repro_torch.core import engine, layout
 from repro_torch.dist import steps
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import hamming as tham
 from repro_torch.kernels import ops
 from repro_torch.kernels import topk_select as tsel
 from repro_torch.launch import serve
@@ -53,7 +54,8 @@ def test_the_scan_covers_every_module_of_the_port():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("configs/base.py", "kernels/flash_attention.py",
                 "models/lm.py", "core/retrieval.py", "runtime/server.py",
-                "runtime/faults.py", "dist/steps.py", "launch/serve.py"):
+                "runtime/faults.py", "dist/steps.py", "launch/serve.py",
+                "kernels/hamming.py", "core/index.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
@@ -66,7 +68,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: carry.codes(codes),
                  lambda: carry.engine(codes, 64),
                  lambda: carry.layout(codes, np.arange(10), np.arange(10),
-                                      np.array([0, 10]))):
+                                      np.array([0, 10])),
+                 lambda: carry.kmeans_index(np.zeros((2, 4)),
+                                            np.zeros((2, 5)), codes, None,
+                                            64),
+                 lambda: carry.lsh_index(np.zeros((2, 3)),
+                                         np.zeros((2, 8, 5)), codes, None,
+                                         64)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert device.resolve("cpu").type == "cpu"
@@ -110,20 +118,26 @@ def test_flash_attention_on_cpu_tensors_takes_the_plain_path():
 
 def test_cpu_tensors_take_the_plain_path_without_launching():
     before = (tsel.hamming_hist_kernel.launches,
-              tsel.hamming_emit_kernel.launches)
+              tsel.hamming_emit_kernel.launches,
+              tham.hamming_distance_kernel.launches)
     rng = np.random.default_rng(0)
     x = carry.codes(rng.integers(0, 1 << 32, (600, 2), dtype=np.uint32), "cpu")
     q = carry.codes(rng.integers(0, 1 << 32, (8, 2), dtype=np.uint32), "cpu")
     hist, bmin = tsel.hamming_hist_kernel(q, x, 65, bq=8, bn=200, sub=8)
     out = tsel.hamming_emit_kernel(q, x, torch.full((8,), 30), torch.zeros(8),
                                    65, 4, bq=8, bn=200, sub=8)
+    dist = tham.hamming_distance_kernel(q, x, bq=8, bn=200)
+    assert torch.equal(dist, tham.hamming_distance_plain(q, x))
     eng = engine.KNNEngine(codes=x, d=64).with_layout()
     dd, ii = eng.search(q, 5)
+    assert torch.equal(eng.search(q, 5, method="pallas",
+                                  select="counting")[0], dd)
     assert int(hist.sum()) == 8 * 600 and bmin.shape == (1, 3)
     assert out[0].shape == (8, 4) and dd.shape == (8, 5)
     assert eng.query_plan(q, 5).select.path == "fused"
     assert (tsel.hamming_hist_kernel.launches,
-            tsel.hamming_emit_kernel.launches) == before == (0, 0)
+            tsel.hamming_emit_kernel.launches,
+            tham.hamming_distance_kernel.launches) == before == (0, 0, 0)
     assert device.backend_of(x) == "cpu"
 
 
@@ -135,6 +149,11 @@ def test_wrappers_refuse_other_devices_instead_of_falling_back():
     with pytest.raises(ValueError, match="tensors on"):
         tsel.hamming_hist_kernel(torch.zeros((8, 2), dtype=torch.int32), x,
                                  65, bq=8, bn=64, sub=8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tham.hamming_distance_kernel(q, x, bq=8, bn=64)
+    with pytest.raises(ValueError, match="tensors on"):
+        tham.hamming_distance_kernel(torch.zeros((8, 2), dtype=torch.int32),
+                                     x, bq=8, bn=64)
 
 
 def test_layout_runs_on_the_codes_device():

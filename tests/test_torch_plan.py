@@ -2,11 +2,13 @@
 (repro_torch.core.plan). For the same StoreStats, select requests,
 layout policies and forced-plan overrides, both packages must choose the
 same stages, and write the same reason and compact strings; the cost hints
-``explain()`` reports must agree; what the port has not ported raises."""
+``explain()`` reports must agree; what the port has not ported raises.
+Index plans (``plan_index``) and their forced overrides too."""
 import dataclasses
 import warnings
 
 import numpy as np
+import jax.numpy as jnp
 import pytest
 import torch
 
@@ -95,28 +97,100 @@ def test_bad_requests_raise_like_reference():
 
 
 def test_unported_paths_raise_not_implemented():
-    """The approximate tier, K3 (method='pallas') and sharded plans name
-    their ROADMAP queue instead of quietly running another path."""
+    """The approximate tier and sharded plans name their ROADMAP queue
+    instead of quietly running another path; K3 (method='pallas') and
+    gather candidates, ported since, run and agree with the reference."""
     stats = tplan.StoreStats(**FLAT)
-    q = torch.zeros((2, 4), dtype=torch.int32)
-    codes = torch.zeros((64, 4), dtype=torch.int32)
+    rng = np.random.default_rng(0)
+    qn = rng.integers(0, 1 << 32, (2, 4), dtype=np.uint32)
+    cn = rng.integers(0, 1 << 32, (64, 4), dtype=np.uint32)
+    q = torch.from_numpy(qn.view(np.int32))
+    codes = torch.from_numpy(cn.view(np.int32))
     approx = tplan.plan_local(stats, 4, select="approx")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         tplan.execute(approx, q, codes=codes)
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         approx.explain()
-    pallas = tplan.plan_local(stats, 4, select="counting", method="pallas")
-    with pytest.raises(NotImplementedError, match="K3"):
-        tplan.execute(pallas, q, codes=codes)
+    masked_approx = tplan.plan_index(tplan.StoreStats(**LAY), 4,
+                                     kind="kmeans", select="approx")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        tplan.execute(masked_approx, q, layout=object())
     sharded = dataclasses.replace(
         tplan.plan_local(stats, 4), merge=tplan.MergeStage(kind="sharded"))
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tplan.execute(sharded, q, codes=codes)
+    jstats = jplan.StoreStats(**FLAT)
+    pallas = tplan.plan_local(stats, 4, select="counting", method="pallas")
+    ref = jplan.execute(jplan.plan_local(jstats, 4, select="counting",
+                                         method="pallas"),
+                        jnp.asarray(qn), codes=jnp.asarray(cn))
+    out = tplan.execute(pallas, q, codes=codes)
+    assert np.array_equal(out[0].numpy(), np.asarray(ref[0]))
+    assert np.array_equal(out[1].numpy(), np.asarray(ref[1]))
+    cand = np.array([[3, 9, -1, 60], [-1, -1, -1, -1]], np.int32)
     gather = dataclasses.replace(
         tplan.plan_local(stats, 4),
         candidates=tplan.CandidateStage(kind="gather"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    ref = jplan.execute(dataclasses.replace(
+        jplan.plan_local(jstats, 4),
+        candidates=jplan.CandidateStage(kind="gather")),
+        jnp.asarray(qn), codes=jnp.asarray(cn), cand=jnp.asarray(cand))
+    out = tplan.execute(gather, q, codes=codes, cand=torch.from_numpy(cand))
+    assert np.array_equal(out[0].numpy(), np.asarray(ref[0]))
+    assert np.array_equal(out[1].numpy(), np.asarray(ref[1]))
+    with pytest.raises(ValueError, match="needs the codes and cand"):
         tplan.execute(gather, q, codes=codes)
+
+
+# the DESIGN.md section 3 index rows, and the serving ladder's probe rung
+INDEX_ROWS = [
+    ("kmeans", LAY, dict(nprobe=2)),
+    ("kmeans", FLAT, dict(nprobe=2, use_layout=False)),
+    ("kmeans", LAY, dict(nprobe=2, use_layout=False)),
+    ("kmeans", LAY, dict(nprobe=2, select="approx", recall_target=0.95)),
+    ("lsh", LAY, dict(n_tables=4)),
+    ("lsh", FLAT, dict(n_tables=4)),
+    ("kdtree", FLAT, dict()),
+    ("kdtree", LAY, dict(n_tables=4)),
+    ("hamming_prefix", LAY, dict(nprobe=8)),
+]
+
+
+def _index_plans(kind, stats_kw, kw, force=None):
+    return (jplan.plan_index(jplan.StoreStats(**stats_kw, index=kind), 16,
+                             kind=kind, force=force, **kw),
+            tplan.plan_index(tplan.StoreStats(**stats_kw, index=kind), 16,
+                             kind=kind, force=force, **kw))
+
+
+@pytest.mark.parametrize("kind,stats_kw,kw", INDEX_ROWS, ids=str)
+def test_plan_index_matches_reference(kind, stats_kw, kw):
+    jp, tp = _index_plans(kind, stats_kw, kw)
+    assert tp.compact() == jp.compact() and tp.reason == jp.reason
+    for stage in ("probe", "candidates", "select", "merge"):
+        assert dataclasses.asdict(getattr(tp, stage)) == dataclasses.asdict(
+            getattr(jp, stage)), stage
+    if tp.select.path != "approx":
+        je, te = jp.explain(), tp.explain()
+        for key in ("geometry", "predicted_pruning", "stages", "compact"):
+            assert te[key] == je[key], key
+
+
+@pytest.mark.parametrize("force", [
+    "select=counting", "select=fused", "select=approx", "layout=off",
+    "layout=local_sort", "candidates=gather", "candidates=full",
+    "candidates=block_mask", "select=bisect,candidates=gather",
+    "method=pallas,chunk=512", "k_local=2"], ids=str)
+@pytest.mark.parametrize("row", [0, 1, 4, 8])
+def test_forced_overrides_on_index_plans_match_reference(row, force):
+    """Masked plans ignore a forced non-fused select and a forced layout;
+    candidates=gather is the one transition they honour."""
+    kind, stats_kw, kw = INDEX_ROWS[row]
+    jp, tp = _index_plans(kind, stats_kw, kw, force=force)
+    assert tp.compact() == jp.compact() and tp.reason == jp.reason
+    assert dataclasses.asdict(tp.select) == dataclasses.asdict(jp.select)
+    assert dataclasses.asdict(tp.candidates) == dataclasses.asdict(
+        jp.candidates)
 
 
 def test_stats_and_auto_chunk_match_reference():

@@ -191,18 +191,74 @@ def test_synthetic_datastore_and_logged_plan(caplog):
 
 
 def test_unported_retrieval_paths_raise(stores):
-    _, tc = _cfgs()
-    _, ts = stores["hamming_prefix"]
+    """Sharded plans and the approx tier still name their queue; the
+    degraded probe calls, ported since, run and agree with repro."""
+    jc, tc = _cfgs(code_bits=64)
+    js, ts = stores["hamming_prefix"]
     hid = torch.zeros((2, 128))
     calls = [
         lambda: tret.plan_for_store(ts, tc.retrieval, 2, mesh=object(),
                                     axes=("data",)),
-        lambda: tret.knn_logits(ts, hid, tc.retrieval, 512, nprobe=4),
         lambda: tret.knn_logits(ts, hid, tc.retrieval, 512, select="approx"),
-        lambda: tret.probe_key_positions(ts, tc.retrieval),
-        lambda: tret.degraded_plan_for_store(ts, tc.retrieval, 2, 4),
     ]
-    for call, queue in zip(calls, ("item 8", "item 6", "item 9", "item 6",
-                                   "item 6")):
+    for call, queue in zip(calls, ("item 8", "item 9")):
         with pytest.raises(NotImplementedError, match=queue):
             call()
+    pos = tret.probe_key_positions(ts, tc.retrieval)
+    assert np.array_equal(pos.numpy(), np.asarray(
+        jret.probe_key_positions(js, jc.retrieval)))
+    assert (tret.degraded_plan_for_store(ts, tc.retrieval, 2, 4).compact()
+            == jret.degraded_plan_for_store(js, jc.retrieval, 2, 4).compact())
+    out = tret.knn_logits(ts, hid, tc.retrieval, 512, nprobe=4,
+                          probe_positions=pos)
+    assert out.shape == (2, 512) and bool(torch.isfinite(out).all())
+
+
+def test_probe_key_positions_match_reference(stores):
+    """The key bits of a hamming-prefix store, recomputed from its codes;
+    none without a layout or with a bucket count off a power of two."""
+    jc, tc = _cfgs(code_bits=64)
+    js, ts = stores["hamming_prefix"]
+    pos = tret.probe_key_positions(ts, tc.retrieval)
+    assert pos.dtype == torch.int32
+    assert 1 << pos.shape[0] == ts.layout.n_buckets
+    assert np.array_equal(pos.numpy(), np.asarray(
+        jret.probe_key_positions(js, jc.retrieval)))
+    assert tret.probe_key_positions(stores["none"][1], tc.retrieval) is None
+    odd = ts._replace(layout=ts.layout._replace(starts=ts.layout.starts[:-1]))
+    assert tret.probe_key_positions(odd, tc.retrieval) is None
+    frozen = ts._replace(key_positions=torch.arange(3, dtype=torch.int32))
+    assert (tret.probe_key_positions(frozen, tc.retrieval)
+            is frozen.key_positions)
+
+
+@pytest.mark.parametrize("nprobe", [1, 4, 64])
+def test_degraded_knn_logits_matches_reference(stores, nprobe):
+    """knn_logits(nprobe>0, probe_positions) on a carried hamming-prefix
+    store: the masked plan, its (dists, ids) and the log-probabilities."""
+    jc, tc = _cfgs(layout="hamming_prefix", code_bits=64, k=16)
+    js, ts = stores["hamming_prefix"]
+    hid = _data(n=12, dim=128, seed=6)
+    jpos = jret.probe_key_positions(js, jc.retrieval)
+    tpos = tret.probe_key_positions(ts, tc.retrieval)
+    jp = jret.degraded_plan_for_store(js, jc.retrieval, 12, nprobe)
+    tp = tret.degraded_plan_for_store(ts, tc.retrieval, 12, nprobe)
+    assert tp.compact() == jp.compact() == (
+        f"probe:hamming_prefix@{nprobe}|cand:block_mask+prebuilt|"
+        "select:fused|merge:none")
+    assert tp.reason == jp.reason
+    q_j = jbin.pack_bits(jq.itq_encode(jnp.asarray(hid), js.itq))
+    q_t = tbin.pack_bits(tq.itq_encode(torch.from_numpy(hid), ts.itq))
+    jprobe = jret._bucket_probe(q_j, jpos, js.layout.n_buckets, nprobe, 64)
+    tprobe = tret._bucket_probe(q_t, tpos, ts.layout.n_buckets, nprobe, 64)
+    assert np.array_equal(tprobe.numpy(), np.asarray(jprobe))
+    jd, ji = jplan.execute(jp, q_j, layout=js.layout, probe=jprobe)
+    td, ti = tplan.execute(tp, q_t, layout=ts.layout, probe=tprobe)
+    assert np.array_equal(td.numpy(), np.asarray(jd))
+    assert np.array_equal(ti.numpy(), np.asarray(ji))
+    ref = jret.knn_logits(js, jnp.asarray(hid), jc.retrieval, 512,
+                          nprobe=nprobe, probe_positions=jpos)
+    out = tret.knn_logits(ts, torch.from_numpy(hid), tc.retrieval, 512,
+                          nprobe=nprobe, probe_positions=tpos)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6,
+                               rtol=1e-6)

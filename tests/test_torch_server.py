@@ -20,12 +20,15 @@ import torch
 from repro import compat
 from repro.configs import get_config as jget_config
 from repro.configs import scaled_down as jscaled_down
+from repro.core import layout as jlay
 from repro.core import retrieval as jret
+from repro.dist import steps as jsteps
 from repro.models import lm as jlm
 from repro.runtime import faults as jfaults
 from repro.runtime import server as jserver
 from repro_torch import carry
 from repro_torch.configs import get_config, scaled_down
+from repro_torch.core import retrieval as tret
 from repro_torch.dist import steps
 from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as tlm
@@ -118,14 +121,37 @@ def test_deadlines_and_queue_shedding_match_reference(env):
 
 
 def test_serve_step_is_memoized_and_degraded_variants_raise(env):
-    tc = env[1]
+    """The approx variant still raises; the degraded probe variant, ported
+    since, is memoized on its probe positions and its step's logits agree
+    with repro's on a carried hamming-prefix store."""
+    jc, tc, params, model, store, _, corpus, mesh = env
     fn = steps.make_serve_step(tc, 16)
     assert steps.make_serve_step(tc, 16) is fn
     assert steps.make_serve_step(tc, 16, with_retrieval=False) is not fn
-    with pytest.raises(NotImplementedError, match="item 6"):
-        steps.make_serve_step(tc, 16, nprobe=4)
     with pytest.raises(NotImplementedError, match="item 9"):
         steps.make_serve_step(tc, 16, select="approx", recall_target=0.9)
+    jstore = store._replace(layout=jlay.build_layout(
+        store.codes, jc.retrieval.code_bits, n_buckets=8))
+    tstore = carry.datastore(jax.tree_util.tree_map(np.asarray, jstore),
+                             device="cpu")
+    jpos = jret.probe_key_positions(jstore, jc.retrieval)
+    tpos = tret.probe_key_positions(tstore, tc.retrieval)
+    assert np.array_equal(tpos.numpy(), np.asarray(jpos))
+    tfn = steps.make_serve_step(tc, 16, nprobe=2, probe_positions=tpos)
+    assert tfn is not fn
+    assert steps.make_serve_step(tc, 16, nprobe=2, probe_positions=tpos) is tfn
+    jfn, _, _ = jsteps.make_serve_step(jc, mesh, 16, nprobe=2,
+                                       probe_positions=jpos)
+    token = corpus[:2, :1]
+    jl, _ = jfn(params, jnp.asarray(token), jlm.init_decode_state(jc, 2, 16),
+                jnp.ones((2,), bool), jstore)
+    tl, _ = tfn(model, torch.from_numpy(token),
+                tlm.init_decode_state(tc, 2, 16, device="cpu"),
+                torch.ones(2, dtype=torch.bool), tstore)
+    assert tl.shape == (2, 1, tc.vocab_size)
+    # f32: only the order of sums differs (tests/test_torch_models.py)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-5,
+                               rtol=1e-5)
 
 
 def test_prefill_step_matches_reference_prefill(env):
@@ -141,7 +167,7 @@ def test_prefill_step_matches_reference_prefill(env):
 
 
 @pytest.mark.parametrize("option,value,queue", [
-    ("degradation", tserver.DegradationPolicy(), "items 6 and 9"),
+    ("degradation", tserver.DegradationPolicy(), "item 9"),
     ("snapshot_dir", "/nonexistent", "item 10"),
     ("snapshot_every", 4, "item 10"),
     ("audit_every", 4, "item 10"),
