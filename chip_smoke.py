@@ -41,7 +41,9 @@ launch counts set to 0 just before it and read just after:
   server answering 16 requests with retrieval in every decode step; and
   one decode batch's retrieval through the fused select (K1 + K2), equal
   to the composite path the config's plan picks. K4 is held against its
-  plain version on edge cases and at the main shape.
+  plain version on edge cases (ragged S, GQA, S=1) and at the main shape,
+  and timed there on both routes: bf16 on the tensor cores, f32 on the
+  CUDA cores.
 
 Output: progress lines; ``main_path``, ``board_scan``, ``index_path`` and
 ``serving_path`` JSON lines;
@@ -809,24 +811,29 @@ def run_k4_cases():
     for name, B, S, H, KV, hd, bq, bk, dt in cases:
         err = max(err, k4_case("tests/test_kernels.py " + name, B, S, H, KV,
                                hd, dt, bq, bk))
-    for name, shape, dt in [
+    for name, shape, dt, *tiles in [
             ("S=1", (2, 1, 8, 1, 256), torch.bfloat16),
             ("S=1", (2, 1, 8, 1, 256), torch.float32),
             ("GQA G=2, hd=128, ragged", (2, 300, 4, 2, 128), torch.float32),
             ("GQA G=2, hd=128, ragged", (2, 300, 4, 2, 128), torch.bfloat16),
+            # S a multiple of neither the query (64) nor the key (32)
+            # tile of the bf16 kernel; bq = bk = 1, so ops adds no padding
+            ("ragged tiles, no padding", (1, 333, 8, 1, 256), torch.bfloat16,
+             1, 1),
             ("main shape", (PREFILL_BATCH, PREFILL_LEN, 8, 1, 256),
              torch.bfloat16),
             ("main shape", (PREFILL_BATCH, PREFILL_LEN, 8, 1, 256),
              torch.float32)]:
-        err = max(err, k4_case(name, *shape, dt))
+        err = max(err, k4_case(name, *shape, dt, *tiles))
     return err
 
 
 def k4_timings():
-    """K4, its plain version and SDPA at the main shape (bf16, the kernel
-    layout), and the bound: 2 * B * H * S^2 * hd FLOPs (QK^T and PV over
-    the causal half) on the bf16 tensor cores, or q, k, v and o once
-    through HBM, whichever takes longer."""
+    """K4 at the main shape (the kernel layout): the bf16 route (tensor
+    cores), its plain version and SDPA, then the f32 route (CUDA cores) on
+    the same inputs in f32; the bound: 2 * B * H * S^2 * hd FLOPs (QK^T
+    and PV over the causal half) on the bf16 tensor cores, or q, k, v and
+    o once through HBM, whichever takes longer. TFLOP/s count those FLOPs."""
     B, H, KV, S, hd = PREFILL_BATCH, 8, 1, PREFILL_LEN, 256
     g = torch.Generator(device=DEV).manual_seed(7)
     q = torch.randn((B, H, S, hd), generator=g, device=DEV).bfloat16()
@@ -837,16 +844,22 @@ def k4_timings():
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True, scale=hd ** -0.5)
     lib_ms, _ = cuda_ms(sdpa, N_TIMED)
+    q, k, v = q.float(), k.float(), v.float()
+    ms_f32, _ = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v), N_TIMED)
+    del q, k, v
     flops = 2 * B * H * S * S * hd
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
     t = max((flops / BF16_FLOPS_PER_S, "operations"),
             (nbytes / HBM_BYTES_PER_S, "bytes"))
-    print(f"  K4 at the main shape (B={B} H={H} KV={KV} S={S} hd={hd} bf16): "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} "
-          f"ms; bound {t[0] * 1e3:.4f} ms by {t[1]} ({flops / 1e9:.1f} "
-          f"GFLOP, {nbytes / 2**20:.0f} MiB)", flush=True)
+    tf = lambda t_ms: flops / t_ms / 1e9
+    print(f"  K4 at the main shape (B={B} H={H} KV={KV} S={S} hd={hd}): bf16 "
+          f"(tensor cores) {ms:.3f} ms = {tf(ms):.1f} TFLOP/s, plain "
+          f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms = {tf(lib_ms):.1f} "
+          f"TFLOP/s; f32 (CUDA cores) {ms_f32:.3f} ms = {tf(ms_f32):.1f} "
+          f"TFLOP/s; bound {t[0] * 1e3:.4f} ms by {t[1]} ({flops / 1e9:.1f} "
+          f"GFLOP, {nbytes / 2**20:.0f} MiB in bf16)", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": t[0] * 1e3, "bound_by": t[1]}
+            "ms_f32": ms_f32, "bound_ms": t[0] * 1e3, "bound_by": t[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -1220,7 +1233,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:30",
          "launches": sp["k4_launches_per_prefill"], "max_abs_err": k4_err,
-         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "ms": k4["ms"], "ms_f32": k4["ms_f32"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "bound_route": "bf16 tensor cores" if k4["bound_by"] ==
          "operations" else "HBM bytes", "library_ms": k4["library_ms"]},

@@ -7,13 +7,16 @@ scores are f32, masked to NEG_INF = -1e30 where kpos > qpos; the softmax
 is exp(s - max) with the ``s > NEG_INF / 2`` guard, divided by
 max(l, 1e-30); query head h reads kv head h // (H // KV).
 
-``flash_attention_kernel`` runs the CUDA kernel (``csrc/flash_attention.cu``,
+``flash_attention_kernel`` runs the CUDA kernels (``csrc/flash_attention.cu``,
 built at first use) for CUDA tensors and ``flash_attention_plain`` for CPU
 tensors, and counts its kernel launches in
 ``flash_attention_kernel.launches``. ``bq``/``bk`` are the TPU kernel's
 VMEM tiles: S must be a multiple of both (``ops.flash_attention`` pads),
-as there; the CUDA kernel picks its own tile (32 query rows x 32 keys).
-It is forward-only, as the Pallas kernel is: serving paths only.
+as there; the CUDA kernels pick their own tiles. bfloat16 runs on the
+tensor cores (``mma.sync``, 64 query rows x 32 keys, fed by ``cp.async``
+in 16-byte copies, so the wrapper hands it 16-byte aligned tensors);
+float32 on the CUDA cores (32 x 32, f32 FMAs). It is forward-only, as the
+Pallas kernel is: serving paths only.
 """
 from __future__ import annotations
 
@@ -72,10 +75,20 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels import _build
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its hd axis is contiguous and its base pointer and the
+    strides of its other non-unit axes are multiples of 16 bytes (the
+    bf16 kernel's cp.async copies), else a fresh contiguous copy."""
+    nbytes = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * nbytes % 16 == 0
+                    for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
-    lib = _build.load(_SOURCE)
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``flash_attention_launch``'s C signature on ``lib``."""
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = ([p] * 4 + [i] * 6
@@ -83,6 +96,32 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = i
         lib._argtypes_set = True
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    return _bind(_build.load(_SOURCE))
+
+
+def _launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+    """One launch of ``lib``'s K4 on checked CUDA tensors; raises on a
+    launch error."""
+    B, H, S, hd = q.shape
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    st = (ctypes.c_longlong * 12)(*strides)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+        k.shape[1], S, hd, int(q.dtype == torch.bfloat16),
+        ctypes.cast(st, ctypes.c_void_p), hd ** -0.5, stream)
+    if err:
+        raise RuntimeError(f"K4 (flash_attention_launch) failed: CUDA error "
+                           f"{err}")
+    return out
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -101,18 +140,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                          f"got {q.dtype}, hd={hd}")
     if B > 65535 or H > 65535:
         raise ValueError(f"K4 takes B, H <= 65535; got B={B} H={H}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    out = torch.empty_like(q)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    st = (ctypes.c_longlong * 12)(*strides)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-        k.shape[1], S, hd, int(q.dtype == torch.bfloat16),
-        ctypes.cast(st, ctypes.c_void_p), hd ** -0.5, stream)
-    if err:
-        raise RuntimeError(f"K4 (flash_attention_launch) failed: CUDA error "
-                           f"{err}")
+    out = _launch(_lib(), q, k, v)
     flash_attention_kernel.launches += 1
     return out
 

@@ -105,3 +105,68 @@ def test_single_token():
     # one key: the output is that key's value for every head of its group
     np.testing.assert_allclose(out.numpy(), np.repeat(v, 2, axis=2),
                                atol=1e-6)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values at |x| (8 significand bits)."""
+    return torch.exp2(torch.floor(torch.log2(torch.clamp(x.abs(),
+                                                         min=1e-30))) - 7)
+
+
+def _tensor_core_emulation(q, k, v, halves=True):
+    """The bf16 CUDA kernel's arithmetic in plain PyTorch, in one pass:
+    bf16 q and k multiplied in f32 with hd^-0.5 applied after the product,
+    p = exp(s - m) split into bf16 hi + lo (hi alone if not ``halves``),
+    P V summed in f32, l the f32 sum of p. (B, H, S, hd) in and out."""
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = (q.float() @ kf.transpose(-1, -2)) * hd ** -0.5
+    pos = torch.arange(S)
+    s = torch.where(pos[None, :] <= pos[:, None], s, tfa.NEG_INF)
+    p = torch.where(s > tfa.NEG_INF / 2,
+                    torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    hi = p.bfloat16().float()
+    pv = hi @ vf
+    if halves:
+        pv = pv + (p - hi).bfloat16().float() @ vf
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return (pv / l).bfloat16()
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1, 512, 8, 1, 256, 512, 512)],
+                         ids=str)
+def test_bf16_probability_halves_stay_within_the_card_gate(shape):
+    """P as two bf16 halves keeps the bf16 kernel within chip_smoke.py's
+    gate (2 bf16 ulps + 1e-5) of the f32 plain version; P rounded once to
+    bf16 would not."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).transpose(1, 2)
+               for a in _qkv(shape, seed=5))
+    ref = tfa.flash_attention_plain(q, k, v).float()
+    gate = 2 * _bf16_ulp(ref) + 1e-5
+    got = _tensor_core_emulation(q, k, v).float()
+    assert bool(((got - ref).abs() <= gate).all())
+    one_half = _tensor_core_emulation(q, k, v, halves=False).float()
+    assert not bool(((one_half - ref).abs() <= gate).all())
+
+
+def test_cp_async_alignment_copies_only_misaligned_tensors():
+    """The bf16 kernel copies 16 bytes at a time: the wrapper passes
+    aligned strided views through untouched and hands a fresh contiguous
+    copy for a misaligned base pointer or row stride."""
+    base = torch.zeros(2, 40, 4, 64, dtype=torch.bfloat16)
+    view = base.transpose(1, 2)                     # (B, H, S, hd), strided
+    assert tfa._aligned(view) is view
+    buf = torch.randn(16384).to(torch.bfloat16)
+    shape = (2, 2, 40, 32)
+    for t in (buf.as_strided(shape, (2 * 40 * 36, 40 * 36, 36, 1)),
+              buf[4:].as_strided(shape, (2 * 40 * 32, 40 * 32, 32, 1)),
+              buf.as_strided(shape, (2 * 40 * 64, 40 * 64, 64, 2))):
+        # a 72-byte row stride; a base 8 bytes off; hd not contiguous
+        got = tfa._aligned(t)
+        assert got is not t and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, t)
+    # a unit axis's stride is never used, so it forces no copy
+    one = buf.as_strided((1, 1, 40, 32), (3, 5, 32, 1))
+    assert tfa._aligned(one) is one

@@ -26,7 +26,7 @@ from repro_torch.runtime import server
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "chip_k4_tiles.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
