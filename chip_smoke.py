@@ -13,8 +13,12 @@ launch counts set to 0 just before it and read just after:
   Q=4096, N=2^20, d=256 on seeded clustered codes, through K1 (pass-1
   histogram) and K2 (pass-2 emit), checked against an on-card brute force;
   the same store then runs through ``select="fused"`` on insertion order.
-  K1 and K2 are held bit-for-bit against their plain PyTorch versions on
-  edge cases and at the main path's full shape.
+  K1 (with its per-run histograms) and K2 (split over the main run count
+  and as one run) are held bit-for-bit against their plain PyTorch
+  versions on edge cases and at the main path's full shape; the committed
+  d = 256 kernels (single-bit tensor-core products) and the CUDA-core ones
+  (the same source built with its tensor-core dispatch taken out) are
+  timed in turns, the latter held to the former.
 * the board scan — the same store through ``KNNEngine.search(...,
   method="pallas")`` under the counting (the paper's temporal sort over
   board-sized chunks of 65,536 rows), composite and bisect selects: K3
@@ -57,6 +61,8 @@ Without a CUDA device, or outside a checkout, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import dataclasses
 import json
 import statistics
@@ -202,15 +208,19 @@ def max_abs_diff(pairs) -> int:
 def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
                 shard=None, geometry=(None, None, None), seed=0):
     """Run K1 then K2 on one case, kernel and plain on the same card inputs;
-    returns (k1_err, k2_err). ``shard=(lo, hi)`` runs pass 2 on rows
-    [lo, hi) of x with the slot and id bases the distributed select gives
-    that shard (nonzero slot_base/id_base)."""
+    returns (k1_err, k2_err). K1 runs split into the runs the main path
+    would use and returns the per-run histograms too; K2 runs at that run
+    count (bases from ``ops._run_bases``) and as one run, and both are held
+    against the plain single-run emit. ``shard=(lo, hi)`` runs pass 2 on
+    rows [lo, hi) of x with the slot and id bases the distributed select
+    gives that shard (nonzero slot_base/id_base)."""
     Q, W = q.shape
     N = x.shape[0]
     lanes = max(bins, min(k, N))
     qp, xp, bq, bn, sub = ops._topk_blocked(q, x, lanes, *geometry)
     nv = N if n_valid is None else n_valid
     tiles = (qp.shape[0] // bq, xp.shape[0] // bn)
+    runs = tsel.default_runs(*tiles)
     en = torch.ones(tiles, dtype=torch.int32, device=DEV)
     mask = None
     if mask_p is not None:
@@ -218,11 +228,12 @@ def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
         mask = (torch.rand(tiles, generator=g, device=DEV)
                 < mask_p).to(torch.int32)
         en = mask
-    hist_k, bmin_k = tsel.hamming_hist_kernel(qp, xp, bins, nv, mask,
-                                              bq=bq, bn=bn, sub=sub)
-    hist_p, bmin_p = tsel.hamming_hist_plain(qp, xp, bins, nv, en, bq, bn)
+    hist_k, bmin_k, rh_k = tsel.hamming_hist_kernel(
+        qp, xp, bins, nv, mask, bq=bq, bn=bn, sub=sub, runs=runs)
+    hist_p, bmin_p, rh_p = tsel.hamming_hist_plain(qp, xp, bins, nv, en, bq,
+                                                   bn, runs)
     torch.cuda.synchronize()
-    k1 = max_abs_diff([(hist_k, hist_p), (bmin_k, bmin_p)])
+    k1 = max_abs_diff([(hist_k, hist_p), (bmin_k, bmin_p), (rh_k, rh_p)])
 
     cum = torch.cumsum(hist_k[:Q], dim=-1, dtype=torch.int32)
     _, r_star, n_lt, _ = ops._radius_from_cum(cum, min(k, N))
@@ -230,7 +241,7 @@ def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
     r_p = torch.nn.functional.pad(r_star, (0, pad), value=-1)
     nlt_p = torch.nn.functional.pad(n_lt, (0, pad))
     sb = torch.zeros_like(r_p)
-    ib, xs, nvs, bms, ens, ms = 0, xp, nv, bmin_k, en, mask
+    ib, xs, nvs, bms, ens, ms, rhs = 0, xp, nv, bmin_k, en, mask, rh_k
     if shard is not None:
         lo, hi = shard          # lo a multiple of bn: shard tiles are whole
         h0, _ = tsel.hamming_hist_kernel(qp, xp[:lo], bins, lo, None,
@@ -247,17 +258,23 @@ def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
         j0, j1 = lo // bn, hi // bn
         bms, ens = bmin_k[:, j0:j1], en[:, j0:j1]
         ms = None if mask is None else mask[:, j0:j1]
-    d_k, i_k = tsel.hamming_emit_kernel(qp, xs, r_p, nlt_p, bins, k, nvs,
-                                        block_min=bms, block_mask=ms,
-                                        slot_base=sb, id_base=ib,
-                                        bq=bq, bn=bn, sub=sub)
+        runs = tsel.default_runs(tiles[0], j1 - j0)
+        _, _, rhs = tsel.hamming_hist_kernel(qp, xs, bins, nvs, ms, bq=bq,
+                                             bn=bn, sub=sub, runs=runs)
+    bases = ops._run_bases(rhs, r_p, nlt_p, sb)
+    emit = lambda rb: tsel.hamming_emit_kernel(
+        qp, xs, r_p, nlt_p, bins, k, nvs, block_min=bms, block_mask=ms,
+        slot_base=sb, id_base=ib, bq=bq, bn=bn, sub=sub, run_bases=rb)
+    d_r, i_r = emit(bases)
+    d_1, i_1 = emit(None)
     d_p, i_p = tsel.hamming_emit_plain(qp, xs, r_p, nlt_p, bins, k, nvs,
                                        bms.contiguous(), ens.contiguous(),
                                        sb, ib, bq, bn)
     torch.cuda.synchronize()
-    k2 = max_abs_diff([(d_k, d_p), (i_k, i_p)])
+    k2 = max_abs_diff([(d_r, d_p), (i_r, i_p), (d_1, d_p), (i_1, i_p)])
     print(f"  case {name}: Q={Q} N={N} W={W} bins={bins} k={k} "
-          f"bq={bq} bn={bn} K1 err={k1} K2 err={k2}", flush=True)
+          f"bq={bq} bn={bn} runs={runs} K1 err={k1} K2 err={k2} "
+          f"(at {runs} runs and at 1)", flush=True)
     return k1, k2
 
 
@@ -290,6 +307,10 @@ def run_cases(main_q, main_x):
         ("bq=64 (65.8 KB shared histogram, two queries per warp)",
          rand_codes(100, 256), rand_codes(3000, 256), 257, 16,
          {"geometry": (64, 512, 8)}),
+        ("a decode batch: 8 queries, bq=8 (half of one m16 fragment)",
+         rand_codes(8, 256), rand_codes(5000, 256), 257, 16, {}),
+        ("24 queries, bq=24 (one and a half m16 fragments)",
+         rand_codes(24, 256), rand_codes(5000, 256), 257, 16, {}),
     ]
     for name, q, x, bins, k, kw in cases:
         a, b = kernel_case(name, q, x, bins, k, **kw)
@@ -351,61 +372,175 @@ def drive(label, eng, q, sample, **kw):
 
 
 def kernel_timings(q, x, stats_label, with_plain=True):
-    """K1/K2 at the main path's inputs: their times, with_plain also the
-    plain versions' times and their outputs held bit-for-bit against the
-    kernels' (hist, block_min, dists, ids); the pass-2 skip share; and the
-    work both passes must do."""
+    """K1/K2 at the main path's inputs, run as the main path runs them (K1
+    with its per-run histograms, K2 from the run bases): their times; K2
+    also as one run. with_plain also the plain versions' times, and the
+    kernels' outputs (hist, block_min, per-run histograms; dists, ids at
+    the main run count and at one run) held bit-for-bit against theirs;
+    the pass-2 skip share; and the work both passes must do."""
     Q, W = q.shape
     N = x.shape[0]
     bins = D_BITS + 1
     qp, xp, bq, bn, sub = ops._topk_blocked(q, x, bins, None, None, None)
     tiles = (qp.shape[0] // bq, xp.shape[0] // bn)
+    runs = tsel.default_runs(*tiles)
     ones = torch.ones(tiles, dtype=torch.int32, device=DEV)
-    hist, bmin = tsel.hamming_hist_kernel(qp, xp, bins, N, bq=bq, bn=bn,
-                                          sub=sub)
+    hist, bmin, run_hist = tsel.hamming_hist_kernel(
+        qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs)
     cum = torch.cumsum(hist[:Q], dim=-1, dtype=torch.int32)
     _, r_star, n_lt, _ = ops._radius_from_cum(cum, K)
     r_p = torch.nn.functional.pad(r_star, (0, qp.shape[0] - Q), value=-1)
     nlt_p = torch.nn.functional.pad(n_lt, (0, qp.shape[0] - Q))
     zeros = torch.zeros_like(r_p)
+    bases = ops._run_bases(run_hist, r_p, nlt_p)
 
     k1_ms, k1_out = cuda_ms(lambda: tsel.hamming_hist_kernel(
-        qp, xp, bins, N, bq=bq, bn=bn, sub=sub), N_TIMED)
-    k2_ms, k2_out = cuda_ms(lambda: tsel.hamming_emit_kernel(
+        qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs), N_TIMED)
+    emit = lambda rb: tsel.hamming_emit_kernel(
         qp, xp, r_p, nlt_p, bins, K, N, block_min=bmin, bq=bq, bn=bn,
-        sub=sub), N_TIMED)
+        sub=sub, run_bases=rb)
+    k2_ms, k2_out = cuda_ms(lambda: emit(bases), N_TIMED)
+    k2_one_ms, k2_one = cuda_ms(lambda: emit(None), N_TIMED)
     k1_plain = k2_plain = k1_err = k2_err = None
     if with_plain:
         k1_plain, p1 = cuda_ms(lambda: tsel.hamming_hist_plain(
-            qp, xp, bins, N, ones, bq, bn), 1)
+            qp, xp, bins, N, ones, bq, bn, runs), 1)
         k2_plain, p2 = cuda_ms(lambda: tsel.hamming_emit_plain(
             qp, xp, r_p, nlt_p, bins, K, N, bmin, ones, zeros, 0, bq, bn), 1)
         k1_err = max_abs_diff(zip(k1_out, p1))
-        k2_err = max_abs_diff(zip(k2_out, p2))
+        k2_err = max_abs_diff([*zip(k2_out, p2), *zip(k2_one, p2)])
 
     # the work: K1 every (query, row) pair; K2 the pairs of the tiles it
     # does not skip. Bytes: each input read once, each output written once.
     max_r = r_p.reshape(-1, bq).amax(dim=1)
-    runs = bmin <= max_r[:, None]
-    skipped = 1.0 - float(runs.float().mean())
+    live = bmin <= max_r[:, None]
+    skipped = 1.0 - float(live.float().mean())
     q_real = torch.clamp(Q - torch.arange(tiles[0], device=DEV) * bq,
                          0, bq)
     n_real = torch.clamp(N - torch.arange(tiles[1], device=DEV) * bn,
                          0, bn)
-    k2_pairs = int((runs * q_real[:, None] * n_real[None, :]).sum())
-    rows_read = int((runs.any(dim=0) * n_real).sum())
+    k2_pairs = int((live * q_real[:, None] * n_real[None, :]).sum())
+    rows_read = int((live.any(dim=0) * n_real).sum())
     k1_bytes = 4 * (Q * W + N * W + Q * bins + bmin.numel())
     k2_bytes = 4 * (Q * W + rows_read * W + 2 * bmin.numel() + 3 * Q
                     + 2 * Q * K)
     print(f"  {stats_label}: geometry bq={bq} bn={bn} sub={sub} "
-          f"tiles={tiles}; K1 {k1_ms:.3f} ms (plain {k1_plain} ms), "
-          f"K2 {k2_ms:.3f} ms (plain {k2_plain} ms), pass-2 "
-          f"blocks_skipped {skipped:.4f}; full-shape kernel vs plain: "
-          f"K1 err={k1_err} K2 err={k2_err}", flush=True)
-    return {"k1_ms": k1_ms, "k2_ms": k2_ms, "k1_plain": k1_plain,
-            "k2_plain": k2_plain, "k1_err": k1_err, "k2_err": k2_err,
-            "skipped": skipped, "W": W, "k1_pairs": Q * N,
-            "k2_pairs": k2_pairs, "k1_bytes": k1_bytes, "k2_bytes": k2_bytes}
+          f"tiles={tiles} runs={runs}; K1 {k1_ms:.3f} ms (plain {k1_plain} "
+          f"ms), K2 {k2_ms:.3f} ms at {runs} runs, {k2_one_ms:.3f} ms at 1 "
+          f"(plain {k2_plain} ms), pass-2 blocks_skipped {skipped:.4f}; "
+          f"full-shape kernel vs plain: K1 err={k1_err} K2 err={k2_err}",
+          flush=True)
+    return {"k1_ms": k1_ms, "k2_ms": k2_ms, "k2_one_run_ms": k2_one_ms,
+            "k1_plain": k1_plain, "k2_plain": k2_plain, "k1_err": k1_err,
+            "k2_err": k2_err, "skipped": skipped, "runs": runs, "W": W,
+            "k1_pairs": Q * N, "k2_pairs": k2_pairs, "k1_bytes": k1_bytes,
+            "k2_bytes": k2_bytes}
+
+
+# K1/K2 at d = 256 on each route: the committed tensor-core kernels, and
+# the CUDA-core ones (the design they had before, still the route of other
+# widths and of query blocks wider than 64) built from the same source with
+# the tensor-core dispatch taken out
+W8_ROUTE = "b1 (mma.sync m16n8k256 AND-popc)"
+POPC_ROUTE = "popc (CUDA cores)"
+POPC_VARIANT = [("if (nw == 8 && bq <= TC_MAX_BQ)", "if (false)")]
+
+
+def start_variants(source: str, variants: dict):
+    """Start one nvcc for each {name: [(old, new), ...]} text substitution
+    of ``source`` (every occurrence replaced; each old text must occur);
+    ``finish_variants`` waits for them."""
+    text = (_build.CSRC / source).read_text()
+    _build.BUILD.mkdir(exist_ok=True)
+    started = {}
+    for i, (name, subs) in enumerate(variants.items()):
+        body = text
+        for old, new in subs:
+            if old not in body:
+                raise RuntimeError(f"{old!r} not in {source}")
+            body = body.replace(old, new)
+        cu = _build.BUILD / f"variant{i}-{Path(source).stem}.cu"
+        cu.write_text(body)
+        so = cu.with_suffix(".so")
+        started[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    return started
+
+
+def finish_variants(started) -> dict:
+    """{name: loaded library with topk_select's argument types}; each
+    library keeps nvcc's output as ``nvcc_log``."""
+    libs = {}
+    for name, (proc, so) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in tsel.ARGTYPES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib._argtypes_set = True
+        lib.nvcc_log = log
+        libs[name] = lib
+    return libs
+
+
+@contextlib.contextmanager
+def topk_library(lib):
+    """K1/K2's wrappers launch from ``lib`` inside the block."""
+    committed = tsel._lib()
+    _build._LIBS[tsel._SOURCE] = lib
+    try:
+        yield
+    finally:
+        _build._LIBS[tsel._SOURCE] = committed
+
+
+def route_comparison(q, x, libs, reps=N_TIMED, check=True, quiet=False):
+    """K1 and K2 at the main path's inputs from each {name: library} in
+    turn (each one's median of ``reps``; K2 at the main run count and as
+    one run), their outputs held bit-for-bit against the committed
+    library's (which ``kernel_timings`` holds against the plain versions).
+    Returns {name: {"k1_ms", "k2_ms", "k2_one_run_ms"}}. ``check=False``
+    only times (for builds whose outputs are wrong by design); ``quiet``
+    prints nothing."""
+    Q, N = q.shape[0], x.shape[0]
+    bins = D_BITS + 1
+    qp, xp, bq, bn, sub = ops._topk_blocked(q, x, bins, None, None, None)
+    runs = tsel.default_runs(qp.shape[0] // bq, xp.shape[0] // bn)
+    hist, bmin, run_hist = tsel.hamming_hist_kernel(
+        qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs)
+    _, r_star, n_lt, _ = ops._radius_from_cum(
+        torch.cumsum(hist[:Q], dim=-1, dtype=torch.int32), K)
+    r_p = torch.nn.functional.pad(r_star, (0, qp.shape[0] - Q), value=-1)
+    nlt_p = torch.nn.functional.pad(n_lt, (0, qp.shape[0] - Q))
+    bases = ops._run_bases(run_hist, r_p, nlt_p)
+    emit = lambda rb=bases: tsel.hamming_emit_kernel(
+        qp, xp, r_p, nlt_p, bins, K, N, block_min=bmin, bq=bq, bn=bn,
+        sub=sub, run_bases=rb)
+    ref1, ref2 = (hist, bmin, run_hist), emit()
+    out = {}
+    for name, lib in libs.items():
+        with topk_library(lib):
+            k1_ms, o1 = cuda_ms(lambda: tsel.hamming_hist_kernel(
+                qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs), reps)
+            k2_ms, o2 = cuda_ms(emit, reps)
+            k2_one_ms, o3 = cuda_ms(lambda: emit(None), reps)
+        err = max_abs_diff([*zip(o1, ref1), *zip(o2, ref2), *zip(o3, ref2)])
+        if err and check:
+            raise AssertionError(f"{name} differs from the committed "
+                                 f"kernels: err {err}")
+        out[name] = {"k1_ms": k1_ms, "k2_ms": k2_ms,
+                     "k2_one_run_ms": k2_one_ms}
+    if quiet:
+        return out
+    print(f"route comparison (K1, K2 at the main shape, W=8; committed "
+          f"{W8_ROUTE}): " + "; ".join(
+              f"{name} K1 {v['k1_ms']:.3f} ms K2 {v['k2_ms']:.3f} ms "
+              f"({v['k2_one_run_ms']:.3f} as one run)"
+              for name, v in out.items()), flush=True)
+    return out
 
 
 def bound_ms(pairs: int, words: int, hist_adds: int, nbytes: int,
@@ -1116,8 +1251,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     sources = [tsel._SOURCE, tham._SOURCE, fa._SOURCE]
     t0 = time.perf_counter()
-    logs = _build.build(sources)
-    print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s",
+    variant = start_variants(tsel._SOURCE, {POPC_ROUTE: POPC_VARIANT})
+    try:
+        logs = _build.build(sources)
+    finally:
+        popc_lib = finish_variants(variant)[POPC_ROUTE]
+    print(f"build: {', '.join(sources)} and {tsel._SOURCE} without its "
+          f"tensor-core dispatch in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for log in logs.values():
         for line in log.splitlines():
@@ -1161,6 +1301,8 @@ def main() -> int:
         return fail(f"kernel != plain at the main path's shape: K1 err "
                     f"{kt['k1_err']}, K2 err {kt['k2_err']}")
     k1_err, k2_err = max(k1_err, kt["k1_err"]), max(k2_err, kt["k2_err"])
+    routes = route_comparison(q, eng.layout.codes, {
+        W8_ROUTE: tsel._lib(), POPC_ROUTE: popc_lib})
 
     # phase 5: the same store on insertion order through select="fused"
     flat = eng._replace(layout=None)
@@ -1205,22 +1347,31 @@ def main() -> int:
         "insertion_order_search_ms": flat_ms,
         "insertion_order_blocks_skipped_frac": ft["skipped"],
         "insertion_order_k1_ms": ft["k1_ms"],
-        "insertion_order_k2_ms": ft["k2_ms"]}), flush=True)
+        "insertion_order_k2_ms": ft["k2_ms"], "runs": kt["runs"],
+        "k2_one_run_ms": kt["k2_one_run_ms"], "w8_routes": routes}),
+        flush=True)
     print("board_scan: " + json.dumps(bs), flush=True)
     print("index_path: " + json.dumps(ip), flush=True)
     print("serving_path: " + json.dumps(sp), flush=True)
     src = "src/repro_torch/kernels/csrc/topk_select.cu"
+    # K1/K2 as they were before this design: CUDA-core popcounts, K2 as one
+    # run (measured in this run by route_comparison)
+    popc = routes[POPC_ROUTE]
     print(json.dumps({"kernels": [
         {"name": "K1 hamming_hist_kernel", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/topk_select.py:91",
          "launches": launches["K1"], "max_abs_err": k1_err,
          "ms": kt["k1_ms"], "plain_ms": kt["k1_plain"], "bound_ms": b1,
-         "bound_by": by1, "bound_route": route1, "library_ms": None},
+         "bound_by": by1, "bound_route": route1, "library_ms": None,
+         "w8_route": W8_ROUTE,
+         "earlier_design_ms": popc["k1_ms"]},
         {"name": "K2 hamming_emit_kernel", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/topk_select.py:192",
          "launches": launches["K2"], "max_abs_err": k2_err,
          "ms": kt["k2_ms"], "plain_ms": kt["k2_plain"], "bound_ms": b2,
-         "bound_by": by2, "bound_route": route2, "library_ms": None},
+         "bound_by": by2, "bound_route": route2, "library_ms": None,
+         "w8_route": W8_ROUTE,
+         "earlier_design_ms": popc["k2_one_run_ms"]},
         {"name": "K3 hamming_distance_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming.cu",
          "replaces": "src/repro/kernels/hamming.py:22",

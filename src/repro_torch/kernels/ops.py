@@ -9,7 +9,9 @@ tensors' device unless explicitly overridden.
 
 ``hamming_topk`` is the engine's single-shot fused select: one K1 + one K2
 launch over the WHOLE datastore for any N, with the pass-1 block-min
-summary pruning pass-2 tiles that cannot hold a winner.
+summary pruning pass-2 tiles that cannot hold a winner, and K1's per-run
+histograms giving K2 the slot bases of each run of N tiles, so that pass 2
+runs one CTA per query block and run.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from repro_torch.core.topk import sort_key_val
 from repro_torch.kernels import tuning
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.hamming import hamming_distance_kernel
-from repro_torch.kernels.topk_select import (hamming_emit_kernel,
+from repro_torch.kernels.topk_select import (default_runs,
+                                             hamming_emit_kernel,
                                              hamming_hist_kernel)
 
 
@@ -107,6 +110,26 @@ def _radius_from_cum(cum: torch.Tensor, k_k: int):
     return k_eff, r_star, n_lt, n_emit
 
 
+def _run_bases(run_hist: torch.Tensor, r_star: torch.Tensor,
+               n_lt: torch.Tensor, slot_base=None):
+    """Each (query, run)'s first below-r* and first tie slot, from K1's
+    (Q, R, bins) per-run histograms: exclusive scans over the runs of the
+    counts below r* and at r*, from ``slot_base`` (None = 0) and ``n_lt``.
+    A query with r* < 0 (a padded row, which emits nothing) gets
+    meaningless bases. -> (lt_base, tie_base), each (Q, R) int32."""
+    bins = run_hist.shape[2]
+    r = r_star.to(torch.int64)
+    lt = torch.where(torch.arange(bins, device=run_hist.device)
+                     < r[:, None, None], run_hist, 0).sum(
+                         dim=2, dtype=torch.int32)
+    tie = torch.gather(run_hist, 2, r.clamp(0, bins - 1)[:, None, None]
+                       .expand(-1, run_hist.shape[1], 1))[:, :, 0]
+    sb = 0 if slot_base is None else slot_base[:, None]
+    lt_base = sb + torch.cumsum(lt, dim=1, dtype=torch.int32) - lt
+    tie_base = n_lt[:, None] + torch.cumsum(tie, dim=1, dtype=torch.int32) - tie
+    return lt_base.to(torch.int32), tie_base.to(torch.int32)
+
+
 def _finalize_slots(out_d: torch.Tensor, out_i: torch.Tensor,
                     n_emit: torch.Tensor, k: int, k_k: int, bins: int,
                     sentinel_id: int):
@@ -167,22 +190,26 @@ def hamming_topk(q_packed: torch.Tensor, x_packed: torch.Tensor, k: int,
                                         max(bins, k_k), bq, bn, sub)
     nv = N if n_valid is None else int(n_valid)
 
-    # pass 1: the race -> per-query radius r*, the counts below it, and the
-    # block-min summary pass 2 prunes with
-    hist, block_min = hamming_hist_kernel(qp, xp, bins, nv,
-                                          block_mask=block_mask,
-                                          bq=bq, bn=bn, sub=sub)
+    # pass 1: the race -> per-query radius r*, the counts below it, the
+    # block-min summary pass 2 prunes with, and each run's histogram
+    runs = default_runs(qp.shape[0] // bq, xp.shape[0] // bn)
+    hist, block_min, run_hist = hamming_hist_kernel(
+        qp, xp, bins, nv, block_mask=block_mask, bq=bq, bn=bn, sub=sub,
+        runs=runs)
     cum = torch.cumsum(hist[:Q], dim=-1, dtype=torch.int32)
     _, r_star, n_lt, n_emit = _radius_from_cum(cum, k_k)
 
-    # pass 2: the reports — padded query rows get r*=-1 so they emit nothing
+    # pass 2: the reports, each run from its own slot bases — padded query
+    # rows get r*=-1 so they emit nothing
     q_pad = qp.shape[0] - Q
     r_p = torch.nn.functional.pad(r_star, (0, q_pad), value=-1)
     nlt_p = torch.nn.functional.pad(n_lt, (0, q_pad))
     out_d, out_i = hamming_emit_kernel(qp, xp, r_p, nlt_p, bins, k_k, nv,
                                        block_min=block_min,
                                        block_mask=block_mask,
-                                       bq=bq, bn=bn, sub=sub)
+                                       bq=bq, bn=bn, sub=sub,
+                                       run_bases=_run_bases(run_hist, r_p,
+                                                            nlt_p))
     out_d, out_i = _finalize_slots(out_d[:Q], out_i[:Q], n_emit, k, k_k,
                                    bins, N)
     if return_stats:

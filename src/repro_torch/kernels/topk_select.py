@@ -18,6 +18,14 @@ are excluded exactly), a per-tile enable mask (a zero tile is outside the
 candidate set) and the (bq, bn, sub) geometry; ``sub`` is the TPU kernels'
 VMEM sub-step, kept for parity and unused here.
 
+**Runs.** The N tiles split into R runs of ``ceil(N/bn / R)`` consecutive
+tiles (the last runs may be empty). K1 can also return the (Q, R, bins)
+histogram of each run; ``run_bases`` turns it into each (query, run)'s
+first below-r* and first tie slot, and K2 given those bases emits each run
+on its own (one CTA per query block and run) into exactly the slots the
+single-run emit fills: the arithmetic of ``repro``'s sharded hist_merge
+with a run in place of a shard.
+
 Each wrapper runs its CUDA kernel (``csrc/topk_select.cu``, built at first
 use) for CUDA tensors and its plain PyTorch version for CPU tensors, and
 counts its kernel launches in ``<wrapper>.launches``. The plain versions
@@ -37,9 +45,10 @@ _SOURCE = "topk_select.cu"
 # plain versions: whole query blocks per chunk, so (chunk, N) stays under
 # this many elements
 _PLAIN_CHUNK_ELEMS = 1 << 27
-# K1: threads per CTA ~ 256 (bq * R), CTAs ~ this many per launch
+# K1: threads per CTA ~ 256 (bq * rows in flight); runs: CTAs per launch
+# ~ this many (query blocks x runs)
 _HIST_THREADS = 256
-_HIST_TARGET_CTAS = 2048
+_TARGET_CTAS = 2048
 _SMEM_LIMIT = 232448
 
 
@@ -85,16 +94,40 @@ def _device_of(*tensors) -> torch.device:
     return dev
 
 
+def _run_span(n_nblocks: int, runs: int) -> int:
+    return -(-n_nblocks // runs)
+
+
+def default_runs(n_qblocks: int, n_nblocks: int) -> int:
+    """The run count K1 splits its tiles into when not told: about
+    ``_TARGET_CTAS`` CTAs in all, and every run non-empty."""
+    want = max(1, min(n_nblocks, -(-_TARGET_CTAS // max(n_qblocks, 1))))
+    return max(1, _run_span(n_nblocks, _run_span(n_nblocks, want)))
+
+
+def _run_of_row(N: int, bn: int, runs: int, dev) -> torch.Tensor:
+    """(N,) int64: the run of each data row."""
+    span = _run_span(N // bn, runs)
+    return torch.arange(N, device=dev) // bn // span
+
+
+# the C entry points' argument types: pointers (and the stream) as void*,
+# everything else as int
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = {
+    "topk_hist_launch": [_P] * 6 + [_I] * 8 + [_P],
+    "topk_emit_launch": [_P] * 9 + [_I] * 10 + [_P],
+}
+
+
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
     lib = _build.load(_SOURCE)
     if not getattr(lib, "_argtypes_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.topk_hist_launch.argtypes = [p] * 5 + [i] * 9 + [p]
-        lib.topk_hist_launch.restype = i
-        lib.topk_emit_launch.argtypes = [p] * 9 + [i] * 10 + [p]
-        lib.topk_emit_launch.restype = i
+        for name, argtypes in ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, _I
         lib._argtypes_set = True
     return lib
 
@@ -120,35 +153,48 @@ def _expand_tiles(tiles: torch.Tensor, bq: int, bn: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def hamming_hist_plain(q: torch.Tensor, x: torch.Tensor, bins: int,
-                       n_valid: int, en: torch.Tensor, bq: int, bn: int):
-    """Plain PyTorch K1 on padded, tiled inputs -> (hist, block_min)."""
+                       n_valid: int, en: torch.Tensor, bq: int, bn: int,
+                       runs: int | None = None):
+    """Plain PyTorch K1 on padded, tiled inputs -> (hist, block_min), and
+    the (Q, runs, bins) per-run histograms third when ``runs`` is given."""
     Q, N = q.shape[0], x.shape[0]
     dev = q.device
     nqb, nnb = Q // bq, N // bn
     hist = torch.zeros((Q, bins), dtype=torch.int32, device=dev)
     bmin = torch.empty((nqb, nnb), dtype=torch.int32, device=dev)
+    run_hist = (None if runs is None else
+                torch.zeros((Q, runs * bins), dtype=torch.int32, device=dev))
     valid = torch.arange(N, device=dev) < n_valid
     enabled = en != 0
     for qb0, qb1 in _query_chunks(nqb, bq, N):
         rows = slice(qb0 * bq, qb1 * bq)
         dist = torch.clamp(hamming_xor(q[rows], x), max=bins - 1)
-        counted = _expand_tiles(enabled[qb0:qb1], bq, bn) & valid
-        hist[rows].scatter_add_(1, dist.long(), counted.to(torch.int32))
+        counted = (_expand_tiles(enabled[qb0:qb1], bq, bn) & valid).to(
+            torch.int32)
+        hist[rows].scatter_add_(1, dist.long(), counted)
+        if runs is not None:
+            slot = _run_of_row(N, bn, runs, dev) * bins + dist
+            run_hist[rows].scatter_add_(1, slot, counted)
         tile_min = torch.where(valid, dist, bins).reshape(
             qb1 - qb0, bq, nnb, bn).amin(dim=(1, 3))
         bmin[qb0:qb1] = torch.where(enabled[qb0:qb1], tile_min, bins)
-    return hist, bmin
+    if runs is None:
+        return hist, bmin
+    return hist, bmin, run_hist.reshape(Q, runs, bins)
 
 
 def hamming_hist_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
                         bins: int, n_valid=None, block_mask=None,
-                        bq: int = 64, bn: int = 1024, sub: int = 64):
+                        bq: int = 64, bn: int = 1024, sub: int = 64,
+                        runs: int | None = None):
     """q: (Q, W), x: (N, W) -> (hist (Q, bins) int32,
     block_min (Q/bq, N/bn) int32). Replaces ``hamming_hist_pallas``.
 
     Rows with global id >= n_valid (default N) are excluded from both
     outputs; ``block_mask`` (Q/bq, N/bn) disables tiles (None = all
-    enabled). Q and N must be multiples of bq and bn."""
+    enabled). Q and N must be multiples of bq and bn. ``runs=R`` splits the
+    tiles into R runs (module docstring) and returns, third, the (Q, R,
+    bins) int32 histogram of each run, which sums to ``hist``."""
     dev = _device_of(q_packed, x_packed)
     Q, W = q_packed.shape
     N = x_packed.shape[0]
@@ -156,28 +202,31 @@ def hamming_hist_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
     q32, x32 = _codes(q_packed), _codes(x_packed)
     nv = N if n_valid is None else int(n_valid)
     en = _tile_mask(block_mask, (Q // bq, N // bn), 1, dev)
+    nqb, nnb = Q // bq, N // bn
+    if runs is not None and int(runs) < 1:
+        raise ValueError(f"runs must be >= 1, got {runs}")
     if dev.type == "cpu":
-        return hamming_hist_plain(q32, x32, bins, nv, en, bq, bn)
+        return hamming_hist_plain(q32, x32, bins, nv, en, bq, bn,
+                                  None if runs is None else int(runs))
 
     if bq > _HIST_THREADS * 4 or 4 * (bq * bins + 1) > _SMEM_LIMIT:
         raise ValueError(f"K1 takes bq <= 1024 and bq * bins <= 58111; "
                          f"got bq={bq} bins={bins}")
-    nqb, nnb = Q // bq, N // bn
     if nqb > 65535:
         raise ValueError(f"K1 takes at most 65535 query blocks, got {nqb}")
+    R = default_runs(nqb, nnb) if runs is None else int(runs)
     hist = torch.zeros((Q, bins), dtype=torch.int32, device=dev)
     bmin = torch.empty((nqb, nnb), dtype=torch.int32, device=dev)
-    threads = bq * max(1, _HIST_THREADS // bq)
-    n_split = max(1, min(nnb, -(-_HIST_TARGET_CTAS // nqb)))
-    tiles_per_cta = -(-nnb // n_split)
+    run_hist = (None if runs is None else
+                torch.empty((Q, R, bins), dtype=torch.int32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().topk_hist_launch(
         q32.data_ptr(), x32.data_ptr(), en.data_ptr(), hist.data_ptr(),
-        bmin.data_ptr(), Q, N, W, nv, bins, bq, bn, tiles_per_cta, threads,
-        stream)
+        bmin.data_ptr(), 0 if run_hist is None else run_hist.data_ptr(),
+        Q, N, W, nv, bins, bq, bn, R, stream)
     _raise_on(err, "K1 (topk_hist_launch)")
     hamming_hist_kernel.launches += 1
-    return hist, bmin
+    return (hist, bmin) if runs is None else (hist, bmin, run_hist)
 
 
 hamming_hist_kernel.launches = 0
@@ -190,33 +239,48 @@ hamming_hist_kernel.launches = 0
 def hamming_emit_plain(q: torch.Tensor, x: torch.Tensor, r_star, n_lt,
                        bins: int, k: int, n_valid: int, bm: torch.Tensor,
                        en: torch.Tensor, slot_base, id_base: int, bq: int,
-                       bn: int):
+                       bn: int, run_bases=None):
     """Plain PyTorch K2 on padded, tiled inputs -> (dists, ids) (Q, k).
 
     A winner's slot adds into the output, as the Pallas kernel's one-hot
     sum does; on consistent inputs (r*, n_lt and slot_base from the pass-1
-    histogram) every slot has at most one winner."""
+    histogram) every slot has at most one winner. ``run_bases=(lt_base,
+    tie_base)``, each (Q, R), numbers each run's winners from its own bases
+    (``slot_base`` and ``n_lt`` are then not read); None is one run from
+    ``slot_base`` and ``n_lt``."""
     Q, N = q.shape[0], x.shape[0]
     dev = q.device
     nqb = Q // bq
+    if run_bases is None:
+        run_bases = (slot_base[:, None], n_lt[:, None])
+    lt_base, tie_base = run_bases
+    runs = lt_base.shape[1]
+    col_run = _run_of_row(N, bn, runs, dev)
+    # each run's first column, for the count of winners before it
+    first = (torch.arange(runs, device=dev) * _run_span(N // bn, runs)
+             * bn).clamp(max=N)
     out_d = torch.zeros((Q, k), dtype=torch.int32, device=dev)
     out_i = torch.zeros((Q, k), dtype=torch.int32, device=dev)
     gid = torch.arange(N, dtype=torch.int32, device=dev)
     valid = gid < n_valid
     max_r = r_star.reshape(nqb, bq).amax(dim=1)
-    runs = (en != 0) & (bm <= max_r[:, None])
+    active_tiles = (en != 0) & (bm <= max_r[:, None])
+
+    def rank(flags, base):
+        cum = torch.cumsum(flags, dim=1, dtype=torch.int32)
+        before = torch.where(first > 0, cum[:, (first - 1).clamp(min=0)], 0)
+        return (base - before)[:, col_run] + cum - 1
+
     for qb0, qb1 in _query_chunks(nqb, bq, N):
         rows = slice(qb0 * bq, qb1 * bq)
         dist = torch.clamp(hamming_xor(q[rows], x), max=bins - 1)
-        active = _expand_tiles(runs[qb0:qb1], bq, bn) & valid
+        active = _expand_tiles(active_tiles[qb0:qb1], bq, bn) & valid
         r = r_star[rows, None]
         is_lt = active & (dist < r)
         is_tie = active & (dist == r)
-        rank_lt = (slot_base[rows, None]
-                   + torch.cumsum(is_lt, dim=1, dtype=torch.int32) - 1)
-        rank_tie = (n_lt[rows, None]
-                    + torch.cumsum(is_tie, dim=1, dtype=torch.int32) - 1)
-        slot = torch.where(is_lt, rank_lt, torch.where(is_tie, rank_tie, k))
+        slot = torch.where(is_lt, rank(is_lt, lt_base[rows]),
+                           torch.where(is_tie, rank(is_tie, tie_base[rows]),
+                                       k))
         qi, ri = torch.nonzero((slot >= 0) & (slot < k), as_tuple=True)
         s = slot[qi, ri].long()
         qi = qi + qb0 * bq
@@ -230,7 +294,7 @@ def hamming_emit_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
                         r_star, n_lt, bins: int, k: int, n_valid=None,
                         block_min=None, block_mask=None, slot_base=None,
                         id_base=None, bq: int = 64, bn: int = 1024,
-                        sub: int = 64):
+                        sub: int = 64, run_bases=None):
     """Emit the top-k winners given the pass-1 radius. Replaces
     ``hamming_emit_pallas``.
 
@@ -239,6 +303,12 @@ def hamming_emit_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
     ``block_mask``: the same enable mask pass 1 ran under (None = all
     enabled). ``slot_base`` (Q,) starts the below-r* counter (None =
     zeros); ``id_base`` is added to every emitted row id (None = 0).
+
+    ``run_bases=(lt_base, tie_base)``, each (Q, R) int32 (from
+    ``ops._run_bases``), splits the tiles into R runs (module docstring)
+    and starts run j's below-r* and tie counters at column j; the kernel
+    then runs one CTA per query block and run. None is one run that starts
+    at ``slot_base`` and ``n_lt``.
 
     Returns (dists (Q, k), ids (Q, k)) int32, slot-ordered: dist < r* rows
     in index order from ``slot_base``, then r*-ties in index order from
@@ -256,18 +326,30 @@ def hamming_emit_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
     r = _vec(r_star, Q, 0, dev)
     nlt = _vec(n_lt, Q, 0, dev)
     sb = _vec(slot_base, Q, 0, dev)
+    if run_bases is None:
+        lt_base, tie_base = sb[:, None], nlt[:, None]
+    else:
+        lt_base, tie_base = (torch.as_tensor(b, device=dev).to(torch.int32)
+                             .contiguous() for b in run_bases)
+        if (lt_base.dim() != 2 or lt_base.shape[0] != Q
+                or lt_base.shape != tie_base.shape or lt_base.shape[1] < 1):
+            raise ValueError(f"run_bases must be two (Q={Q}, R) arrays, got "
+                             f"{tuple(lt_base.shape)}, "
+                             f"{tuple(tie_base.shape)}")
     if dev.type == "cpu":
         return hamming_emit_plain(q32, x32, r, nlt, bins, k, nv, bm, en, sb,
-                                  ib, bq, bn)
+                                  ib, bq, bn, (lt_base, tie_base))
 
+    if Q // bq > 65535:
+        raise ValueError(f"K2 takes at most 65535 query blocks, got {Q // bq}")
     out_d = torch.zeros((Q, k), dtype=torch.int32, device=dev)
     out_i = torch.zeros((Q, k), dtype=torch.int32, device=dev)
-    threads = 32 * min(bq, 32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().topk_emit_launch(
         q32.data_ptr(), x32.data_ptr(), en.data_ptr(), bm.data_ptr(),
-        r.data_ptr(), nlt.data_ptr(), sb.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), Q, N, W, nv, ib, bins, k, bq, bn, threads, stream)
+        r.data_ptr(), lt_base.data_ptr(), tie_base.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), Q, N, W, nv, ib, bins, k, bq, bn,
+        lt_base.shape[1], stream)
     _raise_on(err, "K2 (topk_emit_launch)")
     hamming_emit_kernel.launches += 1
     return out_d, out_i
