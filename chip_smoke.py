@@ -6,8 +6,8 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py [--seed 0]
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-nvcc per source, all at once) and drives four paths, each with the kernel
-launch counts set to 0 just before it and read just after:
+nvcc per source, all at once) and drives these paths, each with the
+kernel launch counts set to 0 just before it and read just after:
 
 * exact Hamming kNN — ``KNNEngine(...).with_layout().search(q, k=16)`` at
   Q=4096, N=2^20, d=256 on seeded clustered codes, through K1 (pass-1
@@ -47,10 +47,39 @@ launch counts set to 0 just before it and read just after:
   to the composite path the config's plan picks. K4 is held against its
   plain version on edge cases (ragged S, GQA, S=1) and at the main shape,
   and timed there on both routes: bf16 on the tensor cores, f32 on the
-  CUDA cores.
+  CUDA cores. The same model and store then serve under a
+  ``DegradationPolicy`` with snapshots: a burst walks the ladder (exact,
+  approx_rt95, approx_rt90, approx_rt80, retrieval_off) down and calm
+  ticks walk it back, every rung visited and nothing lost; a fault
+  injector fails retrieval until the server restores its store from the
+  last snapshot. Each approx rung's retrieval is timed at batch 8. Then
+  the server serves a ``MutableStore`` of the same datastore (audited
+  every 4 ticks) with a two-tenant arena attached, takes online appends
+  and deletes between ticks, and answers a ``tenant_search`` equal to each
+  tenant's own store.
+* the approximate tier — ``approx_topk`` on the first path's store, in
+  insertion order and (through the planner) in layout order, at recall
+  targets 0.8, 0.9, 0.95, 0.99 and 1.0: ms, block rows, per-block L, the
+  bound's predicted recall and the measured recall@16 against fused; at
+  1.0 both equal fused bit-for-bit. The ``torch._int_mm`` score tile of
+  one chunk is timed alone. On the index store: the masked approx probe
+  of the IVF layout at nprobe 8 (rt 1.0) equals a brute force over the
+  rows of its probed blocks on sampled queries, and ``asymmetric_topk``
+  of the ITQ projections is timed with its recall against the exact
+  Hamming search and the exact float neighbours.
+* the mutable store — ``MutableStore.create`` over the first path's codes
+  in a temporary root, 16 rounds of 4096 appends and 4096 deletes, flush,
+  and one search (one K1 and one K2 launch) equal to a from-scratch
+  engine over the live rows and to a brute force; then a crash without
+  close, ``recover`` and ``audit``, and the same search again.
+* the tenant arena — 8 tenants of uneven sizes (~2^20 rows in all, with
+  pad rows, one tenant smaller than k) packed in one arena; a mixed batch
+  of 4096 queries through one K1 and one K2 launch, each tenant equal to
+  its own store's search, the run-split emit equal to the single-run one.
 
-Output: progress lines; ``main_path``, ``board_scan``, ``index_path`` and
-``serving_path`` JSON lines;
+Output: progress lines; ``main_path``, ``board_scan``, ``index_path``,
+``serving_path``, ``approx_path``, ``mutable_path`` and ``tenant_path``
+JSON lines;
 a ``kernels`` JSON line (launches on the paths, error against the plain
 version, kernel / plain / library ms, and the bound: the least time for
 the operations or the HBM bytes, whichever is larger); the card's name and
@@ -68,6 +97,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -82,13 +112,15 @@ from repro_torch import carry, device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import binary, index, layout, plan  # noqa: E402
 from repro_torch.core import quantize, retrieval, topk  # noqa: E402
+from repro_torch.core import mutable, tenant  # noqa: E402
 from repro_torch.dist import steps  # noqa: E402
 from repro_torch.kernels import _build, ops, tuning  # noqa: E402
+from repro_torch.kernels import approx_select  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hamming as tham  # noqa: E402
 from repro_torch.kernels import topk_select as tsel  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.runtime import server  # noqa: E402
+from repro_torch.runtime import faults, server  # noqa: E402
 
 N_ROWS = 1 << 20         # 1M codes: SIFT1M/GIST1M-class store
 D_BITS = 256             # kNN-TagSpace: d = 256, k = 16, 4096 queries
@@ -150,6 +182,31 @@ FLASH_XLA_ATOL_F32 = 1e-4
 # summation order)
 K4_ATOL_F32 = 1e-5
 K4_BF16_ULPS = 2
+
+# the approximate tier on the kNN cell: recall targets timed (1.0 is gated
+# equal to fused), the masked approx probe of the IVF store, and the
+# sampled queries given an exact float (L2) ground truth on the index store
+APPROX_TARGETS = (0.8, 0.9, 0.95, 0.99, 1.0)
+N_APPROX_TIMED = 3
+APPROX_NPROBE = 8
+L2_SAMPLE = 256
+# the serving ladder: a burst of requests beyond the slots walks the
+# DegradationPolicy's ladder down, calm ticks walk it back up
+LADDER_REQUESTS, LADDER_NEW, LADDER_PROMPT = 24, 4, 4
+LADDER_POLICY = dict(queue_high=2, queue_low=0, cooldown_ticks=2)
+SNAPSHOT_EVERY = 8
+# the server over a MutableStore of the serving datastore and a two-tenant
+# arena: appends a round, rounds (the requests' new tokens), audit period,
+# the tenants' rows
+STORE_APPENDS, STORE_ROUNDS, STORE_AUDIT_EVERY = 64, 6, 4
+STORE_TENANT_ROWS = 100_000
+# the mutable store: rounds of appends and deletes over the kNN cell's codes
+MUT_ROUNDS, MUT_BATCH = 16, 4096
+# the tenant arena: 8 tenants' shares of ~N_ROWS rows (uneven, none a
+# multiple of the arena's tile, the last smaller than k), tile rows
+TENANT_SIZES = (314_573, 209_715, 157_287, 125_830, 104_857, 73_401,
+                62_906, 7)
+TENANT_BN = 1024
 
 
 def fail(msg: str) -> int:
@@ -801,6 +858,9 @@ def index_path(seed, eng, q_main, exact_main):
                                          select="fused"), qc, codes=codes)
     sample = torch.from_numpy(np.random.default_rng(seed + 22).choice(
         N_QUERIES, N_GATE, replace=False))
+    l2_rows = torch.from_numpy(np.random.default_rng(seed + 25).choice(
+        N_QUERIES, L2_SAMPLE, replace=False)).to(DEV)
+    l2_ids = l2_truth(data, qx[l2_rows])
     print(f"  store: {n} x {IDX_DIM} f32 from {IDX_CENTRES} centres "
           f"({n * IDX_DIM * 4 / 2**30:.2f} GiB), {D_BITS}-bit ITQ codes "
           f"trained in {t_itq:.2f} s", flush=True)
@@ -887,11 +947,14 @@ def index_path(seed, eng, q_main, exact_main):
                                  PREFIX_NPROBE, D_BITS),
                              return_stats=True),
         lay, q_main, exact_main, sample, probe, None)
+    print("approx tier on the index store", flush=True)
+    ax = approx_index(kmi, itq, codes, qx, qc, ex_ids, sample, l2_rows,
+                      l2_ids)
     del kmi, lshi, kdi, codes
     torch.cuda.empty_cache()
     return {"n": n, "dim": IDX_DIM, "centres": IDX_CENTRES,
             "itq_train_s": t_itq, "ivf_build_s": t_km, "lsh_build_s": t_lsh,
-            "kdtree_build_s": t_kd, "searches": searches}
+            "kdtree_build_s": t_kd, "searches": searches, "approx": ax}
 
 
 # ---------------------------------------------------------------------------
@@ -1204,6 +1267,9 @@ def serving_path(seed: int):
           f"(dists, ids, log-probs identical; K1, K2 launched "
           f"{fused_launches})", flush=True)
     steps_ms = decode_breakdown(model, cfg, store, srv)
+    del srv
+    print("serving ladder: DegradationPolicy, snapshots", flush=True)
+    ladder = serving_ladder(model, cfg, store, corpus)
     peak = torch.cuda.max_memory_allocated() / 1e9
     out = {"arch": ARCH, "param_count": n_params,
            "prefill_batch": PREFILL_BATCH, "prefill_len": PREFILL_LEN,
@@ -1219,11 +1285,506 @@ def serving_path(seed: int):
            "serve_wall_s": wall, "p50_token_ms": st["p50_token_s"] * 1e3,
            "p99_token_ms": st["p99_token_s"] * 1e3,
            "new_tokens_per_s": new_tok / wall, "lost": st["lost"],
-           "peak_gb": peak, **steps_ms}
-    del srv, store, model, corpus
+           "peak_gb": peak, **steps_ms, "ladder": ladder}
+    del store, model, corpus
     torch.cuda.empty_cache()
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the approximate tier on the kNN cell and on the index store
+# ---------------------------------------------------------------------------
+
+def approx_path(eng, q, fused):
+    """``approx_topk`` over the kNN cell in insertion order and, through
+    the planner, in layout order, at each recall target: ms, bn, l, the
+    bound's predicted recall and the measured recall@K (ids, and
+    distances within the exact k-th) against the fused result. At 1.0
+    both orders are gated bit-for-bit equal to fused. The ``torch._int_mm``
+    score tile of one chunk is timed alone beside them."""
+    t_phase = time.perf_counter()
+    flat = eng._replace(layout=None)
+    fd, fi = fused
+    ld_ref, li_ref = eng.search(q, K)
+    Q, W = q.shape
+    N, bins = flat.n, D_BITS + 1
+    bn = tuning.approx_blocks(Q, N, W, backend=device.backend_of(q))
+    n_blocks = -(-N // bn)
+    # one chunk of the product, as approx_topk takes it
+    (qs, b0, b1), *_ = approx_select._chunks(Q, n_blocks, bn,
+                                             device.backend_of(q))
+    rows = min((b1 - b0) * bn, N)
+    qpl = approx_select.bit_planes(q, D_BITS)
+    xpl = approx_select.bit_planes(flat.codes[:rows], D_BITS)
+    mm_ms, tile = cuda_ms(lambda: approx_select.hamming_scores_planes(
+        qpl, xpl, D_BITS), N_TIMED)
+    if not torch.equal(tile[:N_CHECK], binary.hamming_xor(
+            q[:N_CHECK], flat.codes[:rows])):
+        raise AssertionError("the _int_mm score tile != popcount distances")
+    del tile, xpl
+    n_chunks = -(-N // rows)
+    print(f"  torch._int_mm score tile ({Q} x {rows} x {D_BITS} int8 -> "
+          f"int32, + affine): {mm_ms:.3f} ms; {n_chunks} tiles a search; "
+          f"bn {bn}, {n_blocks} blocks", flush=True)
+    out = {"bn": bn, "n_blocks": n_blocks, "chunk_rows": rows,
+           "n_chunks": n_chunks, "int_mm_tile_ms": mm_ms,
+           "int_mm_ms_per_search": mm_ms * n_chunks, "targets": {}}
+    stats = plan.stats_of(eng.codes, q, D_BITS, layout=eng.layout)
+    for rt in APPROX_TARGETS:
+        l = approx_select.l_for_recall(K, n_blocks, bn, rt)
+        ms, (dd, ii) = cuda_ms(lambda: approx_select.approx_topk(
+            q, flat.codes, K, bins, recall_target=rt), N_APPROX_TIMED)
+        p = plan.plan_local(stats, K, select="approx", recall_target=rt)
+        lms, (ld, li) = cuda_ms(lambda: plan.execute(
+            p, q, codes=eng.codes, layout=eng.layout), N_APPROX_TIMED)
+        if rt >= 1.0 and not (torch.equal(dd, fd) and torch.equal(ii, fi)
+                              and torch.equal(ld, ld_ref)
+                              and torch.equal(li, li_ref)):
+            raise AssertionError("approx at recall_target 1.0 != fused")
+        row = {"l": l, "ms": ms, "layout_ms": lms,
+               "plan": p.compact(),
+               "predicted_recall": approx_select.expected_recall(
+                   K, n_blocks, l),
+               "recall": recall_at(ii, fi),
+               "dist_recall": float((dd <= fd[:, K - 1:K]).float().mean()),
+               "layout_recall": recall_at(li, li_ref),
+               "pool_merge_ms_est": ms - mm_ms * n_chunks}
+        out["targets"][str(rt)] = row
+        print(f"  approx rt {rt}: insertion order {ms:.3f} ms, layout "
+              f"order {lms:.3f} ms; bn {bn}, l {l}, predicted recall "
+              f"{row['predicted_recall']:.4f}, measured recall@{K} "
+              f"{row['recall']:.4f} (distances {row['dist_recall']:.4f}; "
+              f"layout order {row['layout_recall']:.4f})"
+              + ("; == fused bit-for-bit, both orders" if rt >= 1.0
+                 else ""), flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  approx phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def l2_truth(data, qx):
+    """Exact float nearest neighbours: (S, K) ids by squared L2 over the
+    whole store, in chunks of rows."""
+    best_d = torch.full((qx.shape[0], K), float("inf"), device=DEV)
+    best_i = torch.zeros((qx.shape[0], K), dtype=torch.int64, device=DEV)
+    for r0 in range(0, data.shape[0], 1 << 18):
+        x = data[r0:r0 + (1 << 18)]
+        d2 = (x * x).sum(1)[None, :] - 2 * qx @ x.t()
+        cd, ci = torch.topk(d2, K, dim=1, largest=False)
+        alld = torch.cat([best_d, cd], 1)
+        alli = torch.cat([best_i, ci + r0], 1)
+        best_d, o = torch.topk(alld, K, dim=1, largest=False)
+        best_i = torch.gather(alli, 1, o)
+    return best_i
+
+
+def approx_index(kmi, itq, codes, qx, qc, ex_ids, sample, l2_rows, l2_ids):
+    """The approx tier on the index store: the masked approx probe of the
+    IVF layout at nprobe APPROX_NPROBE and recall_target 1.0, gated on
+    sampled queries equal to a brute force over the rows of the blocks its
+    probed buckets cover (rounded out to the approx blocks, worked out
+    here on the host); ``asymmetric_topk`` of the ITQ projections against
+    the codes. Recall@K against the exact Hamming search and, on
+    L2_SAMPLE queries, against the exact float neighbours."""
+    t_phase = time.perf_counter()
+    lay = kmi.layout
+    Q, W = qc.shape
+    probe = index._kmeans_probe(kmi, qx, APPROX_NPROBE)
+    stats = plan.stats_of(lay.codes, qc, D_BITS, layout=lay, index="kmeans",
+                          n_buckets=lay.n_buckets)
+    p = plan.plan_index(stats, K, kind="kmeans", nprobe=APPROX_NPROBE,
+                        select="approx", recall_target=1.0)
+    ms, (dd, ii) = cuda_ms(lambda: plan.execute(p, qc, layout=lay,
+                                                probe=probe), N_APPROX_TIMED)
+    bn = min(tuning.approx_blocks(Q, lay.n, W,
+                                  backend=device.backend_of(qc)), lay.n)
+    starts = lay.starts.cpu().numpy().astype(np.int64)
+    for i in sample.tolist():
+        want = np.zeros(-(-lay.n // bn), bool)
+        for b in np.unique(probe[i].cpu().numpy()):
+            lo, hi = starts[b], starts[b + 1]
+            if hi > lo:
+                want[lo // bn:(hi - 1) // bn + 1] = True
+        pos = torch.cat([torch.arange(j * bn, min(j * bn + bn, lay.n))
+                         for j in np.flatnonzero(want).tolist()]).to(DEV)
+        dist = binary.hamming_xor(qc[i:i + 1], lay.codes[pos])[0]
+        order = torch.argsort(dist, stable=True)[:K]
+        if not (torch.equal(dd[i], dist[order])
+                and torch.equal(ii[i], lay.perm[pos[order]])):
+            raise AssertionError(f"masked approx: query {i} != the brute "
+                                 f"force over its blocks' rows")
+    out = {"masked_plan": p.compact(), "masked_bn": bn, "masked_ms": ms,
+           "masked_recall": recall_at(ii, ex_ids)}
+    print(f"  masked approx ({p.compact()}), IVF nprobe {APPROX_NPROBE}, "
+          f"bn {bn}: {ms:.3f} ms, == the brute force over the probed "
+          f"blocks' rows on {len(sample)} sampled queries, recall@{K} "
+          f"{out['masked_recall']:.4f}", flush=True)
+    v = quantize.itq_project(qx, itq)
+    out["fused_l2_recall"] = recall_at(ex_ids[l2_rows].long(), l2_ids)
+    for rt in (1.0, 0.9):
+        ams, (av, ai) = cuda_ms(lambda: approx_select.asymmetric_topk(
+            v, codes, K, D_BITS, recall_target=rt), N_APPROX_TIMED)
+        out[f"asymmetric_rt{rt}"] = {
+            "ms": ams, "recall_vs_hamming": recall_at(ai, ex_ids),
+            "l2_recall": recall_at(ai[l2_rows].long(), l2_ids)}
+        print(f"  asymmetric_topk (ITQ projections vs codes), rt {rt}: "
+              f"{ams:.3f} ms, recall@{K} vs exact Hamming "
+              f"{out[f'asymmetric_rt{rt}']['recall_vs_hamming']:.4f}, vs "
+              f"exact L2 ({L2_SAMPLE} queries) "
+              f"{out[f'asymmetric_rt{rt}']['l2_recall']:.4f} (exact "
+              f"Hamming: {out['fused_l2_recall']:.4f})", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  approx on the index store: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the serving ladder and the snapshot fallback
+# ---------------------------------------------------------------------------
+
+class FailUntilRestored(faults.FaultInjector):
+    """Fails every store search until the server has restored its store
+    from a snapshot once."""
+
+    def __init__(self):
+        super().__init__(seed=0, p={})
+        self.srv = None
+
+    def check(self, site, tenant=None):
+        super().check(site, tenant)
+        if (site == "store_search"
+                and self.srv.counters["snapshot_restores"] == 0):
+            self.fired[site] = self.fired.get(site, 0) + 1
+            raise faults.InjectedFault(site)
+
+
+def serving_ladder(model, cfg, store, corpus):
+    """The same model and store under a DegradationPolicy, with snapshots:
+    a burst walks the ladder down to retrieval_off, calm ticks walk it back
+    to exact; then a fault injector fails retrieval until the server
+    restores its store from the last snapshot. Each approx rung's
+    retrieval is timed at batch SERVE_BATCH."""
+    t_phase = time.perf_counter()
+    rcfg = cfg.retrieval
+    with tempfile.TemporaryDirectory() as snap:
+        srv = server.Server(
+            cfg, model, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+            store=store, device=DEV,
+            degradation=server.DegradationPolicy(**LADDER_POLICY),
+            snapshot_dir=snap, snapshot_every=SNAPSHOT_EVERY)
+        names = [r.name for r in srv.rungs]
+        ticks_at = {n: 0 for n in names}
+        uid = 0
+
+        def submit(n_new):
+            nonlocal uid
+            srv.submit(server.Request(
+                uid=uid, prompt=corpus[uid % corpus.shape[0], :LADDER_PROMPT]
+                .cpu().numpy().astype(np.int32), max_new_tokens=n_new))
+            uid += 1
+
+        for _ in range(LADDER_REQUESTS):
+            submit(LADDER_NEW)
+        bottom = False
+        while srv.ticks < 2000 and (srv.has_work or srv.rung != 0
+                                    or not bottom):
+            if not srv.has_work:
+                submit(1)
+            ticks_at[srv.rungs[srv.rung].name] += 1
+            srv.tick()
+            bottom |= srv.rung == len(srv.rungs) - 1
+        st = srv.stats()
+        if (st["lost"] != 0 or srv.rung != 0
+                or any(v == 0 for v in ticks_at.values())):
+            raise AssertionError(f"ladder walk: visited {ticks_at}, rung "
+                                 f"{st['rung']}, lost {st['lost']}")
+        print(f"  ladder {names}: ticks at each rung {ticks_at}, "
+              f"{st['transitions']} transitions, {st['done']} done, lost "
+              f"{st['lost']}, snapshots saved {st['snapshot_saves']}",
+              flush=True)
+
+        inj = FailUntilRestored()
+        inj.srv = srv
+        srv.faults = inj
+        for _ in range(SERVE_BATCH):
+            submit(2)
+        srv.run(max_ticks=srv.ticks + 200)
+        st = srv.stats()
+        if st["snapshot_restores"] < 1 or st["lost"] != 0:
+            raise AssertionError(f"snapshot fallback: {st}")
+        print(f"  fault injected on store_search until a restore: "
+              f"{inj.fired.get('store_search', 0)} failed attempts, "
+              f"search_failures {st['search_failures']}, snapshot_restores "
+              f"{st['snapshot_restores']}, failover_ticks "
+              f"{st['failover_ticks']}, lost {st['lost']}", flush=True)
+
+        tok = torch.from_numpy(srv.last_token).to(DEV)
+        with torch.inference_mode():
+            _, _, h = lm.decode_step(model, cfg, tok, srv.state,
+                                     return_hidden=True)
+            h = h[:, 0, :]
+            rung_ms = {"exact": cuda_ms(lambda: retrieval.knn_logits(
+                store, h, rcfg, cfg.vocab_size), N_TIMED)[0]}
+            for r in srv.rungs:
+                if r.select == "approx":
+                    rung_ms[r.name] = cuda_ms(
+                        lambda r=r: retrieval.knn_logits(
+                            store, h, rcfg, cfg.vocab_size, select="approx",
+                            recall_target=r.recall_target), N_TIMED)[0]
+        print("  retrieval at batch {}: {}".format(SERVE_BATCH, ", ".join(
+            f"{k} {v:.3f} ms" for k, v in rung_ms.items())), flush=True)
+        out = {"rungs": names, "ticks_at": ticks_at,
+               "transitions": st["transitions"],
+               "snapshot_saves": st["snapshot_saves"],
+               "snapshot_restores": st["snapshot_restores"],
+               "search_failures": st["search_failures"],
+               "failover_ticks": st["failover_ticks"], "lost": st["lost"],
+               "retrieval_ms": rung_ms,
+               "p50_token_ms": st["p50_token_s"] * 1e3,
+               "p99_token_ms": st["p99_token_s"] * 1e3}
+        del srv
+    out["stores"] = served_stores(model, cfg, store, corpus)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  ladder phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def served_stores(model, cfg, store, corpus):
+    """The server over a MutableStore of the same datastore (its epoch
+    served through ``datastore_view``, audited every STORE_AUDIT_EVERY
+    ticks) with a two-tenant arena attached: online appends and deletes
+    between ticks, then one ``tenant_search``, each tenant equal to its
+    own store."""
+    d = cfg.retrieval.code_bits
+    codes = store.codes.cpu().numpy().view(np.uint32)
+    values = store.values.cpu().numpy()
+    n = codes.shape[0] - STORE_APPENDS * STORE_ROUNDS
+    mstore, t_create = timed(lambda: mutable.MutableStore.create(
+        codes[:n], d, values=values[:n], itq=store.itq, device=DEV))
+    arena = tenant.TenantArena(d, bn=TENANT_BN, device=DEV)
+    for i, rows in enumerate(np.array_split(np.arange(STORE_TENANT_ROWS),
+                                            2)):
+        arena.create_tenant(f"t{i}", codes[rows], values=values[rows])
+    srv = server.Server(cfg, model, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                        store=mstore, device=DEV, tenants=arena,
+                        audit_every=STORE_AUDIT_EVERY)
+    rng = np.random.default_rng(7)
+    for i in range(SERVE_BATCH):
+        srv.submit(server.Request(uid=i, prompt=corpus[i, :LADDER_PROMPT]
+                                  .cpu().numpy().astype(np.int32),
+                                  max_new_tokens=STORE_ROUNDS))
+    row = n
+    while srv.has_work and srv.ticks < 500:
+        if row < codes.shape[0]:
+            if not (srv.submit_append(codes[row:row + STORE_APPENDS],
+                                      values=values[row:row + STORE_APPENDS])
+                    and srv.submit_delete(rng.choice(row, STORE_APPENDS // 2,
+                                                     replace=False))
+                    and srv.submit_append(codes[row:row + 4], tenant="t0")):
+                raise AssertionError("a mutation was shed")
+            row += STORE_APPENDS
+        srv.tick()
+    q = {t: codes[-8 * (i + 1):][:8] for i, t in enumerate(("t0", "t1"))}
+    arena.maintain()
+    res = srv.tenant_search(q, K)
+    for t in q:
+        own = arena.tenant(t).store.search(q[t], K)
+        if not (np.array_equal(res[t][0], own[0])
+                and np.array_equal(res[t][1], own[1])):
+            raise AssertionError(f"tenant_search {t} != its own store")
+    st = srv.stats()
+    if (st["lost"] != 0 or st["audits"] == 0 or st["audit_failures"]
+            or st["store_epoch"] <= 1 or st["mutations_applied"] == 0
+            or st["n_tenants"] != 2):
+        raise AssertionError(f"served stores: {st}")
+    print(f"  server over a MutableStore of the datastore (create "
+          f"{t_create:.2f} s) and a 2-tenant arena: {st['done']} done, lost "
+          f"{st['lost']}, mutations applied {st['mutations_applied']}, "
+          f"epoch {st['store_epoch']}, audits {st['audits']} "
+          f"(failures {st['audit_failures']}), tenant_search == each "
+          f"tenant's own store", flush=True)
+    out = {"create_s": t_create, "done": st["done"], "lost": st["lost"],
+           "mutations_applied": st["mutations_applied"],
+           "store_epoch": st["store_epoch"], "audits": st["audits"],
+           "audit_failures": st["audit_failures"]}
+    del srv, mstore, arena
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the mutable store
+# ---------------------------------------------------------------------------
+
+def store_search(label, st, q):
+    """One ``MutableStore.search`` with the counts zeroed just before it:
+    one K1 and one K2 launch."""
+    tsel.reset_launch_counts()
+    out = st.search(q, K)
+    torch.cuda.synchronize()
+    launches = (tsel.hamming_hist_kernel.launches,
+                tsel.hamming_emit_kernel.launches)
+    if launches != (1, 1):
+        raise AssertionError(f"{label}: K1, K2 launched {launches}")
+    return out, launches
+
+
+def check_store(label, st, q, got, sample):
+    """``got`` == a from-scratch KNNEngine over the epoch's live rows (the
+    arena rebuilt from them in id order with the frozen key bits), and its
+    distances == a brute force over the live rows on sampled queries."""
+    ep = st.epoch
+    order = np.argsort(ep.store_ids)
+    arena = layout.build_arena(
+        ep.layout.codes.cpu().numpy().view(np.uint32)[order], D_BITS,
+        ids=ep.store_ids[order], positions=st.arena.positions)
+    live = arena.live_mask()
+    ext = arena.ids[live]
+    counts = [int(np.count_nonzero(live[arena.cap_starts[b]:
+                                        arena.cap_starts[b + 1]]))
+              for b in range(arena.n_buckets)]
+    starts = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(counts)]).astype(np.int32)).to(DEV)
+    eng = carry.engine(arena.codes[live], D_BITS, device=DEV)
+    codes = eng.codes
+    ident = torch.arange(codes.shape[0], dtype=torch.int32, device=DEV)
+    eng = eng._replace(layout=layout.BucketLayout(
+        codes=codes, perm=ident, inv=ident, starts=starts))
+    dd, pos = eng.search(q, K)
+    ids = np.where(dd.cpu().numpy() <= D_BITS,
+                   ext[np.clip(pos.cpu().numpy(), 0, len(ext) - 1)], -1)
+    if not (np.array_equal(got[0], dd.cpu().numpy())
+            and np.array_equal(got[1], ids)):
+        raise AssertionError(f"{label}: != the from-scratch engine")
+    full = binary.hamming_xor(q[sample], codes)
+    if not np.array_equal(topk.topk_ref(full, K)[0].cpu().numpy(),
+                          got[0][sample.cpu().numpy()]):
+        raise AssertionError(f"{label}: != the brute force")
+
+
+def mutable_path(seed, codes_np, q):
+    """``MutableStore.create`` over the kNN cell's codes in a temporary
+    root; MUT_ROUNDS rounds of MUT_BATCH appends and MUT_BATCH deletes (a
+    snapshot half way), flush, search (gated against a from-scratch engine
+    and a brute force); then a crash without close, ``recover`` and
+    ``audit``, and the same search again."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 30)
+    centers = rng.integers(0, 1 << 32, size=(N_CLUSTERS, codes_np.shape[1]),
+                           dtype=np.uint32)
+    sample = torch.from_numpy(rng.choice(N_QUERIES, N_GATE,
+                                         replace=False)).to(DEV)
+    with tempfile.TemporaryDirectory() as root:
+        st, t_create = timed(lambda: mutable.MutableStore.create(
+            codes_np, D_BITS, root=root, device=DEV))
+        live = np.arange(codes_np.shape[0], dtype=np.int64)
+        t0 = time.perf_counter()
+        t_snap = 0.0
+        for r in range(MUT_ROUNDS):
+            ids = st.append(clustered_codes(rng, MUT_BATCH, centers),
+                            values=rng.integers(0, 1 << 20, MUT_BATCH)
+                            .astype(np.int32))
+            live = np.concatenate([live, ids])
+            pick = rng.choice(live.shape[0], MUT_BATCH, replace=False)
+            if st.delete(live[pick]) != MUT_BATCH:
+                raise AssertionError("a live id was not deleted")
+            live = np.delete(live, pick)
+            if r == MUT_ROUNDS // 2 - 1:
+                _, t_snap = timed(st.snapshot)
+        t_mut = time.perf_counter() - t0
+        _, t_flush = timed(st.flush)
+        if st.epoch.n != live.shape[0] or not np.array_equal(
+                np.sort(st.epoch.store_ids), np.sort(live)):
+            raise AssertionError("the epoch's ids != the live ids")
+        got, launches = store_search("mutable store search", st, q)
+        check_store("mutable store search", st, q, got, sample)
+        ms, _ = cuda_ms(lambda: st.search(q, K), N_TIMED)
+        checksum = st.epoch.checksum
+        print(f"  mutable store: create {t_create:.2f} s; {MUT_ROUNDS} x "
+              f"({MUT_BATCH} appends + {MUT_BATCH} deletes) {t_mut:.2f} s "
+              f"(snapshot half way {t_snap:.2f} s); flush "
+              f"{t_flush * 1e3:.1f} ms; {st.epoch.n} live rows; search "
+              f"{ms:.3f} ms, K1, K2 launches {launches}, == the "
+              f"from-scratch engine and the brute force", flush=True)
+        del st                       # the crash: no close, no flush
+        rec, t_rec = timed(lambda: mutable.MutableStore.recover(
+            root, device=DEV))
+        report = rec.audit()
+        got2, _ = store_search("recovered store search", rec, q)
+        if (not report["ok"] or rec.epoch.checksum != checksum
+                or not np.array_equal(got2[0], got[0])
+                or not np.array_equal(got2[1], got[1])):
+            raise AssertionError(f"recovery: audit {report}, checksum "
+                                 f"{rec.epoch.checksum} != {checksum}, or "
+                                 f"the search differs")
+        print(f"  crash, recover {t_rec:.2f} s (audit ok, epoch checksum "
+              f"equal, search equal)", flush=True)
+        rec.close()
+    out = {"rows": int(live.shape[0]), "create_s": t_create,
+           "mutate_s": t_mut, "snapshot_s": t_snap,
+           "flush_ms": t_flush * 1e3, "search_ms": ms,
+           "k1_launches": launches[0], "k2_launches": launches[1],
+           "recover_s": t_rec, "wall_s": time.perf_counter() - t_phase}
+    print(f"  mutable phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the tenant arena
+# ---------------------------------------------------------------------------
+
+def tenant_path(codes_np, q_np):
+    """8 tenants of uneven sizes over the kNN cell's codes in one arena of
+    TENANT_BN-row tiles; a mixed batch of N_QUERIES queries through one K1
+    and one K2 launch, each tenant's answer gated equal to its own
+    ``MutableStore.search`` and the split emit equal to the single-run
+    one."""
+    t_phase = time.perf_counter()
+    arena, t_build = timed(lambda: _tenants(codes_np))
+    tids = arena.healthy_tids()
+    share = np.array_split(np.arange(N_QUERIES), len(tids))
+    queries = {t: q_np[rows] for t, rows in zip(tids, share)}
+    arena.pack()
+    tsel.reset_launch_counts()
+    res = arena.search(queries, K)
+    torch.cuda.synchronize()
+    launches = (tsel.hamming_hist_kernel.launches,
+                tsel.hamming_emit_kernel.launches)
+    if launches != (1, 1):
+        raise AssertionError(f"tenant search: K1, K2 launched {launches}")
+    single = arena.search(queries, K, emit="single")
+    for t in tids:
+        own = arena.tenant(t).store.search(queries[t], K)
+        for other, what in ((own, "its own store"), (single[t], "single")):
+            if not (np.array_equal(res[t][0], other[0])
+                    and np.array_equal(res[t][1], other[1])):
+                raise AssertionError(f"tenant {t}: split emit != {what}")
+    _, t_search = timed(lambda: arena.search(queries, K))
+    ms, _ = cuda_ms(lambda: arena.search(queries, K), N_TIMED)
+    st = arena.stats()
+    print(f"  tenant arena: {len(tids)} tenants "
+          f"{[arena.tenant(t).store.n_live for t in tids]} rows, "
+          f"{st['packed_rows']} packed rows ({st['packed_pad_rows']} pads), "
+          f"bn {TENANT_BN}, built {t_build:.2f} s; mixed batch of "
+          f"{N_QUERIES}: K1, K2 launches {launches}, {ms:.3f} ms; == each "
+          f"tenant's own store, split == single-run emit", flush=True)
+    out = {"tenants": len(tids), "packed_rows": st["packed_rows"],
+           "pad_rows": st["packed_pad_rows"], "bn": TENANT_BN,
+           "build_s": t_build, "search_ms": ms, "search_wall_s": t_search,
+           "k1_launches": launches[0], "k2_launches": launches[1],
+           "wall_s": time.perf_counter() - t_phase}
+    arena.close()
+    print(f"  tenant phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _tenants(codes_np):
+    arena = tenant.TenantArena(D_BITS, bn=TENANT_BN, device=DEV)
+    off = 0
+    for i, n in enumerate(TENANT_SIZES):
+        arena.create_tenant(f"t{i}", codes_np[off:off + n])
+        off += n
+    return arena
 
 
 
@@ -1329,7 +1890,6 @@ def main() -> int:
     # phase 5c: index-probed search
     print("index path: IVF, LSH, kd-tree, hamming-prefix probes", flush=True)
     ip = index_path(args.seed, eng, q, fused[1])
-    del fused
 
     # phase 6: K4 against its plain version, then its times at the main
     # shape
@@ -1341,6 +1901,20 @@ def main() -> int:
     # phase 7: kNN-LM serving of gemma-2b, prefill through K4
     print(f"serving path: {ARCH}", flush=True)
     sp = serving_path(args.seed)
+
+    # phase 8: the approximate tier on the kNN cell
+    print(f"approx path: approx_topk, Q={N_QUERIES} N={N_ROWS} d={D_BITS} "
+          f"k={K}", flush=True)
+    ap = approx_path(eng, q, fused)
+    del fused
+
+    # phases 9 and 10: the mutable store and the tenant arena
+    print(f"mutable path: MutableStore over N={N_ROWS} d={D_BITS}",
+          flush=True)
+    mp = mutable_path(args.seed, codes_np, q)
+    print(f"tenant path: {len(TENANT_SIZES)} tenants, Q={N_QUERIES} k={K}",
+          flush=True)
+    tp = tenant_path(codes_np, q_np)
     print("main_path: " + json.dumps({
         "search_ms": main_ms, "queries_per_s": N_QUERIES / main_ms * 1e3,
         "blocks_skipped_frac": kt["skipped"],
@@ -1353,6 +1927,9 @@ def main() -> int:
     print("board_scan: " + json.dumps(bs), flush=True)
     print("index_path: " + json.dumps(ip), flush=True)
     print("serving_path: " + json.dumps(sp), flush=True)
+    print("approx_path: " + json.dumps(ap), flush=True)
+    print("mutable_path: " + json.dumps(mp), flush=True)
+    print("tenant_path: " + json.dumps(tp), flush=True)
     src = "src/repro_torch/kernels/csrc/topk_select.cu"
     # K1/K2 as they were before this design: CUDA-core popcounts, K2 as one
     # run (measured in this run by route_comparison)

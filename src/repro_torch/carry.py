@@ -104,18 +104,19 @@ def itq(params, device=None) -> quantize.ITQParams:
 
 
 def datastore(store, device=None) -> retrieval.DataStore:
-    """``repro`` ``DataStore`` as numpy -> the port's. Its layout, when it
-    has one, is carried too; frozen key positions are not (mutable stores
-    are not ported)."""
+    """``repro`` ``DataStore`` as numpy -> the port's, its layout and its
+    frozen key positions (a mutable store's view) too when it has them."""
     dev = device_mod.resolve(device)
     lay = None
     if store.layout is not None:
         L = store.layout
         lay = layout(L.codes, L.perm, L.inv, L.starts, device=dev)
+    kp = (None if store.key_positions is None
+          else _int32(store.key_positions, dev))
     return retrieval.DataStore(
         codes=codes(store.codes, dev),
         values=_int32(store.values, dev),
-        itq=itq(store.itq, dev), layout=lay)
+        itq=itq(store.itq, dev), layout=lay, key_positions=kp)
 
 
 def _index_parts(buckets, packed, layout_arrays, dev):

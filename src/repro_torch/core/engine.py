@@ -10,8 +10,9 @@ with block-min pruning skipping pass-2 tiles that provably hold no winner.
 running merge.
 
 The engine runs on the device its tensors live on; build one from
-``repro``'s numpy state with ``repro_torch.carry``. ``search_sharded`` and
-``KNNEngine.from_epoch`` are not ported yet.
+``repro``'s numpy state with ``repro_torch.carry``, or pin one to a mutable
+store's installed epoch with ``KNNEngine.from_epoch``. ``search_sharded``
+is not ported yet (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -62,6 +63,14 @@ class KNNEngine(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.codes.device
+
+    @classmethod
+    def from_epoch(cls, epoch, d: int) -> "KNNEngine":
+        """Engine pinned to one installed epoch of a mutable store
+        (core/mutable.py). The epoch's dense codes ARE the layout's codes
+        (identity perm), so this engine keeps serving a complete,
+        consistent snapshot however the store mutates afterwards."""
+        return cls(codes=epoch.layout.codes, d=d, layout=epoch.layout)
 
     def with_layout(self, n_buckets: int | None = None,
                     assign: torch.Tensor | None = None) -> "KNNEngine":

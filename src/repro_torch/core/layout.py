@@ -16,12 +16,15 @@ granularity is the grid tile, so probed buckets are rounded OUTWARD to
 tile boundaries — the masked candidate set is a superset of the probed
 buckets, and queries in one query block share the union of their probes.
 The mask therefore depends on (bq, bn): the planner's geometry for the
-tensors' backend unless given. The mutable ``Arena`` is not ported yet
-(ROADMAP queue 1 item 10).
+tensors' backend unless given.
+
+The mutable face of a layout, the :class:`Arena` (bucket regions with
+reserved slack for online appends, core/mutable.py), is host numpy, as in
+``repro``: it is what mutations touch, never what the kernels stream.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,7 +95,7 @@ def hamming_prefix_assign(codes: torch.Tensor, d: int, bits: int,
     Returns (assign (N,) int32 in [0, 2^bits), positions (bits,) int32)."""
     b = binary.unpack_bits(codes, d)                       # (N, d)
     if positions is None:
-        n = b.shape[0]
+        n = max(b.shape[0], 1)     # no rows: every mean ties, as NaN do
         recip = torch.tensor(np.float32(1.0) / np.float32(n),
                              dtype=torch.float32, device=b.device)
         means = b.sum(dim=0, dtype=torch.int64).to(torch.float32) * recip
@@ -304,3 +307,140 @@ def enabled_positions(layout: BucketLayout, mask_row, bn: int) -> np.ndarray:
            for j in np.flatnonzero(mask_row)]
     return (np.concatenate(pos) if pos
             else np.zeros((0,), np.int64)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# mutable arena: bucket regions with reserved slack (core/mutable.py)
+# ---------------------------------------------------------------------------
+
+class Arena(NamedTuple):
+    """Host-side bucket arena with per-bucket spare slack for online
+    inserts (the mutable face of :class:`BucketLayout`; core/mutable.py).
+
+    Bucket ``b`` OWNS the capacity region ``[cap_starts[b],
+    cap_starts[b+1])``; its first ``n_used[b]`` slots are occupied — live
+    rows interleaved with tombstones (``ids == -1``) — and the rest is
+    slack reserved at build time via ``slack_frac``. Appends fill slack in
+    place; deletes tombstone in place (positions of surviving rows never
+    move, which is what keeps the within-bucket ascending-id order — the
+    invariant that makes an installed epoch bit-identical to a rebuild).
+    All arrays are numpy: this is the mutation side, never what kernels
+    stream — searches run against the dense epoch ``core/mutable.py``
+    gathers from the live rows."""
+
+    codes: np.ndarray       # (cap, W) uint32
+    ids: np.ndarray         # (cap,) int64 external ids; -1 = dead/slack
+    values: np.ndarray      # (cap,) int32 payload (e.g. next-token ids)
+    cap_starts: np.ndarray  # (B+1,) int64 capacity offsets
+    n_used: np.ndarray      # (B,) int64 occupied prefix per bucket
+    positions: np.ndarray   # (bits,) int32 FIXED hamming-prefix key bits
+    d: int                  # code bits
+
+    @property
+    def n_buckets(self) -> int:
+        return self.cap_starts.shape[0] - 1
+
+    @property
+    def capacity(self) -> int:
+        return int(self.cap_starts[-1])
+
+    def live_mask(self) -> np.ndarray:
+        """(cap,) bool: occupied AND not tombstoned."""
+        used = np.zeros(self.capacity, bool)
+        for b in range(self.n_buckets):
+            s = int(self.cap_starts[b])
+            used[s:s + int(self.n_used[b])] = True
+        return used & (self.ids >= 0)
+
+    @property
+    def n_live(self) -> int:
+        return int(np.count_nonzero(self.live_mask()))
+
+    @property
+    def n_tombstones(self) -> int:
+        return int(self.n_used.sum()) - self.n_live
+
+
+def hamming_key_host(codes: np.ndarray, positions: np.ndarray) -> np.ndarray:
+    """Numpy mirror of :func:`hamming_prefix_assign`'s keying for FIXED
+    ``positions`` — the online-insert hot path must not re-derive the key
+    bits (re-derivation drifts as data drifts, and a drifted key would
+    silently re-bucket existing rows). Bit ``p`` lives at word ``p // 32``,
+    bit ``p % 32`` (binary.pack_bits convention)."""
+    codes = np.asarray(codes, np.uint32)
+    positions = np.asarray(positions, np.int64)
+    bits = (codes[:, positions // 32] >> (positions % 32).astype(np.uint32))
+    bits = (bits & 1).astype(np.int64)                     # (N, nbits)
+    return bits @ (np.int64(1) << np.arange(positions.shape[0],
+                                            dtype=np.int64))
+
+
+def bucket_capacities(counts: np.ndarray, slack_frac: float,
+                      min_slack: int) -> np.ndarray:
+    """Per-bucket capacity = live count + reserved slack. Every bucket —
+    including an empty one — gets at least ``min_slack`` spare slots, so a
+    fresh arena can always absorb appends into ANY bucket before the next
+    compaction rebalances."""
+    counts = np.asarray(counts, np.int64)
+    slack = np.maximum(np.ceil(counts * slack_frac).astype(np.int64),
+                       min_slack)
+    return counts + slack
+
+
+def build_arena(codes: np.ndarray, d: int, *, ids: np.ndarray,
+                values: Optional[np.ndarray] = None,
+                n_buckets: int | None = None,
+                positions: Optional[np.ndarray] = None,
+                slack_frac: float = 0.5, min_slack: int = 8) -> Arena:
+    """Build a slack-reserving arena from dense rows (the mutable analogue
+    of :func:`build_layout`; the ``slack_frac`` knob is THE build-time
+    reservation for online appends).
+
+    ``positions=None`` derives the hamming-prefix key bits from ``codes``
+    once (the same greedy balanced selection ``build_layout`` uses) and
+    stores them in the arena: every later insert and every compaction keys
+    by these frozen positions, so bucket assignment is a pure function of
+    a row's code for the arena's whole lifetime. Rows must arrive in
+    ascending external-id order (asserted): the arena's bit-identity
+    contract leans on within-bucket id order."""
+    codes = np.asarray(codes, np.uint32)
+    ids = np.asarray(ids, np.int64)
+    if codes.ndim != 2 or ids.shape != (codes.shape[0],):
+        raise ValueError(f"codes {codes.shape} and ids {ids.shape} differ")
+    if ids.size and (not np.all(np.diff(ids) > 0) or int(ids[0]) < 0):
+        raise ValueError("arena rows must be id-ascending and >= 0")
+    values = (np.zeros(ids.shape, np.int32) if values is None
+              else np.asarray(values, np.int32))
+    if positions is None:
+        bits = (n_buckets - 1).bit_length() if n_buckets else (
+            default_bits(max(codes.shape[0], 1)))
+        _, pos = hamming_prefix_assign(
+            torch.from_numpy(np.ascontiguousarray(codes).view(np.int32)), d,
+            bits)
+        positions = pos.numpy().astype(np.int32)
+    else:
+        positions = np.asarray(positions, np.int32)
+    B = 1 << positions.shape[0]
+    assign = hamming_key_host(codes, positions)
+    counts = np.bincount(assign, minlength=B).astype(np.int64)
+    caps = bucket_capacities(counts, slack_frac, min_slack)
+    cap_starts = np.zeros(B + 1, np.int64)
+    np.cumsum(caps, out=cap_starts[1:])
+    W = codes.shape[1]
+    a_codes = np.zeros((int(cap_starts[-1]), W), np.uint32)
+    a_ids = np.full(int(cap_starts[-1]), -1, np.int64)
+    a_values = np.zeros(int(cap_starts[-1]), np.int32)
+    # stable scatter: within a bucket, input (ascending-id) order survives
+    if codes.shape[0]:
+        order = np.argsort(assign, kind="stable")
+        srt = assign[order]
+        dense_starts = np.concatenate(
+            ([0], np.cumsum(counts)))                       # (B+1,)
+        rank = np.arange(order.shape[0]) - dense_starts[srt]
+        slots = cap_starts[srt] + rank
+        a_codes[slots] = codes[order]
+        a_ids[slots] = ids[order]
+        a_values[slots] = values[order]
+    return Arena(codes=a_codes, ids=a_ids, values=a_values,
+                 cap_starts=cap_starts, n_used=counts.copy(),
+                 positions=positions, d=d)

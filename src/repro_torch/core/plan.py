@@ -13,13 +13,14 @@
   made by either package for the same store reads the same.
 * **Executor** — :func:`execute` runs a non-sharded plan over concrete
   tensors: full scans (``_scan_select``: the ``fused``, ``fused_scan``,
-  ``composite``, ``counting`` and ``bisect`` paths, the materializing ones
-  over ``xor``, ``mxu`` or K3 distances), block-mask candidates
-  (``layout.masked_topk``) and gather candidates (``gather_scan``).
+  ``composite``, ``counting``, ``bisect`` and ``approx`` paths, the
+  materializing ones over ``xor``, ``mxu`` or K3 distances), block-mask
+  candidates (``layout.masked_topk``, or ``approx_select.
+  masked_approx_topk`` on the approx tier) and gather candidates
+  (``gather_scan``).
 
 Not ported yet, and raising ``NotImplementedError`` rather than running
-another path: the approximate tier (``select="approx"``, ROADMAP queue 1
-item 9) and sharded plans (queue 1 item 8).
+another path: sharded plans (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -42,8 +43,6 @@ _SELECT_ALIASES = {"auto": "auto", "composite": "composite",
                    "approx": "approx"}
 
 _NOT_PORTED = {
-    "approx": "the approximate tier (select='approx') is not ported yet: "
-              "ROADMAP queue 1 item 9 (kernels/approx_select.py)",
     "sharded": "sharded plans are not ported yet: ROADMAP queue 1 item 8",
 }
 
@@ -181,7 +180,10 @@ class QueryPlan:
             return ("xor+popcount gather", "topk.counting_topk")
         path = self.select.path
         if path == "approx":
-            raise NotImplementedError(_NOT_PORTED["approx"])
+            return ("approx_select.bit_planes (+/-1 int8)",
+                    "torch._int_mm int8->int32 Hamming-as-matmul",
+                    "approx_select partial-reduce top-L + lexicographic "
+                    "merge")
         if path in ("fused", "fused_scan"):
             ks = ("kernels.topk_select.hamming_hist_kernel (K1, CUDA)",
                   "kernels.topk_select.hamming_emit_kernel (K2, CUDA)")
@@ -197,6 +199,12 @@ class QueryPlan:
         return (dist, sel, "chunk loop + topk.merge_topk")
 
     def _predicted_pruning(self) -> str:
+        if self.select.path == "approx":
+            if self.candidates.kind == "block_mask":
+                return ("per-query block mask gates the score matmul; the "
+                        "partial reduce keeps L candidates per enabled block")
+            return ("partial reduce: only n_blocks*L candidates leave the "
+                    "score matmul (the analytical recall bound sizes L)")
         if self.candidates.kind == "block_mask":
             return ("pass 1 skips every tile outside the probed buckets; "
                     "pass 2 composes the mask with the block-min bound")
@@ -219,9 +227,33 @@ class QueryPlan:
         if self.candidates.kind == "gather":
             return {"kind": "gather",
                     "cand_width_hint": self.probe.nprobe or 1}
-        if self.select.path == "approx":
-            raise NotImplementedError(_NOT_PORTED["approx"])
         backend = self.backend or device_mod.default_backend()
+        if self.select.path == "approx":
+            from repro_torch.kernels import approx_select
+
+            bn = tuning.approx_blocks(self.q, self.n, self.w,
+                                      backend=backend)
+            bn = max(min(bn, self.n), 1)
+            n_blocks = -(-self.n // bn)
+            k_k = max(min(self.k, self.n), 1)
+            rt = self.select.recall_target
+            l = max(min(approx_select.l_for_recall(k_k, n_blocks, bn, rt),
+                        bn), 1)
+            # one int8 product scores everything: 2*Q*N*d operations over
+            # (Q+N)*d plane bytes
+            flops = 2 * self.q * self.n * self.d
+            plane_bytes = (self.q + self.n) * self.d
+            return {
+                "kind": "approx", "bn": bn, "n_blocks": n_blocks,
+                "l_per_block": l, "cand_per_query": n_blocks * l,
+                "recall_target": rt,
+                "predicted_recall": round(approx_select.expected_recall(
+                    k_k, n_blocks, l), 6),
+                "scores_flops": flops, "plane_bytes": plane_bytes,
+                "flops_per_byte": round(flops / max(plane_bytes, 1), 2),
+                "hint_source": tuning.hint_source(
+                    backend, "approx", self.q, self.n, self.w, 1),
+            }
         if self.select.path not in ("fused", "fused_scan"):
             eff = min(self.select.chunk or DEFAULT_CHUNK, self.n)
             if self.select.path == "composite":
@@ -564,7 +596,12 @@ def _scan_select(codes_packed: torch.Tensor, q_packed: torch.Tensor, k: int,
         bd, bi = ops.hamming_topk(q_packed, codes_packed, k, d + 1)
         return bd, bi + id_offset
     if sel.path == "approx":
-        raise NotImplementedError(_NOT_PORTED["approx"])
+        from repro_torch.kernels import approx_select
+
+        bd, bi = approx_select.approx_topk(
+            q_packed, codes_packed, k, d + 1,
+            recall_target=sel.recall_target)
+        return bd, bi + id_offset
 
     chunk = min(sel.chunk or DEFAULT_CHUNK, N)
     if sel.path == "composite":
@@ -646,7 +683,15 @@ def execute(plan: QueryPlan, q_packed: torch.Tensor, *,
         if layout is None:
             raise ValueError("a block_mask plan needs the layout")
         if plan.select.path == "approx":
-            raise NotImplementedError(_NOT_PORTED["approx"])
+            from repro_torch.kernels import approx_select
+
+            if return_stats:
+                raise ValueError("pruning stats only exist on the fused "
+                                 "masked path")
+            return approx_select.masked_approx_topk(
+                layout, q_packed, plan.k, plan.d, probe=probe,
+                cand_ids=cand_ids,
+                recall_target=plan.select.recall_target)
         return layout_mod.masked_topk(layout, q_packed, plan.k, plan.d,
                                       probe=probe, cand_ids=cand_ids,
                                       return_stats=return_stats)

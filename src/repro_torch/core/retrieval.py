@@ -11,9 +11,11 @@ with the LM softmax.
 serving ladder downshifts to: the ``nprobe`` nearest hamming-prefix buckets
 through the masked fused kernels.
 
+``select="approx"`` with a ``recall_target`` runs the approximate tier
+(``kernels/approx_select.py``), the serving ladder's approx rungs.
+
 Not ported yet, and raising ``NotImplementedError`` rather than running
-another path: sharded plans (a mesh or axes; ROADMAP queue 1 item 8) and
-the approximate tier (``select="approx"``; queue 1 item 9).
+another path: sharded plans (a mesh or axes; ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -29,8 +31,6 @@ from repro_torch.core import layout as layout_mod, plan as plan_mod, quantize
 _NOT_PORTED = {
     "sharded": "sharded retrieval plans are not ported yet: ROADMAP queue 1 "
                "item 8",
-    "approx": "the approximate tier (select='approx') is not ported yet: "
-              "ROADMAP queue 1 item 9",
 }
 
 
@@ -115,8 +115,6 @@ def plan_for_store(store: DataStore, rcfg: RetrievalConfig, q: int,
         raise NotImplementedError(_NOT_PORTED["sharded"])
     if select is None:
         select = rcfg.plan if rcfg.plan != "auto" else rcfg.select
-    if select == "approx":
-        raise NotImplementedError(_NOT_PORTED["approx"])
     if recall_target is None:
         recall_target = rcfg.recall_target
     policy = "require" if rcfg.layout != "none" else "auto"
@@ -197,7 +195,9 @@ def knn_logits(store: DataStore, hidden: torch.Tensor, rcfg: RetrievalConfig,
 
     ``nprobe > 0`` with ``probe_positions`` (``probe_key_positions``) on a
     store with a layout switches to the DEGRADED masked search: only the
-    ``nprobe`` nearest hamming-prefix buckets are scanned."""
+    ``nprobe`` nearest hamming-prefix buckets are scanned.
+    ``recall_target`` overrides ``rcfg.recall_target`` for the approx tier
+    (the ladder's approx rungs serve at a degraded target)."""
     q_codes = binary.pack_bits(quantize.itq_encode(hidden, store.itq))
     if nprobe > 0 and store.layout is not None and probe_positions is not None:
         p = degraded_plan_for_store(store, rcfg, hidden.shape[0], nprobe)

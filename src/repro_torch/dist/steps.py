@@ -6,8 +6,8 @@ returns its step function alone. Steps run under ``torch.inference_mode``.
 The serve builder is memoized per (cfg, max_len, retrieval variant), as
 ``repro``'s is (the degraded probe variant keys on the identity of its
 probe positions, as there): the server asks for its rungs' steps again
-mid-serve, and failover must find the step it already has. The train step and the
-per-unit search steps wait (ROADMAP queue 1 items 11 and 8).
+mid-serve, and failover must find the step it already has. The train step
+and the per-unit search steps wait (ROADMAP queue 1 items 11 and 8).
 """
 from __future__ import annotations
 
@@ -49,8 +49,8 @@ def make_prefill_step(cfg: ModelConfig, seq_len: int, *,
 # serve
 # ---------------------------------------------------------------------------
 
-# (cfg, max_len, with_retrieval, nprobe, id(probe_positions), select)
-#   -> serve_fn
+# (cfg, max_len, with_retrieval, nprobe, id(probe_positions), select,
+#  recall_target) -> serve_fn
 _SERVE_CACHE: dict = {}
 
 
@@ -63,15 +63,15 @@ def make_serve_step(cfg: ModelConfig, max_len: int, *,
     slot; the store argument exists iff retrieval is on. ``nprobe > 0``
     (with the store's hamming-prefix ``probe_positions``) builds the
     DEGRADED variant: a masked probe of the ``nprobe`` nearest buckets
-    instead of the full exact plan. The approx variant
-    (``select="approx"``) raises: ROADMAP queue 1 item 9."""
+    instead of the full exact plan; ``select="approx"`` + ``recall_target``
+    builds the APPROX rung, the partial-reduce tier at a bounded recall
+    loss."""
     if with_retrieval is None:
         with_retrieval = cfg.retrieval.enabled
-    if select == "approx" or recall_target is not None:
-        raise NotImplementedError(retrieval_mod._NOT_PORTED["approx"])
     key = (cfg, int(max_len), bool(with_retrieval), int(nprobe),
            id(probe_positions) if probe_positions is not None else None,
-           select)
+           select,
+           float(recall_target) if recall_target is not None else None)
     if key in _SERVE_CACHE:
         return _SERVE_CACHE[key]
 
@@ -83,7 +83,8 @@ def make_serve_step(cfg: ModelConfig, max_len: int, *,
                 model, cfg, token, state, active=active, return_hidden=True)
             knn = retrieval_mod.knn_logits(
                 store, hidden[:, 0, :], rcfg, cfg.vocab_size, select=select,
-                nprobe=nprobe, probe_positions=probe_positions)
+                recall_target=recall_target, nprobe=nprobe,
+                probe_positions=probe_positions)
             mixed = retrieval_mod.interpolate(logits[:, 0, :], knn,
                                               rcfg.interpolation)
             return mixed[:, None, :], new_state

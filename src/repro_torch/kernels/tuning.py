@@ -1,5 +1,6 @@
 """Block-shape heuristics + the measured autotune cache (port of
-``repro.kernels.tuning``, the half the single-device fused select needs).
+``repro.kernels.tuning``, the single-device half: the fused select, the
+distance kernel and the approximate tier).
 
 Resolution order is **measured beats default**: every lookup first consults
 the :class:`AutotuneCache` (the same JSON file format as ``repro``'s, keyed
@@ -7,7 +8,8 @@ per backend, kind and power-of-two geometry bucket) and only falls back to
 the static heuristic when no measurement exists. With an empty cache every
 shape is a pure function of the inputs.
 
-The ``"gpu"`` rows below are ``repro``'s as they stand. On the card the
+The ``"gpu"`` rows of the exact tier are ``repro``'s as they stand; the
+approx tier's ``"gpu"`` row (``_APPROX_BLOCKS``) is the port's own. On the card the
 CUDA kernels take ``bq`` and ``bn`` from here; ``sub`` (the TPU's in-tile
 sub-step that bounds a VMEM one-hot) is kept for parity and ignored by
 them. The GPU geometry (bq, bn, sub) = (32, 1032, 24) at Q=4096, N=2^20,
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 
 from repro_torch import device as device_mod
 
@@ -26,6 +29,11 @@ _LANE = 128
 _ONEHOT_BYTES = {"tpu": 2 << 20, "cpu": 4 << 20, "gpu": 1 << 20}
 _MAX_N_BLOCKS = {"tpu": 1024, "cpu": 16, "gpu": 1024}
 _CODE_TILE_BYTES = {"tpu": 4 << 20, "cpu": 1 << 20, "gpu": 2 << 20}
+# approx tier: (target block count, largest bn) of the seeded default.
+# The card scores a chunk of blocks per product whatever bn is, so bn only
+# sizes the candidate pool: fewer, larger blocks give a smaller pool and a
+# higher recall bound at the same L.
+_APPROX_BLOCKS = {"tpu": (32, 8192), "cpu": (32, 8192), "gpu": (32, 1 << 15)}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -193,6 +201,82 @@ def _topk_blocks_default(Q: int, N: int, W: int, lanes: int,
                           // (4 * max(W, 1)), sub)
         bn = max(bn, min(want, cap))
     return bq, bn, sub
+
+
+def measure(runner, candidates, *, backend: str, kind: str, Q: int, N: int,
+            W: int, lanes: int, reps: int = 3, timer=None,
+            persist: bool = True) -> dict:
+    """Time ``runner(candidate)`` over ``candidates`` and cache the winner.
+
+    ``runner`` executes one kernel call for a candidate shape and blocks on
+    its result (on the card: ``torch.cuda.synchronize()``); ``timer``
+    defaults to ``time.perf_counter`` and is injectable so tests measure
+    with a fake clock. Each candidate gets one warm-up call (build) plus
+    ``reps`` timed calls; the best median wins. Returns the cached entry.
+    Nothing in this module calls ``measure`` implicitly."""
+    timer = time.perf_counter if timer is None else timer
+    best = None
+    for cand in candidates:
+        try:
+            runner(cand)                       # warm-up / build
+            times = []
+            for _ in range(max(reps, 1)):
+                t0 = timer()
+                runner(cand)
+                times.append(timer() - t0)
+            us = sorted(times)[len(times) // 2] * 1e6
+        except Exception:                      # noqa: BLE001 — an invalid
+            continue                           # candidate just loses
+        if best is None or us < best[0]:
+            best = (us, cand)
+    if best is None:
+        raise ValueError("no candidate shape ran successfully")
+    us, cand = best
+    entry = dict(cand)
+    entry["us"] = round(us, 3)
+    _CACHE.put(backend, kind, Q, N, W, lanes, entry, persist=persist)
+    return entry
+
+
+def topk_candidates(Q: int, N: int, W: int, lanes: int,
+                    backend: str | None = None) -> list[dict]:
+    """Candidate (bq, bn, sub) shapes for ``measure`` around the static
+    heuristic: the default itself plus halved/doubled bn and sub variants,
+    sanitized and deduplicated."""
+    backend = backend or device_mod.default_backend()
+    bq, bn, sub = _topk_blocks_default(Q, N, W, lanes, backend)
+    raw = [(bq, bn, sub), (bq, bn * 2, sub), (bq, max(bn // 2, sub), sub),
+           (bq, bn, max(sub // 2, _SUBLANE)),
+           (max(bq // 2, _SUBLANE), bn, sub)]
+    out, seen = [], set()
+    for cand in raw:
+        ok = _sane_topk_entry(dict(zip(("bq", "bn", "sub"), cand)), N)
+        if ok and ok not in seen:
+            seen.add(ok)
+            out.append(dict(zip(("bq", "bn", "sub"), ok)))
+    return out
+
+
+def approx_blocks(Q: int, N: int, W: int,
+                  backend: str | None = None) -> int:
+    """Data-block rows ``bn`` for the approximate partial-reduce select
+    (``kernels/approx_select.py``): each block's (Q, bn) score tile is
+    reduced to L candidates before the merge. The seeded default targets
+    the backend's block count with a lane-aligned floor and its bn cap
+    (``_APPROX_BLOCKS``); a measured cache entry (kind="approx") overrides
+    it."""
+    backend = backend or device_mod.default_backend()
+    ent = _CACHE.get(backend, "approx", Q, N, W, 1)
+    if ent is not None:
+        try:
+            bn = int(ent["bn"])
+        except (KeyError, TypeError, ValueError):
+            bn = 0
+        if bn > 0:
+            return min(_round_up(bn, _LANE), 1 << 16)
+    blocks, cap = _APPROX_BLOCKS.get(backend, (32, 8192))
+    bn = _round_up(max(-(-max(N, 1) // blocks), _LANE), _LANE)
+    return min(bn, cap)
 
 
 def layout_blocks(Q: int, N: int, W: int, lanes: int, bucket_rows: int,

@@ -9,13 +9,33 @@ make the shared cache sound); each ``tick`` then decodes one token for
 every live slot. Requests that outlive ``deadline_ticks`` are evicted from
 the queue or their slot with a ``timed_out`` status.
 
-Transient search failures retry with bounded backoff, then fail over to
-retrieval-off decode (the last rung of the ladder). Not ported yet, and
-raising ``NotImplementedError``: the degradation policy's ladder
-(``degradation=``), which always adds approx rungs (ROADMAP queue 1 item
-9), datastore snapshots (``snapshot_dir``/``snapshot_every``), mutable
-stores and tenant arenas (queue 1 item 10), and the shard-fault-tolerance
-layer (``shard_search``, ``shard_axes``; queue 1 item 8).
+Degradation ladder (``DegradationPolicy``): under pressure (queue depth /
+per-tick latency EWMA) the server downshifts the retrieval QueryPlan one
+rung at a time —
+
+    rung 0: full exact plan
+    rung 1..m: masked hamming-prefix probe at decreasing nprobe
+               (requires a power-of-two bucket layout on the store)
+    approx rungs: the partial-reduce tier at recall_target 0.95, 0.9, 0.8
+    last rung: retrieval-off decode  (LM softmax only)
+
+— re-logging the active plan on every transition and recovering one rung
+per ``cooldown_ticks`` of calm. Transient search failures retry with
+bounded backoff, then try restoring the datastore from its last-good
+snapshot (``snapshot_dir``), then fail over to retrieval-off decode.
+
+A mutable store (core/mutable.py) attaches directly: the server serves one
+installed epoch per view, runs cooperative compaction + flush + periodic
+``audit()`` in ``_after_tick``, and admits online ``submit_append``/
+``submit_delete`` with shed-on-backpressure. A multi-tenant arena
+(core/tenant.py) attaches via ``tenants``: the same submit calls take a
+``tenant=`` and walk the per-tenant shed ladder (``quarantined``,
+``rate_limited``, ``quota_exceeded``, ``backlog_full``), and per-tenant
+counters land under ``stats()["tenants"]``.
+
+Not ported yet, and raising ``NotImplementedError``: the
+shard-fault-tolerance layer (``shard_search``, ``shard_axes``; ROADMAP
+queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -29,8 +49,10 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import retrieval as retrieval_mod
+from repro_torch.core import tenant as tenant_mod
 from repro_torch.dist import steps as steps_mod
 from repro_torch.models import lm
 from repro_torch.runtime import faults as faults_mod
@@ -41,15 +63,6 @@ QUEUED, ACTIVE, DONE, SHED, TIMED_OUT = (
     "queued", "active", "done", "shed", "timed_out")
 
 _UNPORTED_OPTIONS = {
-    "degradation": "the degradation ladder always adds the approx rungs, "
-                   "which are not ported yet: ROADMAP queue 1 item 9",
-    "snapshot_dir": "datastore snapshots are not ported yet: ROADMAP queue "
-                    "1 item 10",
-    "snapshot_every": "datastore snapshots are not ported yet: ROADMAP "
-                      "queue 1 item 10",
-    "audit_every": "mutable stores are not ported yet: ROADMAP queue 1 "
-                   "item 10",
-    "tenants": "tenant arenas are not ported yet: ROADMAP queue 1 item 10",
     "shard_search": "shard fault tolerance is not ported yet: ROADMAP "
                     "queue 1 item 8",
     "shard_axes": "sharded retrieval is not ported yet: ROADMAP queue 1 "
@@ -86,7 +99,7 @@ class Rung:
     retrieval: bool
     nprobe: int = 0             # 0 with retrieval -> the full exact plan
     select: str = ""            # "" -> the config's plan; "approx" -> the
-                                # compute-bound partial-reduce tier
+                                # partial-reduce tier
     recall_target: float = 1.0  # approx rung only: degraded recall floor
 
 
@@ -133,38 +146,51 @@ class DegradationPolicy:
 
 class Server:
     def __init__(self, cfg: ModelConfig, model: lm.LM, *, max_batch: int,
-                 max_len: int, store: Optional[retrieval_mod.DataStore] = None,
-                 device=None, shard_axes=(), max_queue: Optional[int] = None,
+                 max_len: int, store=None, device=None, shard_axes=(),
+                 max_queue: Optional[int] = None,
                  default_deadline_ticks: Optional[int] = None,
                  degradation: Optional[DegradationPolicy] = None,
                  fault_injector: Optional[faults_mod.FaultInjector] = None,
                  search_retries: int = 2, retry_backoff_s: float = 1e-3,
                  snapshot_dir: Optional[str] = None,
                  snapshot_every: Optional[int] = None,
-                 audit_every: Optional[int] = None, tenants=None,
+                 audit_every: Optional[int] = None,
+                 mutate_flush_every: int = 4,
+                 tenants: Optional[tenant_mod.TenantArena] = None,
                  shard_search=None):
         self.device = device_mod.resolve(device)
-        unported = {"degradation": degradation, "snapshot_dir": snapshot_dir,
-                    "snapshot_every": snapshot_every,
-                    "audit_every": audit_every, "tenants": tenants,
-                    "shard_search": shard_search,
+        unported = {"shard_search": shard_search,
                     "shard_axes": tuple(shard_axes) or None}
         for name, value in unported.items():
             if value is not None:
                 raise NotImplementedError(f"Server({name}=...): "
                                           f"{_UNPORTED_OPTIONS[name]}")
-        if store is not None and hasattr(store, "datastore_view"):
-            raise NotImplementedError(_UNPORTED_OPTIONS["audit_every"])
         if not device_mod.same(model.device, self.device):
             raise ValueError(f"the model is on {model.device}, the server "
                              f"runs on {self.device}")
+        self.cfg, self.model = cfg, model
+        self.max_batch, self.max_len = max_batch, max_len
+        # a MutableStore (core/mutable.py) serves through its installed
+        # epoch: ``self.store`` is always a plain DataStore VIEW of one
+        # epoch (refreshed in _after_tick when a newer epoch installs), so
+        # the decode path never observes a half-mutated arena
+        self.mstore = None
+        self._store_epoch = -1
+        if store is not None and hasattr(store, "datastore_view"):
+            self.mstore = store
+            store = store.datastore_view()
+            self._store_epoch = self.mstore.epoch_seq
         if store is not None and not device_mod.same(store.codes.device,
                                                      self.device):
             raise ValueError(f"the store is on {store.codes.device}, the "
                              f"server runs on {self.device}")
-        self.cfg, self.model = cfg, model
-        self.max_batch, self.max_len = max_batch, max_len
         self.store = store
+        self.audit_every = audit_every
+        self.mutate_flush_every = mutate_flush_every
+        self.tenants = tenants
+        self.tenant_counters: Dict[str, collections.Counter] = (
+            collections.defaultdict(collections.Counter))
+        self._tenant_tick_mut: Dict[str, int] = {}
         self.with_retrieval = cfg.retrieval.enabled and store is not None
         self.max_queue = max_queue
         self.default_deadline_ticks = default_deadline_ticks
@@ -172,6 +198,8 @@ class Server:
         self.faults = fault_injector
         self.search_retries = search_retries
         self.retry_backoff_s = retry_backoff_s
+        self.snapshot_dir = snapshot_dir
+        self.snapshot_every = snapshot_every
         # resolve and log the retrieval QueryPlan once per store at startup
         self.retrieval_plan = None
         if self.with_retrieval:
@@ -195,23 +223,61 @@ class Server:
         self.tick_s: List[float] = []
         self.token_lat_s: List[float] = []
         self.queue_wait_ticks: List[int] = []
+        if (self.with_retrieval and snapshot_dir is not None
+                and self.mstore is None):
+            # last-good snapshot baseline: written before serving starts,
+            # so a corrupted store always has something to fall back to
+            # (a MutableStore snapshots into its own root at create time)
+            ckpt.save(snapshot_dir, 0, self.store, blocking=True)
+            self.counters["snapshot_saves"] += 1
 
     # -- degradation ladder -----------------------------------------------
 
     def _build_ladder(self) -> List[Rung]:
         if not self.with_retrieval:
             return [Rung("decode", False, 0)]
-        return [Rung("exact", True, 0), Rung("retrieval_off", False, 0)]
+        rungs = [Rung("exact", True, 0)]
+        self._probe_positions = None
+        if self.policy is not None and self.store.layout is not None:
+            self._probe_positions = retrieval_mod.probe_key_positions(
+                self.store, self.cfg.retrieval)
+            if self._probe_positions is not None:
+                B = self.store.layout.n_buckets
+                nprobes = sorted({max(1, B // 4), max(1, B // 16)},
+                                 reverse=True)
+                rungs += [Rung(f"probe{n}", True, n)
+                          for n in nprobes if n < B]
+        if self.policy is not None:
+            # the last rungs that still retrieve: the approx tier at three
+            # decreasing recall targets, walked one rung per pressured tick
+            rungs += [Rung(f"approx_rt{int(rt * 100)}", True, 0,
+                           select="approx", recall_target=rt)
+                      for rt in (0.95, 0.9, 0.8)]
+        rungs.append(Rung("retrieval_off", False, 0))
+        return rungs
 
     def _rung_fn(self, r: Rung):
         if r not in self._fns:
             self._fns[r] = steps_mod.make_serve_step(
-                self.cfg, self.max_len, with_retrieval=r.retrieval)
+                self.cfg, self.max_len, with_retrieval=r.retrieval,
+                nprobe=r.nprobe,
+                probe_positions=(self._probe_positions if r.nprobe else None),
+                select=r.select or None,
+                recall_target=(r.recall_target if r.select == "approx"
+                               else None))
         return self._fns[r]
 
     def _rung_plan_str(self, r: Rung) -> str:
         if not r.retrieval:
             return "retrieval_off"
+        if r.select == "approx":
+            return retrieval_mod.plan_for_store(
+                self.store, self.cfg.retrieval, self.max_batch,
+                select="approx", recall_target=r.recall_target).compact()
+        if r.nprobe:
+            return retrieval_mod.degraded_plan_for_store(
+                self.store, self.cfg.retrieval, self.max_batch,
+                r.nprobe).compact()
         return (self.retrieval_plan.compact()
                 if self.retrieval_plan is not None else "exact")
 
@@ -238,9 +304,9 @@ class Server:
 
     def _guarded_step(self, token: np.ndarray, active: np.ndarray):
         """One decode step at the current rung with the failure ladder:
-        bounded retry-with-backoff -> retrieval-off failover. The
-        injector's check sits BEFORE the step, so a failed attempt never
-        half-advanced the decode state."""
+        bounded retry-with-backoff -> last-good snapshot restore ->
+        retrieval-off failover. The injector's check sits BEFORE the step,
+        so a failed attempt never half-advanced the decode state."""
         r = self.rungs[self.rung]
         inj = self.faults
 
@@ -258,11 +324,216 @@ class Server:
                 backoff_s=self.retry_backoff_s, on_retry=count_retry)
         except faults_mod.TRANSIENT:
             self.counters["search_failures"] += 1
+        if self.snapshot_dir is not None and self._restore_store_snapshot():
+            try:
+                if inj is not None:
+                    inj.check("store_search")
+                return self._step(token, active, r)
+            except faults_mod.TRANSIENT:
+                self.counters["search_failures"] += 1
         # the search is unavailable this tick: decode without retrieval
         # rather than stalling every slot
         self.counters["failover_ticks"] += 1
         self._set_rung(len(self.rungs) - 1, "search failover")
         return self._step(token, active, self.rungs[self.rung])
+
+    # -- snapshots ----------------------------------------------------------
+
+    def _restore_store_snapshot(self) -> bool:
+        if self.mstore is not None:
+            # an installed epoch is immutable — there is no mid-process
+            # corruption to roll back; durability lives in the store's own
+            # WAL + snapshots (MutableStore.recover)
+            return False
+        inj = self.faults
+
+        def load():
+            if inj is not None:
+                inj.check("ckpt_restore")
+            return ckpt.restore_latest(self.snapshot_dir, self.store)
+
+        try:
+            step, tree = faults_mod.retry_call(
+                load, retries=self.search_retries,
+                backoff_s=self.retry_backoff_s)
+        except faults_mod.TRANSIENT:
+            self.counters["snapshot_restore_failures"] += 1
+            return False
+        if tree is None:
+            return False
+        self.store = tree
+        self.counters["snapshot_restores"] += 1
+        log.info("datastore restored from snapshot step %s", step)
+        return True
+
+    def _save_store_snapshot(self):
+        if self.mstore is not None:
+            if self.mstore.root is None:
+                return
+            try:
+                self.mstore.snapshot()
+                self.counters["snapshot_saves"] += 1
+            except faults_mod.TRANSIENT:
+                self.counters["snapshot_save_failures"] += 1
+            return
+        hook = self.faults.hook("ckpt_save") if self.faults else None
+        try:
+            ckpt.save(self.snapshot_dir, self.ticks, self.store,
+                      blocking=True, fault_hook=hook)
+            self.counters["snapshot_saves"] += 1
+            # sweeps crashed .tmp dirs along with old committed steps
+            ckpt.garbage_collect(self.snapshot_dir, keep=2)
+        except faults_mod.TRANSIENT:
+            self.counters["snapshot_save_failures"] += 1
+
+    # -- mutation admission (mutable stores, tenants) -----------------------
+
+    def _tenant_shed_reason(self, tid: str, n: int,
+                            is_append: bool) -> Optional[str]:
+        """The per-tenant admission ladder, most to least absolute:
+        quarantined -> rate_limited -> quota_exceeded -> backlog_full.
+        Deletes skip the capacity reasons — they relieve pressure."""
+        t = self.tenants.tenants[tid]
+        if t.status != tenant_mod.HEALTHY:
+            return "quarantined"
+        lim = t.quota.max_mutations_per_tick
+        if lim is not None and self._tenant_tick_mut.get(tid, 0) + n > lim:
+            return "rate_limited"
+        return self.tenants.admission_check(tid, n) if is_append else None
+
+    def _tenant_mutate(self, tid: str, n: int, is_append: bool, fn) -> bool:
+        tc = self.tenant_counters[tid]
+        reason = self._tenant_shed_reason(tid, n, is_append)
+        if reason is not None:
+            tc["mutations_shed"] += n
+            tc["shed_" + reason] += n
+            self.counters["mutations_shed"] += n
+            return False
+        try:
+            fn()
+        except faults_mod.TRANSIENT:
+            tc["mutation_failures"] += 1
+            self.counters["mutation_failures"] += 1
+            return False
+        self._tenant_tick_mut[tid] = self._tenant_tick_mut.get(tid, 0) + n
+        tc["mutations_applied"] += n
+        self.counters["mutations_applied"] += n
+        return True
+
+    def tenant_search(self, queries, k: int):
+        """Mixed-tenant batched search through the packed arena (one K1 +
+        one K2 launch for the whole batch), with the same bounded retry
+        the decode-path search gets."""
+        if self.tenants is None:
+            raise ValueError("no tenant arena attached")
+
+        def attempt():
+            if self.faults is not None:
+                self.faults.check("store_search")
+            return self.tenants.search(queries, k)
+
+        try:
+            res = faults_mod.retry_call(attempt, retries=self.search_retries,
+                                        backoff_s=self.retry_backoff_s)
+        except faults_mod.TRANSIENT:
+            self.counters["search_failures"] += 1
+            raise
+        for tid in queries:
+            self.tenant_counters[tid]["searches"] += 1
+        return res
+
+    def _need_mstore(self):
+        if self.mstore is None:
+            raise ValueError("no mutable store attached")
+        return self.mstore
+
+    def submit_append(self, codes, values=None, tenant=None) -> bool:
+        """Admit an online append to the mutable store. SHED (False) when
+        compaction has fallen behind (``mutations_shed`` in stats()).
+        False also means NOT acknowledged: a WAL fault before the fsync
+        sheds rather than acks. With ``tenant``, admission walks the
+        per-tenant ladder against that tenant's quota instead."""
+        n = int(np.atleast_2d(np.asarray(codes)).shape[0])
+        if tenant is not None:
+            return self._tenant_mutate(
+                tenant, n, True,
+                lambda: self.tenants.append(tenant, codes, values=values))
+        m = self._need_mstore()
+        if m.backlog_full:
+            self.counters["mutations_shed"] += n
+            return False
+        try:
+            m.append(codes, values=values)
+        except faults_mod.TRANSIENT:
+            self.counters["mutation_failures"] += 1
+            return False
+        self.counters["mutations_applied"] += n
+        return True
+
+    def submit_delete(self, ids, tenant=None) -> bool:
+        n = int(np.atleast_1d(np.asarray(ids)).shape[0])
+        if tenant is not None:
+            return self._tenant_mutate(
+                tenant, n, False,
+                lambda: self.tenants.delete(tenant, ids))
+        m = self._need_mstore()
+        if m.backlog_full:
+            self.counters["mutations_shed"] += n
+            return False
+        try:
+            m.delete(ids)
+        except faults_mod.TRANSIENT:
+            self.counters["mutation_failures"] += 1
+            return False
+        self.counters["mutations_applied"] += n
+        return True
+
+    def _store_maintenance(self):
+        """Per-tick mutable-store lifecycle: cooperative compaction, epoch
+        install for pending mutations, view refresh, periodic audit. Every
+        step is fault-guarded — an injected crash retries next tick."""
+        m = self.mstore
+        try:
+            if m.maybe_compact():
+                self.counters["compactions"] += 1
+        except faults_mod.TRANSIENT:
+            self.counters["compact_failures"] += 1
+        if (m.pending_mutations
+                and self.ticks % self.mutate_flush_every == 0):
+            try:
+                m.flush()
+            except faults_mod.TRANSIENT:
+                self.counters["flush_failures"] += 1
+        if m.epoch_seq != self._store_epoch:
+            self._store_epoch = m.epoch_seq
+            self.store = m.datastore_view()
+        if self.audit_every and self.ticks % self.audit_every == 0:
+            self.counters["audits"] += 1
+            report = m.audit(strict=False)
+            if not report["ok"]:
+                self.counters["audit_failures"] += 1
+                log.error("store audit FAILED: %s", report["problems"])
+
+    def _tenant_maintenance(self):
+        """Per-tick multi-tenant lifecycle: refresh every tenant's rate
+        budget, run quota-aware cooperative maintenance (deepest backlog
+        compacts first, bounded per tick), periodic snapshots per
+        namespace. Per-tenant failures are contained by the arena."""
+        self._tenant_tick_mut = {}
+        rep = self.tenants.maintain(
+            compact_budget=1,
+            flush=(self.ticks % self.mutate_flush_every == 0))
+        self.counters["compactions"] += len(rep["compacted"])
+        for tid in rep["failed"]:
+            self.tenant_counters[tid]["maintenance_failures"] += 1
+        if (self.snapshot_every and self.tenants.root is not None
+                and self.ticks % self.snapshot_every == 0):
+            for tid, step in self.tenants.snapshot().items():
+                if step < 0:
+                    self.tenant_counters[tid]["snapshot_save_failures"] += 1
+                    self.counters["snapshot_save_failures"] += 1
+                else:
+                    self.counters["snapshot_saves"] += 1
 
     # -- admission / eviction ---------------------------------------------
 
@@ -382,6 +653,10 @@ class Server:
             self.tick_s.append(dt)
             if self.rung > 0:
                 self.counters["degraded_ticks"] += 1
+        if self.mstore is not None:
+            self._store_maintenance()
+        if self.tenants is not None:
+            self._tenant_maintenance()
         if self.policy is not None and len(self.rungs) > 1:
             new = self.policy.update(self.rung, len(self.rungs),
                                      len(self.waiting), dt)
@@ -389,6 +664,10 @@ class Server:
                 why = (f"queue={len(self.waiting)} "
                        f"ewma={self.policy.ewma_s * 1e3:.1f}ms")
                 self._set_rung(new, why)
+        if (self.snapshot_dir is not None and self.snapshot_every
+                and self.with_retrieval
+                and self.ticks % self.snapshot_every == 0):
+            self._save_store_snapshot()
 
     @property
     def has_work(self) -> bool:
@@ -405,8 +684,7 @@ class Server:
     def stats(self) -> dict:
         """Outcome counters + latency percentiles; ``lost`` MUST be 0 —
         every submitted request is done, shed, timed out, or still in
-        flight. The keys are ``repro``'s for a static store (its snapshot
-        and mutable-store counters stay 0 here)."""
+        flight. The keys are ``repro``'s (its shard keys aside)."""
         c = self.counters
         in_flight = sum(s is not None for s in self.slots) + len(self.waiting)
 
@@ -445,11 +723,27 @@ class Server:
             "mutations_applied": c["mutations_applied"],
             "mutations_shed": c["mutations_shed"],
             "mutation_failures": c["mutation_failures"],
-            "pending_mutations": 0,
-            "store_epoch": -1,
+            "pending_mutations": (self.mstore.pending_mutations
+                                  if self.mstore is not None else 0),
+            "store_epoch": (self.mstore.epoch_seq
+                            if self.mstore is not None else -1),
             "compactions": c["compactions"],
             "compact_failures": c["compact_failures"],
             "flush_failures": c["flush_failures"],
             "audits": c["audits"],
             "audit_failures": c["audit_failures"],
+            **self._tenant_stats(),
         }
+
+    def _tenant_stats(self) -> dict:
+        if self.tenants is None:
+            return {}
+        t = self.tenants.stats()
+        per = t["tenants"]
+        for tid, row in per.items():
+            row.update(self.tenant_counters.get(tid, {}))
+        return {"tenants": per,
+                "n_tenants": t["n_tenants"],
+                "n_quarantined": t["n_quarantined"],
+                "packed_seq": t["packed_seq"],
+                "packed_rows": t["packed_rows"]}

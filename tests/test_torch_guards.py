@@ -56,7 +56,10 @@ def test_the_scan_covers_every_module_of_the_port():
     for mod in ("configs/base.py", "kernels/flash_attention.py",
                 "models/lm.py", "core/retrieval.py", "runtime/server.py",
                 "runtime/faults.py", "dist/steps.py", "launch/serve.py",
-                "kernels/hamming.py", "core/index.py"):
+                "kernels/hamming.py", "core/index.py",
+                "kernels/approx_select.py", "checkpoint/wal.py",
+                "checkpoint/manager.py", "core/mutable.py",
+                "core/tenant.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
@@ -95,6 +98,23 @@ def test_serving_entry_points_raise_without_a_device():
                  lambda: serve.main(["--arch", "gemma-2b", "--scaled"]),
                  lambda: steps.make_prefill_step(cfg, 16,
                                                  attn_impl="flash")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_store_entry_points_raise_without_a_device(tmp_path):
+    """The mutable store, its recovery and the tenant arena put their
+    epochs on CUDA unless given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the entry points would run")
+    from repro_torch.core import mutable, tenant
+
+    codes = np.zeros((4, 2), np.uint32)
+    mutable.MutableStore.create(codes, 64, root=str(tmp_path), device="cpu")
+    for call in (lambda: mutable.MutableStore.create(codes, 64),
+                 lambda: mutable.MutableStore.recover(str(tmp_path)),
+                 lambda: tenant.TenantArena(64),
+                 lambda: tenant.TenantArena.recover(64, str(tmp_path))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

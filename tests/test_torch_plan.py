@@ -97,24 +97,30 @@ def test_bad_requests_raise_like_reference():
 
 
 def test_unported_paths_raise_not_implemented():
-    """The approximate tier and sharded plans name their ROADMAP queue
-    instead of quietly running another path; K3 (method='pallas') and
-    gather candidates, ported since, run and agree with the reference."""
+    """Sharded plans name their ROADMAP queue instead of quietly running
+    another path; the approximate tier, K3 (method='pallas') and gather
+    candidates, ported since, run and agree with the reference."""
     stats = tplan.StoreStats(**FLAT)
     rng = np.random.default_rng(0)
     qn = rng.integers(0, 1 << 32, (2, 4), dtype=np.uint32)
     cn = rng.integers(0, 1 << 32, (64, 4), dtype=np.uint32)
     q = torch.from_numpy(qn.view(np.int32))
     codes = torch.from_numpy(cn.view(np.int32))
-    approx = tplan.plan_local(stats, 4, select="approx")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tplan.execute(approx, q, codes=codes)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        approx.explain()
+    jstats = jplan.StoreStats(**FLAT)
+    for rt in (1.0, 0.5):
+        approx = tplan.plan_local(stats, 4, select="approx",
+                                  recall_target=rt)
+        ref = jplan.execute(jplan.plan_local(jstats, 4, select="approx",
+                                             recall_target=rt),
+                            jnp.asarray(qn), codes=jnp.asarray(cn))
+        out = tplan.execute(approx, q, codes=codes)
+        assert np.array_equal(out[0].numpy(), np.asarray(ref[0]))
+        assert np.array_equal(out[1].numpy(), np.asarray(ref[1]))
+        assert approx.explain()["geometry"]["kind"] == "approx"
     masked_approx = tplan.plan_index(tplan.StoreStats(**LAY), 4,
                                      kind="kmeans", select="approx")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tplan.execute(masked_approx, q, layout=object())
+    with pytest.raises(ValueError, match="pruning stats"):
+        tplan.execute(masked_approx, q, layout=object(), return_stats=True)
     sharded = dataclasses.replace(
         tplan.plan_local(stats, 4), merge=tplan.MergeStage(kind="sharded"))
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
@@ -170,10 +176,9 @@ def test_plan_index_matches_reference(kind, stats_kw, kw):
     for stage in ("probe", "candidates", "select", "merge"):
         assert dataclasses.asdict(getattr(tp, stage)) == dataclasses.asdict(
             getattr(jp, stage)), stage
-    if tp.select.path != "approx":
-        je, te = jp.explain(), tp.explain()
-        for key in ("geometry", "predicted_pruning", "stages", "compact"):
-            assert te[key] == je[key], key
+    je, te = jp.explain(), tp.explain()
+    for key in ("geometry", "predicted_pruning", "stages", "compact"):
+        assert te[key] == je[key], key
 
 
 @pytest.mark.parametrize("force", [

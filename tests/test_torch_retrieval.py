@@ -191,19 +191,26 @@ def test_synthetic_datastore_and_logged_plan(caplog):
 
 
 def test_unported_retrieval_paths_raise(stores):
-    """Sharded plans and the approx tier still name their queue; the
-    degraded probe calls, ported since, run and agree with repro."""
+    """Sharded plans still name their queue; the degraded probe calls and
+    the approx tier, ported since, run and agree with repro."""
     jc, tc = _cfgs(code_bits=64)
     js, ts = stores["hamming_prefix"]
     hid = torch.zeros((2, 128))
-    calls = [
-        lambda: tret.plan_for_store(ts, tc.retrieval, 2, mesh=object(),
-                                    axes=("data",)),
-        lambda: tret.knn_logits(ts, hid, tc.retrieval, 512, select="approx"),
-    ]
-    for call, queue in zip(calls, ("item 8", "item 9")):
-        with pytest.raises(NotImplementedError, match=queue):
-            call()
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tret.plan_for_store(ts, tc.retrieval, 2, mesh=object(),
+                            axes=("data",))
+    hid_np = np.random.default_rng(4).standard_normal((3, 128)).astype(
+        np.float32)
+    for rt in (0.8, 1.0):
+        out = tret.knn_logits(ts, torch.from_numpy(hid_np), tc.retrieval,
+                              512, select="approx", recall_target=rt)
+        ref = jret.knn_logits(js, jnp.asarray(hid_np), jc.retrieval, 512,
+                              select="approx", recall_target=rt)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+        assert (tret.plan_for_store(ts, tc.retrieval, 3, select="approx",
+                                    recall_target=rt).compact()
+                == jret.plan_for_store(js, jc.retrieval, 3, select="approx",
+                                       recall_target=rt).compact())
     pos = tret.probe_key_positions(ts, tc.retrieval)
     assert np.array_equal(pos.numpy(), np.asarray(
         jret.probe_key_positions(js, jc.retrieval)))

@@ -21,6 +21,8 @@ from repro import compat
 from repro.configs import get_config as jget_config
 from repro.configs import scaled_down as jscaled_down
 from repro.core import layout as jlay
+from repro.core import mutable as jmut
+from repro.core import tenant as jten
 from repro.core import retrieval as jret
 from repro.dist import steps as jsteps
 from repro.models import lm as jlm
@@ -28,7 +30,9 @@ from repro.runtime import faults as jfaults
 from repro.runtime import server as jserver
 from repro_torch import carry
 from repro_torch.configs import get_config, scaled_down
+from repro_torch.core import mutable as tmut
 from repro_torch.core import retrieval as tret
+from repro_torch.core import tenant as tten
 from repro_torch.dist import steps
 from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as tlm
@@ -121,15 +125,18 @@ def test_deadlines_and_queue_shedding_match_reference(env):
 
 
 def test_serve_step_is_memoized_and_degraded_variants_raise(env):
-    """The approx variant still raises; the degraded probe variant, ported
-    since, is memoized on its probe positions and its step's logits agree
-    with repro's on a carried hamming-prefix store."""
+    """The degraded variants are memoized: the probe variant on its probe
+    positions, the approx variant on its recall target; both steps' logits
+    agree with repro's on a carried hamming-prefix store."""
     jc, tc, params, model, store, _, corpus, mesh = env
     fn = steps.make_serve_step(tc, 16)
     assert steps.make_serve_step(tc, 16) is fn
     assert steps.make_serve_step(tc, 16, with_retrieval=False) is not fn
-    with pytest.raises(NotImplementedError, match="item 9"):
-        steps.make_serve_step(tc, 16, select="approx", recall_target=0.9)
+    afn = steps.make_serve_step(tc, 16, select="approx", recall_target=0.9)
+    assert afn is not fn and steps.make_serve_step(
+        tc, 16, select="approx", recall_target=0.9) is afn
+    assert steps.make_serve_step(tc, 16, select="approx",
+                                 recall_target=0.8) is not afn
     jstore = store._replace(layout=jlay.build_layout(
         store.codes, jc.retrieval.code_bits, n_buckets=8))
     tstore = carry.datastore(jax.tree_util.tree_map(np.asarray, jstore),
@@ -152,6 +159,17 @@ def test_serve_step_is_memoized_and_degraded_variants_raise(env):
     # f32: only the order of sums differs (tests/test_torch_models.py)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-5,
                                rtol=1e-5)
+    jafn, _, _ = jsteps.make_serve_step(jc, mesh, 16, select="approx",
+                                        recall_target=0.8)
+    tafn = steps.make_serve_step(tc, 16, select="approx", recall_target=0.8)
+    jl, _ = jafn(params, jnp.asarray(token),
+                 jlm.init_decode_state(jc, 2, 16), jnp.ones((2,), bool),
+                 jstore)
+    tl, _ = tafn(model, torch.from_numpy(token),
+                 tlm.init_decode_state(tc, 2, 16, device="cpu"),
+                 torch.ones(2, dtype=torch.bool), tstore)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-5,
+                               rtol=1e-5)
 
 
 def test_prefill_step_matches_reference_prefill(env):
@@ -167,11 +185,6 @@ def test_prefill_step_matches_reference_prefill(env):
 
 
 @pytest.mark.parametrize("option,value,queue", [
-    ("degradation", tserver.DegradationPolicy(), "item 9"),
-    ("snapshot_dir", "/nonexistent", "item 10"),
-    ("snapshot_every", 4, "item 10"),
-    ("audit_every", 4, "item 10"),
-    ("tenants", object(), "item 10"),
     ("shard_search", object(), "item 8"),
     ("shard_axes", ("data",), "item 8"),
 ])
@@ -182,15 +195,49 @@ def test_unported_server_options_raise(env, option, value, queue):
                        device="cpu", **{option: value})
 
 
-def test_mutable_store_raises(env):
-    tc, model, tstore = env[1], env[3], env[5]
-
-    class Mutable:
-        def datastore_view(self):
-            return tstore
-
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tserver.Server(tc, model, max_batch=1, max_len=8, store=Mutable(),
+def test_mutable_store_raises(env, tmp_path):
+    """A MutableStore attaches (ported since): both servers serve its
+    epoch, take the same online appends and deletes between ticks,
+    compact, flush, audit and snapshot alike; tokens and stats() agree.
+    A store on another device than the server's still raises."""
+    jc, tc, params, model, store, tstore, corpus, mesh = env
+    d = jc.retrieval.code_bits
+    codes = np.asarray(store.codes)
+    values = np.asarray(store.values)
+    jm = jmut.MutableStore.create(codes[:300], d, values=values[:300],
+                                  n_buckets=8, itq=store.itq,
+                                  root=str(tmp_path / "j"), slack_frac=0.1)
+    tm = tmut.MutableStore.create(codes[:300], d, values=values[:300],
+                                  n_buckets=8, itq=tstore.itq,
+                                  root=str(tmp_path / "t"), slack_frac=0.1,
+                                  device="cpu")
+    servers = [jserver.Server(jc, mesh, params, max_batch=2, max_len=24,
+                              store=jm, audit_every=3, snapshot_every=5,
+                              snapshot_dir=str(tmp_path / "unused")),
+               tserver.Server(tc, model, max_batch=2, max_len=24, store=tm,
+                              device="cpu", audit_every=3, snapshot_every=5,
+                              snapshot_dir=str(tmp_path / "unused"))]
+    for srv, mod in zip(servers, (jserver, tserver)):
+        for req in _requests(mod, corpus):
+            srv.submit(req)
+        rng = np.random.default_rng(5)
+        row = 300
+        while srv.has_work and srv.ticks < 200:
+            if srv.ticks % 2 == 0 and row < codes.shape[0] - 20:
+                assert srv.submit_append(codes[row:row + 20],
+                                         values=values[row:row + 20])
+                assert srv.submit_delete(rng.choice(row, 7, replace=False))
+                row += 20
+            srv.tick()
+    _assert_same(*servers)
+    st = servers[1].stats()
+    assert st["mutations_applied"] > 0 and st["audits"] > 0
+    assert st["audit_failures"] == 0 and st["store_epoch"] > 1
+    assert jm.epoch.checksum == tm.epoch.checksum
+    other = tmut.MutableStore.create(codes[:50], d, itq=tstore.itq,
+                                     device="meta")
+    with pytest.raises(ValueError, match="the store is on"):
+        tserver.Server(tc, model, max_batch=1, max_len=8, store=other,
                        device="cpu")
 
 
@@ -213,3 +260,145 @@ def test_launcher_scaled_on_cpu(capsys):
     assert srv.stats()["done"] == 3 and srv.stats()["lost"] == 0
     assert "served 3/3 requests" in capsys.readouterr().out
     assert dataclasses.replace(srv.cfg) == scaled_down(get_config("gemma-2b"))
+
+
+def _layout_env(env, n_buckets=16):
+    jc, tc, params, model, store, _, corpus, mesh = env
+    jstore = store._replace(layout=jlay.build_layout(
+        store.codes, jc.retrieval.code_bits, n_buckets=n_buckets))
+    tstore = carry.datastore(jax.tree_util.tree_map(np.asarray, jstore),
+                             device="cpu")
+    return jc, tc, params, model, jstore, tstore, corpus, mesh
+
+
+def _transitions(srv):
+    return [t[:3] for t in srv.transitions]
+
+
+def test_degradation_ladder_walk_matches_reference(env):
+    """Under the same DegradationPolicy both servers build the same ladder
+    (exact, probe rungs, approx_rt95/90/80, retrieval_off), a burst walks
+    it all the way down, calm ticks walk it back up, and every served
+    token and counter agrees."""
+    lenv = _layout_env(env)
+    jc, tc, params, model, jstore, tstore, corpus, mesh = lenv
+
+    def policy(torch=False):
+        mod = tserver if torch else jserver
+        return mod.DegradationPolicy(queue_high=2, queue_low=0,
+                                     cooldown_ticks=2)
+
+    servers = []
+    for mod, make in ((jserver, lambda p: jserver.Server(
+            jc, mesh, params, max_batch=1, max_len=24, store=jstore,
+            degradation=p)),
+                      (tserver, lambda p: tserver.Server(
+            tc, model, max_batch=1, max_len=24, store=tstore, device="cpu",
+            degradation=p))):
+        srv = make(policy(torch=mod is tserver))
+        for i in range(12):
+            srv.submit(mod.Request(uid=i, prompt=corpus[i % 8, :2].copy(),
+                                   max_new_tokens=2))
+        srv.run(max_ticks=300)
+        uid = 100                       # calm ticks walk the ladder back
+        while srv.rung != 0 and srv.ticks < 400:
+            if not srv.has_work:
+                srv.submit(mod.Request(uid=uid, prompt=corpus[0, :1].copy(),
+                                       max_new_tokens=1))
+                uid += 1
+            srv.tick()
+        servers.append(srv)
+    js, ts = servers
+    names = [r.name for r in ts.rungs]
+    assert names == [r.name for r in js.rungs]
+    assert names[0] == "exact" and names[-1] == "retrieval_off"
+    assert names[-4:-1] == ["approx_rt95", "approx_rt90", "approx_rt80"]
+    assert any(n.startswith("probe") for n in names)
+    visited = {t[2] for t in ts.transitions} | {"exact"}
+    assert visited == set(names), ts.transitions
+    assert ts.rung == 0
+    assert _transitions(ts) == _transitions(js)
+    for r in ts.rungs:
+        assert ts._rung_plan_str(r) == js._rung_plan_str(r)
+    _assert_same(js, ts)
+
+
+def test_snapshot_restore_fallback_matches_reference(env, tmp_path):
+    """One injected search fault with no retries restores the store from
+    the last-good snapshot, written by each package at startup; the step
+    completes at the same rung, and periodic snapshots are saved."""
+    class OneShot:
+        """Raises once, on the first check of the search site."""
+
+        def __init__(self, mod):
+            self.mod = mod
+            self.inner = mod.FaultInjector(seed=0, p={})
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+        def check(self, site, tenant=None):
+            self.inner.check(site, tenant)
+            if site == "store_search" and self.inner.calls[site] == 1:
+                raise self.mod.InjectedFault(site)
+
+    js, ts = _serve_both(
+        env, max_batch=1, search_retries=0, snapshot_every=3,
+        fault_injector=lambda torch=False: OneShot(
+            tfaults if torch else jfaults),
+        snapshot_dir=lambda torch=False: str(
+            tmp_path / ("t" if torch else "j")))
+    _assert_same(js, ts)
+    s = ts.stats()
+    assert s["snapshot_restores"] == 1 and s["failover_ticks"] == 0
+    assert s["snapshot_saves"] > 1 and ts.transitions == []
+
+
+def test_tenant_arena_serving_matches_reference(env, tmp_path):
+    """A TenantArena attached to both servers: the per-tenant admission
+    ladder (quota, rate limit), maintenance, snapshots and tenant_search
+    agree with repro, and a mixed batch equals each tenant's own store."""
+    jc, tc, params, model, store, tstore, corpus, mesh = env
+    d = jc.retrieval.code_bits
+    codes = np.asarray(store.codes)
+    quota = {"a": dict(max_rows=140), "b": dict(max_mutations_per_tick=10)}
+    out = []
+    for mod, tmod in ((jserver, jten), (tserver, tten)):
+        kw = {} if mod is jserver else {"device": "cpu"}
+        arena = tmod.TenantArena(d, root=str(tmp_path / mod.__name__),
+                                 bn=64, slack_frac=0.1, **kw)
+        for tid, (lo, hi) in (("a", (0, 120)), ("b", (120, 200)),
+                              ("c", (200, 203))):
+            arena.create_tenant(tid, codes[lo:hi],
+                                quota=tmod.TenantQuota(**quota.get(tid, {})))
+        if mod is jserver:
+            srv = mod.Server(jc, mesh, params, max_batch=1, max_len=16,
+                             store=store, tenants=arena, snapshot_every=4)
+        else:
+            srv = mod.Server(tc, model, max_batch=1, max_len=16,
+                             store=tstore, tenants=arena, snapshot_every=4,
+                             device="cpu")
+        acks = []
+        for t in range(10):
+            acks.append(srv.submit_append(codes[200 + 8 * t:208 + 8 * t],
+                                          tenant="a"))
+            acks.append(srv.submit_append(codes[280 + 12 * t:292 + 12 * t],
+                                          tenant="b"))
+            acks.append(srv.submit_delete([t], tenant="c"))
+            srv.tick()
+        q = {"a": codes[400:405], "b": codes[405:413], "c": codes[413:415]}
+        out.append((acks, srv.tenant_search(q, 9), srv.stats(), arena, q))
+    (jacks, jres, jst, _, _), (tacks, tres, tst, tarena, q) = out
+    assert tacks == jacks and not all(tacks) and any(tacks)
+    for tid in q:
+        assert np.array_equal(tres[tid][0], jres[tid][0])
+        assert np.array_equal(tres[tid][1], jres[tid][1])
+        own = tarena.tenant(tid).store.search(q[tid], 9)
+        assert np.array_equal(own[0], tres[tid][0])
+        assert np.array_equal(own[1], tres[tid][1])
+    for key in ("mutations_applied", "mutations_shed", "compactions",
+                "snapshot_saves", "n_tenants", "packed_rows"):
+        assert tst[key] == jst[key], key
+    assert tst["tenants"].keys() == jst["tenants"].keys()
+    for tid in q:
+        assert tst["tenants"][tid] == jst["tenants"][tid], tid

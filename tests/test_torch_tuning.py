@@ -107,3 +107,59 @@ def test_corrupt_or_missing_cache_is_empty(tmp_path):
     assert len(mem) == 1 and not list(tmp_path.glob("*.tmp"))
     mem.clear()
     assert len(mem) == 0
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_topk_candidates_match_reference(empty_caches, backend):
+    for shape in SHAPES:
+        assert (ttuning.topk_candidates(*shape, backend=backend)
+                == jtuning.topk_candidates(*shape, backend=backend)), shape
+
+
+def test_approx_blocks_measured_entry_matches_reference(empty_caches):
+    """A measured approx entry overrides both packages' defaults alike, on
+    every backend row; the gpu default is the port's own row."""
+    for be in ("cpu", "tpu", "gpu"):
+        for pkg in (ttuning, jtuning):
+            pkg._CACHE.put(be, "approx", 64, 1 << 16, 4, 1,
+                           {"bn": 999, "us": 5.0}, persist=False)
+        assert (ttuning.approx_blocks(64, 1 << 16, 4, backend=be)
+                == jtuning.approx_blocks(64, 1 << 16, 4, backend=be) == 1024)
+        assert ttuning.hint_source(be, "approx", 64, 1 << 16, 4, 1) == \
+            "measured"
+    assert ttuning.approx_blocks(64, 1 << 20, 4, backend="gpu") == 1 << 15
+    assert ttuning.approx_blocks(64, 1 << 20, 4, backend="cpu") == 8192
+
+
+def test_measure_with_fake_timer_matches_reference(tmp_path, monkeypatch):
+    """The same fake clock picks the same winner in both packages, and
+    each writes an entry the other's cache reads back."""
+    cands = [{"bq": 16, "bn": 256, "sub": 64},
+             {"bq": 16, "bn": 512, "sub": 64},
+             {"bq": 16, "bn": 1024, "sub": 64},
+             {"bq": 0, "bn": 0, "sub": 0}]
+    out = {}
+    for name, pkg in (("t", ttuning), ("j", jtuning)):
+        monkeypatch.setattr(pkg, "_CACHE",
+                            pkg.AutotuneCache(str(tmp_path / f"{name}.json")))
+        t = [0.0]
+        calls = []
+
+        def runner(cand):
+            if not cand["bn"]:
+                raise ValueError("not a shape")
+            calls.append(dict(cand))
+            t[0] += 1e-6 if cand["bn"] == 512 else 1e-3
+
+        out[name] = pkg.measure(runner, cands, backend="gpu", kind="topk",
+                                Q=64, N=1 << 15, W=4, lanes=129,
+                                timer=lambda: t[0])
+        assert len(calls) == 4 * 3
+        assert pkg.topk_blocks(64, 1 << 15, 4, 129, backend="gpu") == (
+            16, 512, 64)
+    assert out["t"] == out["j"] and out["t"]["bn"] == 512
+    assert ((tmp_path / "t.json").read_text()
+            == (tmp_path / "j.json").read_text())
+    with pytest.raises(ValueError, match="no candidate"):
+        ttuning.measure(lambda c: 1 / 0, cands[:1], backend="gpu",
+                        kind="topk", Q=1, N=1, W=1, lanes=1, persist=False)
