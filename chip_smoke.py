@@ -52,7 +52,10 @@ kernel launch counts set to 0 just before it and read just after:
   approx_rt95, approx_rt90, approx_rt80, retrieval_off) down and calm
   ticks walk it back, every rung visited and nothing lost; a fault
   injector fails retrieval until the server restores its store from the
-  last snapshot. Each approx rung's retrieval is timed at batch 8. Then
+  last snapshot; the server's shard layer (a ``FaultTolerantSearch`` of
+  the store's codes) loses a unit mid-run, the server serves the degraded
+  view of the covered rows, and the revived unit brings the full store
+  back. Each approx rung's retrieval is timed at batch 8. Then
   the server serves a ``MutableStore`` of the same datastore (audited
   every 4 ticks) with a two-tenant arena attached, takes online appends
   and deletes between ticks, and answers a ``tenant_search`` equal to each
@@ -67,6 +70,23 @@ kernel launch counts set to 0 just before it and read just after:
   rows of its probed blocks on sampled queries, and ``asymmetric_topk``
   of the ITQ projections is timed with its recall against the exact
   Hamming search and the exact float neighbours.
+* sharded search — the first path's store over 4 gloo ranks, each a
+  process on the one card holding its 262,144-row slice
+  (``engine.shard_datastore``), through ``engine.search_sharded``:
+  hist_merge, hist_tree (fanout 2), concat_sort (k' = k and k' = 4),
+  reorder_local, uneven shards (300,000 / 262,144 / 250,000 / 236,432 rows
+  padded to a common slice), a dead shard, and the approx tier at recall
+  targets 1.0 and 0.9. Every exact case equals the single-device fused
+  search over the same rows (the surviving rows; the ranks' local_sort
+  layouts side by side for reorder_local) on all 4096 queries, with one K1
+  and one K2 launch per rank; per rank, the search and its phases (K1,
+  histogram all_reduce, counts all-gather, K2, output all_reduce) are
+  timed. Four ranks time-slice one card: this checks the merge and
+  measures its cost, not scaling. Then ``FaultTolerantSearch`` over the
+  same store (4 units at factor 2): healthy, units killed, injected
+  shard_hist / shard_emit / merge_psum faults, maintain() back to full
+  coverage and a cold revive, each answer equal to
+  ``reference_over_covered`` and an on-card brute force.
 * the mutable store — ``MutableStore.create`` over the first path's codes
   in a temporary root, 16 rounds of 4096 appends and 4096 deletes, flush,
   and one search (one K1 and one K2 launch) equal to a from-scratch
@@ -78,8 +98,8 @@ kernel launch counts set to 0 just before it and read just after:
   its own store's search, the run-split emit equal to the single-run one.
 
 Output: progress lines; ``main_path``, ``board_scan``, ``index_path``,
-``serving_path``, ``approx_path``, ``mutable_path`` and ``tenant_path``
-JSON lines;
+``sharded_path``, ``shard_faults``, ``serving_path``, ``approx_path``,
+``mutable_path`` and ``tenant_path`` JSON lines;
 a ``kernels`` JSON line (launches on the paths, error against the plain
 version, kernel / plain / library ms, and the bound: the least time for
 the operations or the HBM bytes, whichever is larger); the card's name and
@@ -93,6 +113,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import datetime
 import json
 import statistics
 import subprocess
@@ -112,8 +133,8 @@ from repro_torch import carry, device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import binary, index, layout, plan  # noqa: E402
 from repro_torch.core import quantize, retrieval, topk  # noqa: E402
-from repro_torch.core import mutable, tenant  # noqa: E402
-from repro_torch.dist import steps  # noqa: E402
+from repro_torch.core import engine, hierarchy, mutable, tenant  # noqa: E402
+from repro_torch.dist import search as dsearch, steps  # noqa: E402
 from repro_torch.kernels import _build, ops, tuning  # noqa: E402
 from repro_torch.kernels import approx_select  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -207,6 +228,20 @@ MUT_ROUNDS, MUT_BATCH = 16, 4096
 TENANT_SIZES = (314_573, 209_715, 157_287, 125_830, 104_857, 73_401,
                 62_906, 7)
 TENANT_BN = 1024
+# the sharded path: the main store over SHARD_RANKS gloo ranks, all on the
+# one card (NCCL puts one rank on one card; gloo takes CUDA tensors for
+# all_reduce, which every collective of the merge is built from). Uneven
+# shards hold these many rows of the store each, padded to the largest;
+# SHARD_DEAD is the dead shard of the participation case
+SHARD_RANKS, SHARD_AXES = 4, ("data",)
+SHARD_UNEVEN = (300_000, 262_144, 250_000, 236_432)
+SHARD_DEAD, SHARD_FANOUT, SHARD_KLOCAL = 2, 2, 4
+SHARD_APPROX_RT = (1.0, 0.9)
+SHARD_TIMED = 5
+SHARD_TIMEOUT_S = 300          # a rank's collectives, and the whole phase
+SHARD_PHASES = ("k1", "hist_reduce", "counts", "k2", "out_reduce")
+# the shard-fault-tolerance layer over the main store: units, replication
+FTS_UNITS, FTS_FACTOR = 4, 2
 
 
 def fail(msg: str) -> int:
@@ -1459,6 +1494,50 @@ class FailUntilRestored(faults.FaultInjector):
             raise faults.InjectedFault(site)
 
 
+def shard_loss_rung(srv, fts, submit):
+    """The ladder's shard-loss rung: the server's shard layer loses unit1
+    mid-run, so the server serves the degraded view of the covered rows;
+    then unit1 comes back with its data and maintain() returns the full
+    store. Nothing is lost."""
+    before = srv.stats()
+    for _ in range(SERVE_BATCH):
+        submit(2)
+    srv.tick()
+    fts.kill("unit1")
+    degraded_ticks = 0
+    for _ in range(3):
+        srv.tick()
+        if (srv.store is not srv._full_store and srv.store.codes.shape[0]
+                == fts.coverage().covered_rows):
+            degraded_ticks += 1
+    mid = srv.stats()
+    fts.revive("unit1", with_data=True)
+    submit(2)
+    srv.run(max_ticks=srv.ticks + 200)
+    st = srv.stats()
+    losses = st["shard_losses"] - before["shard_losses"]
+    recoveries = st["shard_recoveries"] - before["shard_recoveries"]
+    if (degraded_ticks < 1 or losses < 1 or recoveries < 1 or st["lost"]
+            or srv.store is not srv._full_store
+            or st["coverage_frac"] != 1.0):
+        raise AssertionError(f"shard-loss rung: {degraded_ticks} degraded "
+                             f"ticks, losses {losses}, recoveries "
+                             f"{recoveries}, lost {st['lost']}, coverage "
+                             f"{st['coverage_frac']}")
+    out = {"degraded_ticks": degraded_ticks,
+           "coverage_while_degraded": mid["coverage_frac"],
+           "rows_while_degraded": fts.map.total_rows * mid["coverage_frac"],
+           "shard_losses": losses, "shard_recoveries": recoveries,
+           "shard_degraded_ticks": st["shard_degraded_ticks"]
+           - before["shard_degraded_ticks"], "lost": st["lost"],
+           "done": st["done"] - before["done"]}
+    print(f"  shard-loss rung: unit1 killed mid-run, {degraded_ticks} ticks "
+          f"on the degraded view (coverage {mid['coverage_frac']:.4f}), "
+          f"revived: full store back; shard_losses {losses}, "
+          f"shard_recoveries {recoveries}, lost {st['lost']}", flush=True)
+    return out
+
+
 def serving_ladder(model, cfg, store, corpus):
     """The same model and store under a DegradationPolicy, with snapshots:
     a burst walks the ladder down to retrieval_off, calm ticks walk it back
@@ -1467,12 +1546,15 @@ def serving_ladder(model, cfg, store, corpus):
     retrieval is timed at batch SERVE_BATCH."""
     t_phase = time.perf_counter()
     rcfg = cfg.retrieval
+    fts = dsearch.FaultTolerantSearch(store.codes, rcfg.code_bits,
+                                      n_units=FTS_UNITS, device=DEV)
     with tempfile.TemporaryDirectory() as snap:
         srv = server.Server(
             cfg, model, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
             store=store, device=DEV,
             degradation=server.DegradationPolicy(**LADDER_POLICY),
-            snapshot_dir=snap, snapshot_every=SNAPSHOT_EVERY)
+            snapshot_dir=snap, snapshot_every=SNAPSHOT_EVERY,
+            shard_search=fts)
         names = [r.name for r in srv.rungs]
         ticks_at = {n: 0 for n in names}
         uid = 0
@@ -1519,6 +1601,9 @@ def serving_ladder(model, cfg, store, corpus):
               f"{st['snapshot_restores']}, failover_ticks "
               f"{st['failover_ticks']}, lost {st['lost']}", flush=True)
 
+        srv.faults = None
+        shard = shard_loss_rung(srv, fts, submit)
+
         tok = torch.from_numpy(srv.last_token).to(DEV)
         with torch.inference_mode():
             _, _, h = lm.decode_step(model, cfg, tok, srv.state,
@@ -1542,7 +1627,8 @@ def serving_ladder(model, cfg, store, corpus):
                "failover_ticks": st["failover_ticks"], "lost": st["lost"],
                "retrieval_ms": rung_ms,
                "p50_token_ms": st["p50_token_s"] * 1e3,
-               "p99_token_ms": st["p99_token_s"] * 1e3}
+               "p99_token_ms": st["p99_token_s"] * 1e3,
+               "shard_loss": shard}
         del srv
     out["stores"] = served_stores(model, cfg, store, corpus)
     out["wall_s"] = time.perf_counter() - t_phase
@@ -1788,6 +1874,430 @@ def _tenants(codes_np):
 
 
 
+# ---------------------------------------------------------------------------
+# the sharded path: engine.search_sharded over SHARD_RANKS gloo ranks
+# ---------------------------------------------------------------------------
+
+def shard_cases(uneven, dead: int):
+    """(name, store, search_sharded arguments) of every sharded case;
+    "padded" is the ``uneven`` store, ``dead`` the dead shard, and an
+    approx case's arguments name its recall target."""
+    part = [0 if s == dead else 1 for s in range(len(uneven))]
+    return (
+        ("hist_merge", "even", {}),
+        ("hist_tree", "even", {"merge": "hist_tree",
+                               "fanout": SHARD_FANOUT}),
+        ("concat_sort", "even", {"merge": "concat_sort", "select": "fused"}),
+        ("concat_sort_k4", "even", {"k_local": SHARD_KLOCAL,
+                                    "select": "fused"}),
+        ("reorder_local", "even", {"reorder_local": True}),
+        ("uneven", "padded", {"shard_n_valid": list(uneven)}),
+        ("dead", "even", {"shard_participate": part}),
+    ) + tuple((f"approx_rt{rt}", "even", {"recall_target": rt})
+              for rt in SHARD_APPROX_RT)
+
+
+def _stamp(dev: str):
+    if dev == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _elapsed_ms(a, b) -> float:
+    if isinstance(a, float):
+        return (b - a) * 1e3
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def shard_rank(rank: int, cfg: dict) -> None:
+    """One rank of the sharded path, in a process of its own: joins the
+    gloo world, holds its slice of the store on the card, runs every case
+    with the launch counts zeroed just before and read just after, times
+    the hist_merge search and its phases, and writes its results and a
+    JSON summary into ``cfg["dir"]``. Any failure raises (exit code 1)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    warnings.simplefilter("ignore")          # the legacy select= knob
+    dev = cfg["dev"]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{cfg['init']}",
+        world_size=cfg["world"], rank=rank,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        _shard_rank_cases(rank, cfg, dev, dist,
+                          init_device_mesh(dev, (cfg["world"],),
+                                           mesh_dim_names=SHARD_AXES))
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_rank_cases(rank, cfg, dev, dist, mesh):
+    out = Path(cfg["dir"])
+    world, d, k = cfg["world"], cfg["d"], cfg["k"]
+    q = carry.codes(np.load(out / "q.npy"), dev)
+    x = {name: engine.shard_datastore(np.load(out / f"{name}.npy",
+                                              mmap_mode="r"),
+                                      mesh, SHARD_AXES, device=dev)
+         for name in ("even", "padded")}
+    calls = {"K1": 0, "K2": 0}
+    if dev == "cpu":
+        # a rehearsal: CPU tensors never launch, so count the plain calls
+        for name, key in (("hamming_hist_kernel", "K1"),
+                          ("hamming_emit_kernel", "K2")):
+            def counted(*a, _f=getattr(ops, name), _k=key, **kw):
+                calls[_k] += 1
+                return _f(*a, **kw)
+            setattr(ops, name, counted)
+
+    def launches():
+        if dev == "cpu":
+            return [calls["K1"], calls["K2"]]
+        return [tsel.hamming_hist_kernel.launches,
+                tsel.hamming_emit_kernel.launches]
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def run(store, kw):
+        if "recall_target" in kw:
+            stats = plan.stats_for(x[store].shape[0] * world, d,
+                                   q.shape[1], q.shape[0], n_shards=world)
+            p = plan.plan_sharded(stats, k, axes=SHARD_AXES, select="approx",
+                                  recall_target=kw["recall_target"])
+            return plan.execute(p, q, codes=x[store], mesh=mesh)
+        return engine.search_sharded(x[store], q, k, d, mesh, SHARD_AXES,
+                                     device=dev, **kw)
+
+    summary = {"rank": rank, "launches": {}}
+    for name, store, kw in shard_cases(cfg["uneven"], cfg["dead"]):
+        tsel.reset_launch_counts()
+        calls.update(K1=0, K2=0)
+        dist.barrier()
+        dd, ii = run(store, kw)
+        sync()
+        summary["launches"][name] = launches()
+        np.save(out / f"{name}.r{rank}.npy",
+                np.stack([dd.cpu().numpy(), ii.cpu().numpy()]))
+
+    # each rank's K2 split over runs of N tiles against the single-run
+    # emit from the shard's bases (outside the counted searches)
+    split = np.load(out / f"hist_merge.r{rank}.npy")
+    single = ops.hamming_topk_sharded(q, x["even"], k, d + 1, SHARD_AXES,
+                                      mesh=mesh, n_shards=world,
+                                      emit="single")
+    summary["single_run_emit_equal"] = bool(np.array_equal(
+        split, np.stack([a.cpu().numpy() for a in single])))
+
+    def timed(fn):
+        times = []
+        for _ in range(SHARD_TIMED + 1):       # the first is a warm-up
+            dist.barrier()
+            sync()
+            a = _stamp(dev)
+            fn()
+            times.append(_elapsed_ms(a, _stamp(dev)))
+        return statistics.median(times[1:])
+
+    summary["search_ms"] = timed(lambda: run("even", {}))
+    runs = []
+    for _ in range(SHARD_TIMED + 1):
+        marks = []
+        dist.barrier()
+        sync()
+        ops.hamming_topk_sharded(
+            q, x["even"], k, d + 1, SHARD_AXES, mesh=mesh, n_shards=world,
+            mark=lambda phase: marks.append((phase, _stamp(dev))))
+        sync()
+        runs.append({p: _elapsed_ms(a, b)
+                     for (p, a), (_, b) in zip(marks, marks[1:])})
+    summary["phase_ms"] = {p: statistics.median(r[p] for r in runs[1:])
+                           for p in SHARD_PHASES}
+    # the same three reductions of host tensors: gloo's ring over loopback
+    # alone, without the staging of CUDA tensors through host memory
+    summary["host_reduce_ms"] = {}
+    for phase, shape in (("hist_reduce", (q.shape[0], d + 1)),
+                         ("counts", (world, q.shape[0], 2)),
+                         ("out_reduce", (2, q.shape[0], k))):
+        buf = torch.zeros(shape, dtype=torch.int32)
+        times = []
+        for _ in range(SHARD_TIMED + 1):
+            dist.barrier()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            times.append((time.perf_counter() - t0) * 1e3)
+        summary["host_reduce_ms"][phase] = statistics.median(times[1:])
+    (out / f"rank{rank}.json").write_text(json.dumps(summary))
+
+
+def _uneven_store(codes_np):
+    """The main store's rows, shard s holding SHARD_UNEVEN[s] consecutive
+    rows, each padded with all-ones rows to the largest."""
+    nv = np.asarray(SHARD_UNEVEN)
+    if nv.sum() != codes_np.shape[0] or len(nv) != SHARD_RANKS:
+        raise AssertionError(f"SHARD_UNEVEN {nv} does not split "
+                             f"{codes_np.shape[0]} rows over {SHARD_RANKS}")
+    slc = int(nv.max())
+    padded = np.full((SHARD_RANKS * slc, codes_np.shape[1]), 0xFFFFFFFF,
+                     np.uint32)
+    off = np.concatenate([[0], np.cumsum(nv)])
+    for s in range(SHARD_RANKS):
+        padded[s * slc:s * slc + nv[s]] = codes_np[off[s]:off[s + 1]]
+    return padded
+
+
+def _run_ranks(cfg) -> float:
+    """Spawn the ranks and wait; the first rank to fail, or the phase
+    outliving SHARD_TIMEOUT_S, ends every rank and fails the phase."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank, args=(r, cfg))
+             for r in range(cfg["world"])]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        raise AssertionError(f"sharded ranks exited with {codes}")
+    return time.perf_counter() - t0
+
+
+def _true_dists(codes_t, q, ids):
+    """(Q, k) Hamming distance of every returned id to its query."""
+    x = codes_t[ids.clamp(0, codes_t.shape[0] - 1).long()]    # (Q, k, W)
+    return binary.popcount32(q[:, None, :] ^ x).sum(dim=-1, dtype=torch.int32)
+
+
+def sharded_path(codes_np, q, fused):
+    """``engine.search_sharded`` over SHARD_RANKS gloo ranks, each a process
+    holding its 2^20 / SHARD_RANKS-row slice of the main store on the one
+    card: hist_merge, hist_tree (fanout 2), concat_sort (k' = k, and the
+    statistical k' < k), reorder_local, uneven shards, a dead shard, and
+    the approx tier. Every exact case equals the single-device fused
+    search over the same rows (the surviving rows; for reorder_local the
+    ranks' local_sort layouts side by side) on every query, dists and ids,
+    with one K1 and one K2 launch per rank; every rank's answer is the
+    same. Per rank: the hist_merge search and its phases (K1, histogram
+    all_reduce, counts all-gather, K2, output all_reduce), median of
+    SHARD_TIMED, CUDA events after a barrier."""
+    t_phase = time.perf_counter()
+    world = SHARD_RANKS
+    n_loc = N_ROWS // world
+    fd, fi = fused
+    codes_t = carry.codes(codes_np, DEV)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "even.npy", codes_np)
+        np.save(tmp / "padded.npy", _uneven_store(codes_np))
+        np.save(tmp / "q.npy", q.cpu().numpy().view(np.uint32))
+        cfg = {"dev": DEV, "world": world, "init": str(tmp / "init"),
+               "dir": str(tmp), "d": D_BITS, "k": K,
+               "uneven": list(SHARD_UNEVEN), "dead": SHARD_DEAD}
+        wall = _run_ranks(cfg)
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        got = {}
+        for name, _, _ in shard_cases(SHARD_UNEVEN, SHARD_DEAD):
+            outs = [np.load(tmp / f"{name}.r{r}.npy") for r in range(world)]
+            if any(not np.array_equal(o, outs[0]) for o in outs[1:]):
+                raise AssertionError(f"sharded {name}: the ranks disagree")
+            got[name] = tuple(torch.from_numpy(a).to(DEV) for a in outs[0])
+
+    # the single-device references on the card
+    bins = D_BITS + 1
+    surv = torch.cat([codes_t[:SHARD_DEAD * n_loc],
+                      codes_t[(SHARD_DEAD + 1) * n_loc:]])
+    sorted_parts = [layout.local_sort(codes_t[s * n_loc:(s + 1) * n_loc],
+                                      D_BITS) for s in range(world)]
+    rd, rp = ops.hamming_topk(q, torch.cat([c for c, _ in sorted_parts]), K,
+                              bins)
+    perm = torch.cat([p + s * n_loc for s, (_, p) in enumerate(sorted_parts)])
+    local = [ops.hamming_topk(q, codes_t[s * n_loc:(s + 1) * n_loc],
+                              SHARD_KLOCAL, bins) for s in range(world)]
+    ld = torch.cat([dd for dd, _ in local], dim=1)
+    li = torch.cat([ii + s * n_loc for s, (_, ii) in enumerate(local)], dim=1)
+    if not all(r["single_run_emit_equal"] for r in ranks):
+        raise AssertionError("a rank's split K2 != its single-run emit")
+    want = {"hist_merge": (fd, fi), "hist_tree": (fd, fi),
+            "concat_sort": (fd, fi), "uneven": (fd, fi),
+            "dead": ops.hamming_topk(q, surv, K, bins),
+            "reorder_local": (rd, perm[rp.long()]),
+            "concat_sort_k4": topk.sort_key_val(ld, li),
+            "approx_rt1.0": (fd, fi)}
+    cases = {}
+    for name, _, kw in shard_cases(SHARD_UNEVEN, SHARD_DEAD):
+        dd, ii = got[name]
+        per_rank = [r["launches"][name] for r in ranks]
+        expect = [0, 0] if name.startswith("approx") else [1, 1]
+        if any(lc != expect for lc in per_rank):
+            raise AssertionError(f"sharded {name}: launches per rank "
+                                 f"{per_rank}, expected {expect}")
+        row = {"launches_per_rank": per_rank[0]}
+        if name in want:
+            wd, wi = want[name]
+            if not (torch.equal(dd, wd) and torch.equal(ii, wi)):
+                raise AssertionError(f"sharded {name} != the single-device "
+                                     f"fused search over the same rows")
+            row["equal"] = True
+        if name in ("concat_sort_k4", "approx_rt0.9"):
+            if not torch.equal(_true_dists(codes_t, q, ii), dd):
+                raise AssertionError(f"sharded {name}: an id's distance "
+                                     f"differs from its reported one")
+            if bool((dd[:, 1:] < dd[:, :-1]).any()):
+                raise AssertionError(f"sharded {name}: not ascending")
+            row["recall"] = recall_at(ii, fi)
+        cases[name] = row
+    bound = hierarchy.failure_bound(K, world, SHARD_KLOCAL)
+    cases["concat_sort_k4"]["failure_bound"] = bound
+    # the ranks' approx geometry: blocks of their slice, L for the global
+    # pool of every rank's blocks
+    bn = min(tuning.approx_blocks(N_QUERIES, n_loc, D_BITS // 32,
+                                  backend=device.backend_of(q)), n_loc)
+    n_blocks = -(-n_loc // bn)
+    l9 = approx_select.l_for_recall(K, world * n_blocks, bn, 0.9)
+    cases["approx_rt0.9"].update(
+        bn=bn, l=l9, predicted_recall=approx_select.expected_recall(
+            K, world * n_blocks, l9))
+    med = lambda key: statistics.median(r[key] for r in ranks)
+    out = {"ranks": world, "rows_per_rank": n_loc,
+           "uneven_rows": list(SHARD_UNEVEN), "cases": cases,
+           "single_run_emit_equal": True,
+           "search_ms_per_rank": [r["search_ms"] for r in ranks],
+           "search_ms": med("search_ms"),
+           "phase_ms": {p: statistics.median(r["phase_ms"][p] for r in ranks)
+                        for p in SHARD_PHASES},
+           "phase_ms_per_rank": [r["phase_ms"] for r in ranks],
+           "host_reduce_ms": {p: statistics.median(
+               r["host_reduce_ms"][p] for r in ranks)
+               for p in ("hist_reduce", "counts", "out_reduce")},
+           "ranks_wall_s": wall}
+    print(f"  {world} ranks x {n_loc} rows: every exact case == fused on "
+          f"{N_QUERIES} queries (dead shard {SHARD_DEAD}: == its surviving "
+          f"rows; reorder_local: == the ranks' layouts side by side), one K1 "
+          f"+ one K2 per rank per search; concat k'={SHARD_KLOCAL} recall@"
+          f"{K} {cases['concat_sort_k4']['recall']:.4f} (failure bound "
+          f"{bound:.4f}); approx rt 1.0 == fused, rt 0.9 recall "
+          f"{cases['approx_rt0.9']['recall']:.4f} (predicted "
+          f"{cases['approx_rt0.9']['predicted_recall']:.4f})", flush=True)
+    print("  per rank (median of {}): search {} ms; {}".format(
+        SHARD_TIMED, ", ".join(f"{r['search_ms']:.3f}" for r in ranks),
+        "; ".join(f"{p} " + ", ".join(f"{r['phase_ms'][p]:.3f}"
+                                       for r in ranks)
+                  for p in SHARD_PHASES)), flush=True)
+    print("  the same reductions of host tensors (median over ranks): "
+          + ", ".join(f"{p} {v:.3f} ms"
+                      for p, v in out["host_reduce_ms"].items()), flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  sharded phase: {out['wall_s']:.1f} s (ranks {wall:.1f} s)",
+          flush=True)
+    return out
+
+
+def shard_faults(codes_np, q, fused):
+    """``FaultTolerantSearch`` over the main store, FTS_UNITS units at
+    factor FTS_FACTOR on the card: healthy; units killed (a replica
+    serves, then a range is lost); injected shard_hist / shard_emit /
+    merge_psum faults; revived units and maintain() until coverage is
+    whole; a cold revive refilled from replicas. Every answer equals
+    ``reference_over_covered`` and, on sampled queries, an on-card brute
+    force over the covered rows."""
+    t_phase = time.perf_counter()
+    codes_t = carry.codes(codes_np, DEV)
+    fts = dsearch.FaultTolerantSearch(codes_np, D_BITS, n_units=FTS_UNITS,
+                                      factor=FTS_FACTOR, device=DEV)
+    sample = torch.from_numpy(np.random.default_rng(5).choice(
+        N_QUERIES, N_GATE, replace=False)).to(DEV)
+    full = binary.hamming_xor(q[sample], codes_t)              # (S, N)
+    steps_out = []
+
+    def check(label):
+        tsel.reset_launch_counts()
+        t0 = time.perf_counter()
+        dd, ii, rep = fts.search(q, K)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = [tsel.hamming_hist_kernel.launches,
+                    tsel.hamming_emit_kernel.launches]
+        m = fts.covered_row_ids()
+        rd, ri = dsearch.reference_over_covered(codes_t, q, K, D_BITS, m,
+                                                device=DEV)
+        if not (np.array_equal(dd, rd) and np.array_equal(ii, ri)):
+            raise AssertionError(f"fault-tolerant search, {label}: != "
+                                 f"reference_over_covered")
+        covered = torch.zeros(codes_t.shape[0], dtype=torch.bool,
+                              device=DEV)
+        covered[torch.from_numpy(m).to(DEV)] = True
+        ref_d, _ = topk.topk_ref(torch.where(covered, full, D_BITS + 1), K)
+        dd_s = torch.from_numpy(dd).to(DEV)[sample]
+        ii_s = torch.from_numpy(ii).to(DEV)[sample].long()
+        if not (torch.equal(ref_d, dd_s) and bool(covered[ii_s].all())
+                and torch.equal(torch.gather(full, 1, ii_s), dd_s)):
+            raise AssertionError(f"fault-tolerant search, {label}: != the "
+                                 f"on-card brute force over covered rows")
+        row = {"step": label, "coverage": rep.as_dict(), "ms": ms,
+               "launches": launches, "counters": dict(fts.counters)}
+        steps_out.append(row)
+        print(f"  {label}: coverage {rep.coverage_frac:.4f} (dead "
+              f"{list(rep.dead_shards)}), {ms:.1f} ms, launches K1/K2 "
+              f"{launches}, == reference and brute force; counters "
+              f"{fts.counters}", flush=True)
+        return dd, ii
+
+    dd, ii = check("healthy")
+    if not (np.array_equal(dd, fused[0].cpu().numpy())
+            and np.array_equal(ii, fused[1].cpu().numpy())):
+        raise AssertionError("healthy fault-tolerant search != fused")
+    fts.kill("unit1")
+    check("unit1 killed (its replica serves)")
+    fts.kill("unit2")
+    check("unit1 and unit2 killed (range 1 lost)")
+    fts.injector = faults.FaultInjector(seed=7, p={
+        "shard_hist@unit0": 1.0, "shard_emit@unit3": 0.5,
+        "merge_psum": 0.5})
+    check("injected shard_hist / shard_emit / merge_psum faults")
+    fired = dict(fts.injector.fired)
+    fts.injector = None
+    for u in fts.registry.dead():
+        fts.revive(u, with_data=True)
+    rounds = 0
+    while (not fts.coverage().complete or fts.registry.not_serving()) \
+            and rounds < 4 * FTS_UNITS:
+        fts.maintain()
+        rounds += 1
+    check(f"revived and maintained ({rounds} rounds)")
+    fts.kill("unit3")
+    fts.revive("unit3", with_data=False)
+    cold = 0
+    while fts.registry.not_serving() and cold < 4 * FTS_UNITS:
+        fts.maintain(budget=1)
+        cold += 1
+    dd, ii = check(f"unit3 revived cold, refilled ({cold} rounds)")
+    if not fts.coverage().complete or fts.registry.not_serving():
+        raise AssertionError(f"coverage not restored: {fts.stats()}")
+    out = {"units": FTS_UNITS, "factor": FTS_FACTOR, "steps": steps_out,
+           "injected": fired, "stats": fts.stats(),
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"  shard-faults phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1891,6 +2401,16 @@ def main() -> int:
     print("index path: IVF, LSH, kd-tree, hamming-prefix probes", flush=True)
     ip = index_path(args.seed, eng, q, fused[1])
 
+    # phase 5d: the sharded path over gloo ranks on this card, then the
+    # shard-fault-tolerance layer, while card memory is free
+    print(f"sharded path: engine.search_sharded over {SHARD_RANKS} gloo "
+          f"ranks on one card, Q={N_QUERIES} N={N_ROWS} d={D_BITS} k={K}",
+          flush=True)
+    shp = sharded_path(codes_np, q, fused)
+    print(f"shard faults: FaultTolerantSearch, {FTS_UNITS} units at factor "
+          f"{FTS_FACTOR}, Q={N_QUERIES} N={N_ROWS}", flush=True)
+    sf = shard_faults(codes_np, q, fused)
+
     # phase 6: K4 against its plain version, then its times at the main
     # shape
     print("K4 vs plain (f32 atol {0}; bf16 {1} ulps + {0}):".format(
@@ -1926,6 +2446,8 @@ def main() -> int:
         flush=True)
     print("board_scan: " + json.dumps(bs), flush=True)
     print("index_path: " + json.dumps(ip), flush=True)
+    print("sharded_path: " + json.dumps(shp), flush=True)
+    print("shard_faults: " + json.dumps(sf), flush=True)
     print("serving_path: " + json.dumps(sp), flush=True)
     print("approx_path: " + json.dumps(ap), flush=True)
     print("mutable_path: " + json.dumps(mp), flush=True)

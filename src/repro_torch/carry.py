@@ -19,18 +19,14 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import index, quantize, retrieval
-from repro_torch.core.engine import KNNEngine
+from repro_torch.core.engine import KNNEngine, as_codes
 from repro_torch.core.layout import BucketLayout
 from repro_torch.models import lm
 
 
 def codes(packed, device=None) -> torch.Tensor:
     """(…, W) uint32 or int32 packed codes -> int32 tensor, same bits."""
-    dev = device_mod.resolve(device)
-    a = np.ascontiguousarray(np.asarray(packed))
-    if a.dtype not in (np.uint32, np.int32):
-        raise TypeError(f"packed codes must be uint32 or int32, got {a.dtype}")
-    return torch.from_numpy(a.view(np.int32).copy()).to(dev)
+    return as_codes(packed, device_mod.resolve(device))
 
 
 def _int32(a, dev) -> torch.Tensor:

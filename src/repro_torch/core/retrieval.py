@@ -14,8 +14,10 @@ through the masked fused kernels.
 ``select="approx"`` with a ``recall_target`` runs the approximate tier
 (``kernels/approx_select.py``), the serving ladder's approx rungs.
 
-Not ported yet, and raising ``NotImplementedError`` rather than running
-another path: sharded plans (a mesh or axes; ROADMAP queue 1 item 8).
+With a ``torch.distributed`` device mesh and axes, the search is the
+sharded plan: every rank of the mesh calls ``knn_logits`` with a store
+whose ``codes`` are its own slice of the rows (``engine.shard_datastore``)
+and whose ``values`` are whole, and gets the whole answer.
 """
 from __future__ import annotations
 
@@ -27,12 +29,6 @@ from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig, RetrievalConfig
 from repro_torch.core import binary, index as index_mod
 from repro_torch.core import layout as layout_mod, plan as plan_mod, quantize
-
-_NOT_PORTED = {
-    "sharded": "sharded retrieval plans are not ported yet: ROADMAP queue 1 "
-               "item 8",
-}
-
 
 class DataStore(NamedTuple):
     codes: torch.Tensor     # (N, W) int32 packed ITQ codes of hidden states
@@ -110,15 +106,33 @@ def plan_for_store(store: DataStore, rcfg: RetrievalConfig, q: int,
     not "auto") > ``rcfg.select``; ``rcfg.force_plan`` overrides apply
     last. ``rcfg.layout != "none"`` demands a layout (``layout_policy=
     "require"``): the planner streams the prebuilt store layout when one
-    exists, else falls back to a per-call re-sort."""
-    if mesh is not None or axes:
-        raise NotImplementedError(_NOT_PORTED["sharded"])
+    exists, else falls back to a per-call re-sort.
+    Sharded (a mesh and axes; ``store.codes`` is this rank's slice, so N is
+    its rows times the shard count), a prebuilt GLOBAL layout cannot
+    follow the shard slicing, so the planner only opts into per-shard
+    re-sorting when the config asks. Exact sharded serving
+    (``rcfg.local_k >= rcfg.k``) rides the hist_merge distributed counting
+    select; ``local_k < k`` keeps the statistical concat/sort reduction."""
     if select is None:
         select = rcfg.plan if rcfg.plan != "auto" else rcfg.select
     if recall_target is None:
         recall_target = rcfg.recall_target
     policy = "require" if rcfg.layout != "none" else "auto"
     n, w = store.codes.shape
+    if mesh is not None and axes:
+        from repro_torch.kernels import ops
+
+        n_dev = ops.n_shards_of(mesh, axes)
+        # a prebuilt GLOBAL layout cannot follow the shard slicing, so the
+        # sharded stats deliberately omit it (layout_policy still carries
+        # the config's demand, satisfied per shard via local_sort)
+        stats = plan_mod.stats_for(n * n_dev, rcfg.code_bits, w, q,
+                                   k=rcfg.k, n_shards=n_dev)
+        return plan_mod.plan_sharded(
+            stats, rcfg.k, axes=tuple(axes), k_local=rcfg.local_k,
+            select=select, method=method, chunk=rcfg.chunk_size,
+            layout_policy=policy, recall_target=recall_target,
+            force=rcfg.force_plan)
     stats = plan_mod.stats_for(n, rcfg.code_bits, w, q, k=rcfg.k,
                                layout=store.layout)
     return plan_mod.plan_local(
@@ -131,10 +145,20 @@ def log_store_plan(store: DataStore, rcfg: RetrievalConfig, q: int,
                    logger, mesh=None, axes: Sequence[str] = ()
                    ) -> plan_mod.QueryPlan:
     """Resolve and log the store's QueryPlan (serving-side ``explain()``);
-    the server calls this once per store at startup."""
+    the server calls this once per store at startup. Sharded plans also
+    log the merge strategy and its predicted cross-rank traffic
+    (``tuning.shard_hints`` via ``plan.geometry()``)."""
     p = plan_for_store(store, rcfg, q, mesh=mesh, axes=axes)
+    n_rows = store.codes.shape[0] * max(p.n_shards, 1)
     logger.info("retrieval store: %d entries, active plan %s",
-                store.codes.shape[0], p.compact())
+                n_rows, p.compact())
+    if p.merge.kind == "sharded":
+        m = p.geometry()["merge"]
+        logger.info(
+            "retrieval shard merge: %s over %d shards, predicted merge "
+            "traffic %d B/batch (hist_merge %d B vs concat_sort %d B)",
+            m["strategy"], m["n_shards"], m["merge_bytes"],
+            m["hist_merge_bytes"], m["concat_sort_bytes"])
     logger.debug("retrieval plan detail:\n%s", p.explain_str())
     return p
 
@@ -189,9 +213,10 @@ def knn_logits(store: DataStore, hidden: torch.Tensor, rcfg: RetrievalConfig,
                probe_positions=None) -> torch.Tensor:
     """hidden: (Q, d_model) -> neighbor log-distribution (Q, vocab) f32.
 
-    A thin plan-builder: ``plan_for_store`` resolves the select path and
-    layout use from the store's stats and the config, and ``plan.execute``
-    runs the search ("fused" runs K1 + K2 once over the whole store).
+    A thin plan-builder: ``plan_for_store`` resolves the select path,
+    layout use and sharded merge from the store's stats and the config,
+    and ``plan.execute`` runs the search ("fused" runs K1 + K2 once over
+    the whole store; sharded, once over each rank's slice).
 
     ``nprobe > 0`` with ``probe_positions`` (``probe_key_positions``) on a
     store with a layout switches to the DEGRADED masked search: only the
@@ -209,8 +234,12 @@ def knn_logits(store: DataStore, hidden: torch.Tensor, rcfg: RetrievalConfig,
         p = plan_for_store(store, rcfg, hidden.shape[0], mesh=mesh,
                            axes=axes, method=method, select=select,
                            recall_target=recall_target)
-        dists, ids = plan_mod.execute(p, q_codes, codes=store.codes,
-                                      layout=store.layout)
+        if p.merge.kind == "sharded":
+            dists, ids = plan_mod.execute(p, q_codes, codes=store.codes,
+                                          mesh=mesh)
+        else:
+            dists, ids = plan_mod.execute(p, q_codes, codes=store.codes,
+                                          layout=store.layout)
     n = store.values.shape[0]
     # fewer than k valid neighbors -> the engine pads with sentinels (full
     # scans: dist = d+1, id >= N; masked probes: id = -1): they get no

@@ -6,8 +6,9 @@ returns its step function alone. Steps run under ``torch.inference_mode``.
 The serve builder is memoized per (cfg, max_len, retrieval variant), as
 ``repro``'s is (the degraded probe variant keys on the identity of its
 probe positions, as there): the server asks for its rungs' steps again
-mid-serve, and failover must find the step it already has. The train step
-and the per-unit search steps wait (ROADMAP queue 1 items 11 and 8).
+mid-serve, and failover must find the step it already has. The per-unit
+search steps of dist/search.py are memoized per (bins, k) as there. The
+train step waits (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -43,6 +44,40 @@ def make_prefill_step(cfg: ModelConfig, seq_len: int, *,
         return lm.prefill(model, cfg, tokens, batch.get("prefix_emb"), ctx)
 
     return prefill_fn
+
+
+# ---------------------------------------------------------------------------
+# per-unit search steps (host-orchestrated fault-tolerant search)
+# ---------------------------------------------------------------------------
+
+# (bins, k) -> (hist_fn, topk_fn). dist/search.py calls one hist and one
+# top-k per SURVIVING unit per query; units die and fail over mid-stream,
+# so the callables are shared across units and never rebuilt on the
+# failover path.
+_UNIT_STEP_CACHE: dict = {}
+
+
+def unit_search_steps(bins: int, k: int):
+    """Memoized per-unit callables for dist/search.py: ``hist(q, x) ->
+    (Q, bins)`` partial histogram (one K1 launch on CUDA tensors) and
+    ``topk(q, x) -> (dists, ids)`` local top-k (one K1 and one K2) over
+    ONE unit's row range, on the tensors' device."""
+    key = (int(bins), int(k))
+    hit = _UNIT_STEP_CACHE.get(key)
+    if hit is not None:
+        return hit
+    from repro_torch.kernels import ops
+
+    @torch.inference_mode()
+    def hist(q, x):
+        return ops.hamming_hist(q, x, key[0])
+
+    @torch.inference_mode()
+    def topk(q, x):
+        return ops.hamming_topk(q, x, key[1], key[0])
+
+    _UNIT_STEP_CACHE[key] = (hist, topk)
+    return hist, topk
 
 
 # ---------------------------------------------------------------------------

@@ -4,11 +4,16 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``build/`` beside this file
 (listed in ``.gitignore``). The library name carries a hash of the source
 and the flags, so an edited source is rebuilt and a stale one never loads.
-``build`` starts one ``nvcc`` per source, all at once, and waits for all.
+``build`` starts one ``nvcc`` per source, all at once, and waits for all,
+holding an exclusive ``flock`` on ``build/.lock`` meanwhile: processes that
+load at once (the ranks of a sharded search) wait for one build and then
+find its library there. The kernel drops the lock with its holder, so a
+killed build leaves nothing to clear.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -42,6 +47,12 @@ def build(sources) -> dict[str, str]:
     all started together. Returns {source: compiler output} for the
     sources compiled now; raises after all finish if any failed."""
     BUILD.mkdir(exist_ok=True)
+    with open(BUILD / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(sources)
+
+
+def _build_locked(sources) -> dict[str, str]:
     started = {}
     for source in sources:
         out = library_path(source)

@@ -32,7 +32,13 @@ differ in how, not in what is computed:
   ``recall_target=1.0`` the pool is every row, so each chunk gives the
   merge its own best k rows instead of its blocks' pools.
 
-``approx_topk_sharded`` waits for sharded search (ROADMAP queue 1 item 8).
+* **Sharded merge** — ``approx_topk_sharded`` merges per-shard candidate
+  pools hist_merge-style (``ops.hamming_topk_sharded``'s collectives):
+  each rank histograms its pool's distances, one psum derives the global
+  radius r*, and winners land in disjoint slots of the replicated (Q, k)
+  output. Only a rank's best k candidates by (dist, id) can land in a
+  slot below k, so each rank keeps, chunk by chunk, its pool's histogram
+  and its pool's best k — never the pool itself.
 """
 from __future__ import annotations
 
@@ -353,6 +359,115 @@ def masked_approx_topk(layout, q_packed: torch.Tensor, k: int, d: int,
 
 
 # ---------------------------------------------------------------------------
+# the sharded hist_merge-style candidate merge
+# ---------------------------------------------------------------------------
+
+def approx_topk_sharded(q_packed: torch.Tensor, x_local: torch.Tensor,
+                        k: int, bins: int, axis_names, *, mesh,
+                        n_shards: int, recall_target: float = 1.0,
+                        n_valid=None, id_base=None, n_total=None, perm=None,
+                        participate=None, tree_fanout: int = 0,
+                        bn: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed approximate select — hist_merge over per-shard candidate
+    POOLS instead of per-shard rows. Every rank of ``mesh`` calls it.
+
+    Per rank: the partial reduce shrinks the local slice to n_blocks·L
+    candidates (L sized from the GLOBAL pool's block count, so the recall
+    bound covers the whole sharded store). Merge, exactly like
+    ``ops.hamming_topk_sharded``: (1) each rank histograms its pool's
+    distances — a partial histogram of the global candidate race; (2) one
+    psum merges them and the global radius r*, below-count and emit count
+    derive via the SAME ``_radius_from_cum``; (3) a (Q, 2)-per-shard
+    all-gather turns local below/tie counts into exclusive-scan slot bases;
+    (4) winners land in disjoint slots of the replicated (Q, k) output in
+    (dist, id) order and one psum assembles it.
+
+    At ``recall_target=1.0`` the pool is every row: bit-identical to
+    ``ops.hamming_topk_sharded`` / the single-device fused select.
+    ``n_valid``/``id_base``/``n_total``/``participate``/``tree_fanout``:
+    the contracts of ``ops.hamming_topk_sharded``. ``perm``: this rank's
+    local layout permutation (winners report original ids; in-shard tie
+    order then follows (dist, original id))."""
+    from repro_torch.kernels import ops
+
+    axes = tuple(axis_names)
+    Q, W = q_packed.shape
+    n_loc = x_local.shape[0]
+    dev = q_packed.device
+    k_k = min(k, n_shards * n_loc)
+    if k_k <= 0:
+        return (torch.full((Q, k), bins, dtype=torch.int32, device=dev),
+                torch.full((Q, k), 0, dtype=torch.int32, device=dev))
+    flat, nv, ib, nt = ops._shard_rows(mesh, axes, n_shards, n_loc, n_valid,
+                                       id_base, n_total, participate, dev)
+    psum = ((lambda v: ops._tree_psum(v, mesh, axes, tree_fanout))
+            if tree_fanout >= 2 else (lambda v: ops._psum(v, mesh, axes)))
+
+    backend = device_mod.backend_of(dev)
+    if bn is None:
+        bn = tuning.approx_blocks(Q, n_loc, W, backend=backend)
+    bn = max(min(int(bn), n_loc), 1)
+    n_blocks = -(-n_loc // bn)
+    l = max(min(l_for_recall(k_k, n_shards * n_blocks, bn, recall_target),
+                bn), 1)
+
+    # the local pool, chunk by chunk: its histogram, and its best k_k by
+    # the key dist·(n_loc+1) + local id (sentinels: bins, n_loc)
+    _, nv, _, qpl = _prepare(q_packed, n_loc, bins, nv, None, bn)
+    kdt = torch.int64 if (bins + 1) * (n_loc + 1) >= (1 << 31) else torch.int32
+    stride = n_loc + 1
+    sentinel = bins * stride + n_loc
+    perm_t = None if perm is None else torch.as_tensor(perm, device=dev).long()
+    hist_loc = torch.zeros((Q, bins), dtype=torch.int32, device=dev)
+    best = torch.full((Q, k_k), sentinel, dtype=kdt, device=dev)
+    for qs, b0, b1 in _chunks(Q, n_blocks, bn, backend):
+        dist = _block_dists(qpl[qs], x_local, bins, bn, b0, b1, nv, None)
+        if l == bn:
+            # the pool is every row of the chunk
+            cd = dist.reshape(dist.shape[0], -1)
+            cp = b0 * bn + torch.arange(cd.shape[1], device=dev)[None, :]
+        else:
+            cd, cp = _block_reduce(dist, l, bins, bn, b0 * bn, n_loc)
+        real = cd < bins
+        hist_loc[qs] += torch.zeros_like(hist_loc[qs]).scatter_add_(
+            1, torch.clamp(cd, max=bins - 1).long(), real.to(torch.int32))
+        lid = cp.long().clamp(max=n_loc - 1)
+        if perm_t is not None:
+            lid = perm_t[lid]
+        key = torch.where(real, cd.to(kdt) * stride + lid.to(kdt), sentinel)
+        key = torch.topk(key, min(k_k, key.shape[1]), dim=1, largest=False,
+                         sorted=True).values
+        best[qs] = torch.topk(torch.cat([best[qs], key], dim=1), k_k, dim=1,
+                              largest=False, sorted=True).values
+
+    # (1)+(2): the candidate-pool histogram race, merged through one psum
+    cum_g = torch.cumsum(psum(hist_loc), dim=-1, dtype=torch.int32)
+    _, r_star, n_lt, n_emit = ops._radius_from_cum(cum_g, k_k)
+    # (3): exclusive-scan slot bases from the tiny (Q, 2) per-shard counts
+    base_lt, base_tie, _, _ = ops._slot_bases(hist_loc, r_star, n_lt, mesh,
+                                              axes, n_shards, flat)
+
+    # (4): this rank's best k_k in (dist, id) order into its disjoint
+    # slots; the +1 offset makes 0 the "untouched" marker the psum keeps
+    sd = (best // stride).to(torch.int32)
+    si = torch.where(sd < bins, (best % stride).to(torch.int32) + ib, nt)
+    lt = sd < r_star[:, None]
+    tie = sd == r_star[:, None]
+    rank_lt = torch.cumsum(lt, dim=-1, dtype=torch.int32) - 1
+    rank_tie = torch.cumsum(tie, dim=-1, dtype=torch.int32) - 1
+    slot = torch.where(lt, base_lt[:, None] + rank_lt,
+                       torch.where(tie, base_tie[:, None] + rank_tie, k_k))
+    keep = slot < k_k
+    slot = torch.where(keep, slot, 0).long()
+    out = torch.zeros((2, Q, k_k), dtype=torch.int32, device=dev)
+    out[0].scatter_add_(1, slot, torch.where(keep, sd + 1, 0))
+    out[1].scatter_add_(1, slot, torch.where(keep, si + 1, 0))
+    out = psum(out) - 1
+    return ops._finalize_slots(out[0], out[1], n_emit, k, k_k, bins, nt)
+
+
+# ---------------------------------------------------------------------------
 # asymmetric top-k (non-binary stores)
 # ---------------------------------------------------------------------------
 
@@ -407,6 +522,6 @@ def asymmetric_topk(v: torch.Tensor, x_packed: torch.Tensor, k: int, d: int,
     return best_v, best_i
 
 
-__all__ = ["approx_topk", "asymmetric_scores", "asymmetric_topk",
+__all__ = ["approx_topk", "approx_topk_sharded", "asymmetric_scores", "asymmetric_topk",
            "bit_planes", "expected_recall", "hamming_scores_planes",
            "l_for_recall", "masked_approx_topk"]

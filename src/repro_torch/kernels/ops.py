@@ -12,10 +12,30 @@ launch over the WHOLE datastore for any N, with the pass-1 block-min
 summary pruning pass-2 tiles that cannot hold a winner, and K1's per-run
 histograms giving K2 the slot bases of each run of N tiles, so that pass 2
 runs one CTA per query block and run.
+
+``hamming_topk_sharded`` is the same two-pass select across the ranks of a
+``torch.distributed`` device mesh: each rank runs K1 and K2 once over its
+own slice, and the paper's counters being additive, one reduction of the
+(Q, bins) partial histograms gives ONE global radius per query; each rank
+then emits its winners into disjoint slots of the global (Q, k) output.
+
+**Collectives.** Every collective of the merge is built from
+``all_reduce(SUM)``: a psum is one over each mesh axis's group in turn, an
+all-gather reduces a zeroed (n_shards, ...) buffer in which each rank
+wrote only its own row, and ``_tree_psum``'s rounds reduce within
+``new_group`` subgroups of ``repro``'s rotation spans. Gloo takes CUDA
+tensors for ``all_reduce`` alone (not for ``all_gather``, ``send`` or
+``recv``), and NCCL puts one rank on one card, so built this way the same
+code runs on gloo over CPU tensors, on gloo over CUDA tensors with several
+ranks on one card, and on NCCL across cards. The sums are of integers, so
+every grouping gives the same bits.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as device_mod
 from repro_torch.core.topk import sort_key_val
@@ -226,6 +246,287 @@ def hamming_topk(q_packed: torch.Tensor, x_packed: torch.Tensor, k: int,
             "p1_blocks_skipped": (~enabled).sum(dtype=torch.int32),
             "block_min": block_min}
     return out_d, out_i
+
+
+# ---------------------------------------------------------------------------
+# the mesh and the collectives of the sharded select
+# ---------------------------------------------------------------------------
+
+def axis_size(mesh, a: str) -> int:
+    """Size of the mesh axis named ``a`` (``repro``: ``mesh.shape[a]``)."""
+    return int(mesh.size(list(mesh.mesh_dim_names).index(a)))
+
+
+def n_shards_of(mesh, axes) -> int:
+    """Product of the sizes of ``axes``: the number of shards."""
+    n = 1
+    for a in axes:
+        n *= axis_size(mesh, a)
+    return n
+
+
+def flat_index(mesh, axes) -> int:
+    """This rank's flat shard index over ``axes``, row-major as the mesh
+    (``repro``: the same product over ``jax.lax.axis_index``). It is the
+    order ``engine.shard_datastore`` slices rows in."""
+    flat = 0
+    for a in axes:
+        flat = flat * axis_size(mesh, a) + int(mesh.get_local_rank(a))
+    return flat
+
+
+def _psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axes``: ``all_reduce(SUM)`` over
+    each axis's group in turn, on a copy."""
+    x = x.clone(memory_format=torch.contiguous_format)
+    for a in axes:
+        dist.all_reduce(x, group=mesh.get_group(a))
+    return x
+
+
+def _all_gather(x: torch.Tensor, mesh, axes, n_shards: int,
+                flat: int) -> torch.Tensor:
+    """(n_shards, *x.shape): every rank's ``x`` in flat-shard order, as the
+    sum of zeroed buffers in which each rank wrote only its own row."""
+    buf = x.new_zeros((n_shards, *x.shape))
+    buf[flat] = x
+    for a in axes:
+        dist.all_reduce(buf, group=mesh.get_group(a))
+    return buf
+
+
+def _round_group(mesh, a: str, s: int, f: int):
+    """This rank's subgroup for the ``_tree_psum`` round at stride ``s``
+    and width ``f`` over axis ``a``: the ranks at axis positions
+    {b + off + j*s : j < f}, the other coordinates fixed. ``new_group`` is
+    collective over the whole world, so every rank creates every group of
+    the round, in the same order; the groups are kept on the mesh."""
+    groups = mesh.__dict__.setdefault("_tree_round_groups", {})
+    key = (a, s, f)
+    if key not in groups:
+        dim = list(mesh.mesh_dim_names).index(a)
+        size = axis_size(mesh, a)
+        lines = mesh.mesh.movedim(dim, -1).reshape(-1, size).tolist()
+        me = dist.get_rank()
+        mine = None
+        for line in lines:
+            for b in range(0, size, s * f):
+                for off in range(s):
+                    members = [line[b + off + j * s] for j in range(f)]
+                    group = dist.new_group(members)
+                    if me in members:
+                        mine = group
+        groups[key] = mine
+    return groups[key]
+
+
+def _tree_psum(x: torch.Tensor, mesh, axes, fanout: int) -> torch.Tensor:
+    """Hierarchical all-reduce: a plain psum over the trailing (intra-host)
+    axes, then rounds of ``fanout``-wide group sums over the leading axis.
+    Integer addition is associative and commutative, so the result is
+    bit-identical to ``_psum(x, mesh, axes)``.
+
+    Round structure over the leading axis (size S), as ``repro``'s: at
+    stride s (starting 1), the positions {b + off + j*s : j < f} form one
+    group and sum within it, so after the round every position holds the
+    sum of its span of s*f consecutive positions. Rounds run while s*f
+    divides S; a final group round over the surviving S//s spans closes
+    any non-power-of-``fanout`` remainder. ``repro`` sums a group by f-1
+    rotation ``ppermute``s; here a group is a ``new_group`` subgroup and
+    its sum one ``all_reduce`` — the same sums."""
+    axes = tuple(axes)
+    x = _psum(x, mesh, axes[1:])
+    a = axes[0]
+    size = axis_size(mesh, a)
+
+    def group_round(x, s, f):
+        dist.all_reduce(x, group=_round_group(mesh, a, s, f))
+        return x
+
+    s = 1
+    while s * fanout <= size and size % (s * fanout) == 0:
+        x = group_round(x, s, fanout)
+        s *= fanout
+    if s < size:
+        x = group_round(x, s, size // s)
+    return x
+
+
+def _shard_rows(mesh, axes, n_shards: int, n_loc: int, n_valid, id_base,
+                n_total, participate, dev):
+    """(flat index, valid rows, id base, valid total) of this rank, as
+    ints. ``participate`` zeroes a dead shard's rows; with no ``n_valid``
+    the (masked) counts are replicated and need no gather, else the valid
+    counts are all-gathered unless ``id_base`` and ``n_total`` are given
+    (they must then account for the mask)."""
+    flat = flat_index(mesh, axes)
+    part = ([1] * n_shards if participate is None else
+            [int(v) for v in torch.as_tensor(participate).reshape(
+                n_shards).tolist()])
+    if n_valid is None:
+        nv_all = [n_loc * p for p in part]
+        nv = nv_all[flat]
+    else:
+        nv = int(n_valid) * part[flat]
+        nv_all = None
+        if id_base is None or n_total is None:
+            nv_all = _all_gather(torch.tensor(nv, dtype=torch.int64,
+                                              device=dev), mesh, axes,
+                                 n_shards, flat).tolist()
+    ib = sum(nv_all[:flat]) if id_base is None else id_base
+    nt = sum(nv_all) if n_total is None else n_total
+    return flat, nv, int(ib), int(nt)
+
+
+def _slot_bases(hist_loc: torch.Tensor, r_star: torch.Tensor,
+                n_lt: torch.Tensor, mesh, axes, n_shards: int, flat: int):
+    """This rank's first below-r* and first tie slot: the exclusive scans,
+    over the shards before it, of each shard's below-r* and at-r* counts
+    (from its LOCAL histogram), all-gathered as (n_shards, Q, 2). Returns
+    (base_lt, base_tie, l_lt, l_tie), each (Q,) int32."""
+    at = lambda c, i: torch.gather(c, 1, i[:, None].long())[:, 0]
+    cum_l = torch.cumsum(hist_loc, dim=-1, dtype=torch.int32)
+    l_lt = torch.where(r_star > 0, at(cum_l, torch.clamp(r_star - 1, min=0)),
+                       0).to(torch.int32)
+    l_tie = at(hist_loc, r_star)
+    g_counts = _all_gather(torch.stack([l_lt, l_tie], dim=-1), mesh, axes,
+                           n_shards, flat)
+    base_lt = g_counts[:flat, :, 0].sum(dim=0, dtype=torch.int32)
+    base_tie = n_lt + g_counts[:flat, :, 1].sum(dim=0, dtype=torch.int32)
+    return base_lt, base_tie.to(torch.int32), l_lt, l_tie
+
+
+def hamming_topk_sharded(q_packed: torch.Tensor, x_local: torch.Tensor,
+                         k: int, bins: int, axis_names, *, mesh,
+                         n_shards: int, n_valid=None, id_base=None,
+                         n_total=None, perm=None, block_mask=None,
+                         participate=None, tree_fanout: int = 0,
+                         bq: int | None = None, bn: int | None = None,
+                         sub: int | None = None, emit: str = "split",
+                         mark: Optional[Callable[[str], None]] = None):
+    """Distributed counting select — the sharded fused top-k WITHOUT a
+    concat/sort merge. Every rank of ``mesh`` calls it (SPMD); collectives
+    run over ``axis_names`` (``n_shards`` = product of their sizes).
+
+    q: (Q, W) replicated; x_local: (n_loc, W), this rank's slice, on the
+    rank's device. The result (dists (Q, k), ids (Q, k)) is replicated and
+    bit-identical to ``hamming_topk`` over the concatenation of every
+    shard's valid rows (under ``perm`` the DISTANCES keep that guarantee
+    but ties at the r* cut are picked in layout-position order):
+
+    1. each rank runs K1 over its slice — its (Q, bins) histogram is a
+       PARTIAL histogram of the global race (counters are additive);
+    2. one psum merges them; the global r*, below-count n_lt and emit
+       count derive exactly as in the single-device select;
+    3. each rank derives its below-r*/tie counts from its LOCAL histogram;
+       one tiny (Q, 2)-per-shard all-gather turns them into exclusive-scan
+       slot bases, so every rank owns a disjoint slice of the global
+       (Q, k) slot space, in global index order;
+    4. each rank runs K2 over its slice with those bases and ``id_base``
+       (split over runs of N tiles, as ``hamming_topk`` does, each run's
+       bases from K1's per-run histograms plus the shard's; ``emit=
+       "single"`` runs it as one run from the shard's bases), and a final
+       psum assembles the disjoint slots.
+
+    Cross-rank traffic is O(Q·bins) histogram counts + O(Q·n_shards) base
+    counts + the O(Q·k) output — never O(n_shards·Q·k) candidates.
+
+    ``n_valid``: this rank's valid-row count (an int; rows beyond it are
+    padding). ``id_base``/``n_total``: this rank's exclusive prefix of
+    valid rows and the global valid total, as ints — derived through an
+    all-gather of the counts when None (even shards need neither).
+    ``perm``: (n_loc,) local layout permutation (``layout.local_sort``);
+    winners are emitted as layout positions and mapped back to ids on the
+    slots this rank owns. ``block_mask``: this rank's (Q_pad/bq,
+    n_loc_pad/bn) enable mask.
+
+    ``participate``: optional (n_shards,) replicated 0/1 mask in flat-shard
+    order. A shard with participate == 0 contributes no rows: its n_valid
+    is zeroed, and id bases / n_total derive from the exclusive scan of the
+    MASKED counts — on the host, since the mask is replicated — so ids
+    renumber exactly as a store rebuilt from only the surviving rows. The
+    result is bit-identical to ``hamming_topk`` over that store (the
+    all-dead n_total == 0 edge included).
+
+    ``tree_fanout``: 0 reduces histograms and outputs with one flat psum
+    (strategy "hist_merge"); >= 2 uses ``_tree_psum`` (strategy
+    "hist_tree") — bit-identical results. ``mark``: called with each
+    phase's name as it starts ("k1", "hist_reduce", "counts", "k2",
+    "out_reduce") and "end" after the last, for timing."""
+    if emit not in ("split", "single"):
+        raise ValueError(f"emit={emit!r} (split|single)")
+    mark = mark or (lambda _phase: None)
+    axes = tuple(axis_names)
+    Q = q_packed.shape[0]
+    n_loc = x_local.shape[0]
+    dev = q_packed.device
+    k_k = min(k, n_shards * n_loc)
+    if k_k == 0:
+        return (torch.full((Q, k), bins, dtype=torch.int32, device=dev),
+                torch.full((Q, k), 0, dtype=torch.int32, device=dev))
+
+    flat, nv, ib, nt = _shard_rows(mesh, axes, n_shards, n_loc, n_valid,
+                                   id_base, n_total, participate, dev)
+    psum = ((lambda v: _tree_psum(v, mesh, axes, tree_fanout))
+            if tree_fanout >= 2 else (lambda v: _psum(v, mesh, axes)))
+
+    qp, xp, bq, bn, sub = _topk_blocked(q_packed, x_local, max(bins, k_k),
+                                        bq, bn, sub)
+
+    # pass 1 locally, then merge the partial histograms: ONE global race
+    mark("k1")
+    runs = (default_runs(qp.shape[0] // bq, xp.shape[0] // bn)
+            if emit == "split" else None)
+    out1 = hamming_hist_kernel(qp, xp, bins, nv, block_mask=block_mask,
+                               bq=bq, bn=bn, sub=sub, runs=runs)
+    hist, block_min = out1[0], out1[1]
+    hist_loc = hist[:Q]
+    mark("hist_reduce")
+    hist_glob = psum(hist_loc)
+    cum_g = torch.cumsum(hist_glob, dim=-1, dtype=torch.int32)
+    _, r_star, n_lt, n_emit = _radius_from_cum(cum_g, k_k)
+
+    # this rank's below-r*/tie counts from its LOCAL histogram; exclusive
+    # scan over the shard order = global-index-order slot bases
+    mark("counts")
+    base_lt, base_tie, l_lt, l_tie = _slot_bases(hist_loc, r_star, n_lt,
+                                                 mesh, axes, n_shards, flat)
+
+    # pass 2 locally: this rank's winners go straight into its disjoint
+    # global slots (padded query rows carry r* = -1: no emission)
+    mark("k2")
+    pad = qp.shape[0] - Q
+    r_p = torch.nn.functional.pad(r_star, (0, pad), value=-1)
+    sb_p = torch.nn.functional.pad(base_lt, (0, pad))
+    tb_p = torch.nn.functional.pad(base_tie, (0, pad))
+    od, oi = hamming_emit_kernel(
+        qp, xp, r_p, tb_p, bins, k_k, nv, block_min=block_min,
+        block_mask=block_mask, slot_base=sb_p,
+        id_base=None if perm is not None else ib, bq=bq, bn=bn, sub=sub,
+        run_bases=(None if runs is None else
+                   _run_bases(out1[2], r_p, tb_p, slot_base=sb_p)))
+    od, oi = od[:Q], oi[:Q]
+    if perm is not None:
+        # winners were emitted as layout positions: map them back to local
+        # ids on the slots THIS rank owns, zero elsewhere, so the psum
+        # below still assembles disjoint ranges
+        iota = torch.arange(k_k, dtype=torch.int32, device=dev)[None, :]
+        owned = (((iota >= base_lt[:, None])
+                  & (iota < (base_lt + l_lt)[:, None]))
+                 | ((iota >= base_tie[:, None])
+                    & (iota < (base_tie + l_tie)[:, None])))
+        perm = torch.as_tensor(perm, device=dev).to(torch.int32)
+        mapped = perm[torch.clamp(oi, max=n_loc - 1).long()] + ib
+        oi = torch.where(owned, mapped, 0)
+        od = torch.where(owned, od, 0)
+
+    # one reduction assembles both outputs' disjoint slots
+    mark("out_reduce")
+    out = psum(torch.stack([od, oi]))
+    mark("end")
+
+    # untouched slots -> (bins, n_total) sentinels, one O(k log k) sort
+    return _finalize_slots(out[0], out[1], n_emit, k, k_k, bins, nt)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,6 +1,7 @@
 """Block-shape heuristics + the measured autotune cache (port of
-``repro.kernels.tuning``, the single-device half: the fused select, the
-distance kernel and the approximate tier).
+``repro.kernels.tuning``: the fused select, the distance kernel, the
+approximate tier, and the sharded merge's fanout, tree levels and traffic
+hints, which are host arithmetic copied whole).
 
 Resolution order is **measured beats default**: every lookup first consults
 the :class:`AutotuneCache` (the same JSON file format as ``repro``'s, keyed
@@ -325,6 +326,84 @@ def cost_hints(Q: int, N: int, W: int, lanes: int, *, path: str = "fused",
         "distance_tile_bytes": 4 * Q * c,
         "distance_total_bytes": 4 * Q * N,
         "hint_source": "default",
+    }
+
+
+def merge_fanout(n_shards: int) -> int:
+    """Default hist_tree group width: roughly sqrt(n_shards) rounded to a
+    power of two, so the intra-host (level-0) and inter-host (tree) halves
+    of the merge carry balanced group sizes. Below 4 shards a tree cannot
+    beat the flat psum — return 0 (flat)."""
+    if n_shards < 4:
+        return 0
+    f = 2
+    while f * f < n_shards:
+        f *= 2
+    return f
+
+
+def tree_levels(n_shards: int, fanout: int) -> int:
+    """Number of reduction rounds ``ops._tree_psum`` runs for this shard
+    count and fanout (divisible rounds + the remainder round). Mirrors the
+    kernel's loop exactly so ``shard_hints`` predicts the real schedule."""
+    if fanout < 2 or n_shards < 2:
+        return 1 if n_shards > 1 else 0
+    levels, s = 0, 1
+    while s * fanout <= n_shards and n_shards % (s * fanout) == 0:
+        levels += 1
+        s *= fanout
+    if s < n_shards:
+        levels += 1
+    return levels
+
+
+def shard_hints(Q: int, k: int, bins: int, n_shards: int, *,
+                k_local: int | None = None,
+                strategy: str = "hist_merge",
+                fanout: int = 0) -> dict:
+    """Shard geometry + predicted CROSS-DEVICE merge traffic per query
+    batch, for ``QueryPlan.explain()`` on sharded plans.
+
+    ``hist_merge`` (the distributed counting select) moves exactly three
+    tiny tensors between devices: the (Q, bins) int32 partial-histogram
+    psum, the (Q, 2)-per-shard slot-base all-gather, and the (Q, k) x2
+    disjoint-slot output psum — O(Q·bins), independent of n_shards·k.
+    ``hist_tree`` moves the SAME tensors but reduces them hierarchically:
+    level 0 is the intra-host group psum, the remaining ``tree_levels - 1``
+    rounds are the inter-host tree — per-hop traffic shrinks from one
+    n_shards-wide reduction to ``fanout``-wide exchanges, reported split
+    into ``hist_tree_intra_bytes`` / ``hist_tree_inter_bytes``.
+    ``concat_sort`` (the legacy hierarchical merge) all-gathers every
+    shard's (k' dists, k' ids): O(n_shards·Q·k') candidate bytes. All are
+    reported so the ratios are inspectable whatever the plan chose."""
+    k_local = k if (k_local is None or k_local <= 0) else k_local
+    hist_psum = 4 * Q * bins
+    counts_gather = 2 * 4 * Q * n_shards
+    output_psum = 2 * 4 * Q * k
+    hist_total = hist_psum + counts_gather + output_psum
+    concat_total = 2 * 4 * Q * k_local * n_shards
+    eff_fanout = fanout if fanout >= 2 else (merge_fanout(n_shards) or 2)
+    levels = max(tree_levels(n_shards, eff_fanout), 1)
+    per_level = hist_psum + output_psum
+    tree_intra = per_level
+    tree_inter = (levels - 1) * per_level
+    tree_total = tree_intra + tree_inter + counts_gather
+    return {
+        "n_shards": n_shards,
+        "strategy": strategy,
+        "merge_bytes": (concat_total if strategy == "concat_sort"
+                        else tree_total if strategy == "hist_tree"
+                        else hist_total),
+        "hist_merge_bytes": hist_total,
+        "hist_psum_bytes": hist_psum,
+        "counts_gather_bytes": counts_gather,
+        "output_psum_bytes": output_psum,
+        "concat_sort_bytes": concat_total,
+        "fanout": eff_fanout if strategy == "hist_tree" else fanout,
+        "tree_levels": levels,
+        "hist_tree_intra_bytes": tree_intra,
+        "hist_tree_inter_bytes": tree_inter,
+        "hist_tree_bytes": tree_total,
     }
 
 

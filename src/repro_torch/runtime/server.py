@@ -22,7 +22,13 @@ rung at a time —
 — re-logging the active plan on every transition and recovering one rung
 per ``cooldown_ticks`` of calm. Transient search failures retry with
 bounded backoff, then try restoring the datastore from its last-good
-snapshot (``snapshot_dir``), then fail over to retrieval-off decode.
+snapshot (``snapshot_dir``), then — with a shard-fault-tolerance layer
+attached (``shard_search``, dist/search.py) — the SHARD-LOSS rung: serve a
+degraded-but-exact view of only the covered rows (honest coverage in
+``stats()["shards"]``), before finally failing over to retrieval-off
+decode. ``_after_tick`` drives the shard layer's background
+re-replication and swaps the full store back the moment coverage returns
+to 1.0.
 
 A mutable store (core/mutable.py) attaches directly: the server serves one
 installed epoch per view, runs cooperative compaction + flush + periodic
@@ -33,9 +39,9 @@ installed epoch per view, runs cooperative compaction + flush + periodic
 ``rate_limited``, ``quota_exceeded``, ``backlog_full``), and per-tenant
 counters land under ``stats()["tenants"]``.
 
-Not ported yet, and raising ``NotImplementedError``: the
-shard-fault-tolerance layer (``shard_search``, ``shard_axes``; ROADMAP
-queue 1 item 8).
+Not ported yet, and raising ``NotImplementedError``: ``shard_axes``
+(SPMD serving over the ranks of a mesh needs every rank to run the server
+loop; ROADMAP queue 1, the leftover of item 8).
 """
 from __future__ import annotations
 
@@ -63,10 +69,9 @@ QUEUED, ACTIVE, DONE, SHED, TIMED_OUT = (
     "queued", "active", "done", "shed", "timed_out")
 
 _UNPORTED_OPTIONS = {
-    "shard_search": "shard fault tolerance is not ported yet: ROADMAP "
-                    "queue 1 item 8",
-    "shard_axes": "sharded retrieval is not ported yet: ROADMAP queue 1 "
-                  "item 8",
+    "shard_axes": "SPMD serving over the ranks of a mesh is not ported yet "
+                  "(every rank would run the server loop): ROADMAP queue 1, "
+                  "the leftover of item 8",
 }
 
 
@@ -159,12 +164,9 @@ class Server:
                  tenants: Optional[tenant_mod.TenantArena] = None,
                  shard_search=None):
         self.device = device_mod.resolve(device)
-        unported = {"shard_search": shard_search,
-                    "shard_axes": tuple(shard_axes) or None}
-        for name, value in unported.items():
-            if value is not None:
-                raise NotImplementedError(f"Server({name}=...): "
-                                          f"{_UNPORTED_OPTIONS[name]}")
+        if tuple(shard_axes):
+            raise NotImplementedError(f"Server(shard_axes=...): "
+                                      f"{_UNPORTED_OPTIONS['shard_axes']}")
         if not device_mod.same(model.device, self.device):
             raise ValueError(f"the model is on {model.device}, the server "
                              f"runs on {self.device}")
@@ -192,6 +194,26 @@ class Server:
             collections.defaultdict(collections.Counter))
         self._tenant_tick_mut: Dict[str, int] = {}
         self.with_retrieval = cfg.retrieval.enabled and store is not None
+        # shard-fault-tolerance layer (dist/search.FaultTolerantSearch over
+        # the SAME corpus): when attached, the server tracks its coverage —
+        # a dead shard swaps in a degraded store VIEW of only the covered
+        # rows (the shard-loss rung of the failover ladder), maintenance
+        # re-replicates in the background, and recovery swaps the full
+        # store back. The view search is exact over the surviving rows;
+        # coverage is surfaced in stats()["shards"], never silently lost.
+        self.shard_search = shard_search
+        self._full_store = store
+        self._shard_cov_sig = None
+        self._shard_view_cache: Dict[tuple, object] = {}
+        if shard_search is not None:
+            if store is None:
+                raise ValueError("shard_search needs a datastore to shadow")
+            n_store = int(store.codes.shape[0])
+            if shard_search.map.total_rows != n_store:
+                raise ValueError(
+                    f"shard_search covers {shard_search.map.total_rows} "
+                    f"rows but the store has {n_store}")
+            self._shard_cov_sig = shard_search.covered_ranges()
         self.max_queue = max_queue
         self.default_deadline_ticks = default_deadline_ticks
         self.policy = degradation
@@ -294,6 +316,11 @@ class Server:
     # -- the decode step (guarded) ----------------------------------------
 
     def _step(self, token: np.ndarray, active: np.ndarray, r: Rung):
+        if r.nprobe and self.store is not self._full_store:
+            # masked-probe steps are built against the FULL store's bucket
+            # layout; a shard-degraded view has no layout — serve the view
+            # through the exact plan instead of a mis-aimed probe
+            r = self.rungs[0]
         fn = self._rung_fn(r)
         args = (self.model, torch.from_numpy(token).to(self.device),
                 self.state, torch.from_numpy(active).to(self.device))
@@ -331,6 +358,18 @@ class Server:
                 return self._step(token, active, r)
             except faults_mod.TRANSIENT:
                 self.counters["search_failures"] += 1
+        # shard-loss rung: if the shard layer says part of the fleet is
+        # gone, serve the degraded-but-exact surviving-rows view before
+        # giving up on retrieval entirely
+        if self.shard_search is not None and self._refresh_shard_view():
+            try:
+                if inj is not None:
+                    inj.check("store_search")
+                out = self._step(token, active, r)
+                self.counters["shard_failover_ticks"] += 1
+                return out
+            except faults_mod.TRANSIENT:
+                self.counters["search_failures"] += 1
         # the search is unavailable this tick: decode without retrieval
         # rather than stalling every slot
         self.counters["failover_ticks"] += 1
@@ -362,8 +401,46 @@ class Server:
         if tree is None:
             return False
         self.store = tree
+        if self.shard_search is not None:
+            # the snapshot is the FULL store; re-sync the shard view to
+            # current coverage on the next refresh
+            self._full_store = tree
+            self._shard_view_cache.clear()
+            self._shard_cov_sig = None
         self.counters["snapshot_restores"] += 1
         log.info("datastore restored from snapshot step %s", step)
+        return True
+
+    def _refresh_shard_view(self) -> bool:
+        """Sync ``self.store`` to the shard layer's current coverage:
+        full store when every range is covered, else a degraded VIEW of
+        only the covered rows (original row order, no layout — exact plan).
+        Views are cached per coverage signature so a flapping shard never
+        rebuilds the same view twice. Returns True iff the store swapped."""
+        sig = self.shard_search.covered_ranges()
+        if sig == self._shard_cov_sig:
+            return False
+        self._shard_cov_sig = sig
+        cov = self.shard_search.coverage()
+        if cov.complete:
+            self.store = self._full_store
+            self.counters["shard_recoveries"] += 1
+            log.info("shard coverage restored: serving the full store "
+                     "(%d rows)", cov.total_rows)
+            return True
+        view = self._shard_view_cache.get(sig)
+        if view is None:
+            full = self._full_store
+            m = torch.from_numpy(self.shard_search.covered_row_ids()).to(
+                full.codes.device)
+            view = full._replace(codes=full.codes[m], values=full.values[m],
+                                 layout=None, key_positions=None)
+            self._shard_view_cache[sig] = view
+        self.store = view
+        self.counters["shard_losses"] += 1
+        log.info("shard loss: serving degraded store view %s "
+                 "(coverage %.3f, dead=%s)", sig, cov.coverage_frac,
+                 list(cov.dead_shards))
         return True
 
     def _save_store_snapshot(self):
@@ -657,6 +734,16 @@ class Server:
             self._store_maintenance()
         if self.tenants is not None:
             self._tenant_maintenance()
+        if self.shard_search is not None:
+            # bounded background re-replication + recovery promotion, then
+            # keep the serving view in lockstep with coverage (a revived
+            # fleet swaps the full store back in without waiting for a
+            # search failure to notice)
+            m = self.shard_search.maintain(budget=1)
+            self.counters["shard_rebuilt_ranges"] += m["copied"]
+            self._refresh_shard_view()
+            if self.store is not self._full_store:
+                self.counters["shard_degraded_ticks"] += 1
         if self.policy is not None and len(self.rungs) > 1:
             new = self.policy.update(self.rung, len(self.rungs),
                                      len(self.waiting), dt)
@@ -684,7 +771,7 @@ class Server:
     def stats(self) -> dict:
         """Outcome counters + latency percentiles; ``lost`` MUST be 0 —
         every submitted request is done, shed, timed out, or still in
-        flight. The keys are ``repro``'s (its shard keys aside)."""
+        flight. The keys are ``repro``'s."""
         c = self.counters
         in_flight = sum(s is not None for s in self.slots) + len(self.waiting)
 
@@ -732,8 +819,21 @@ class Server:
             "flush_failures": c["flush_failures"],
             "audits": c["audits"],
             "audit_failures": c["audit_failures"],
+            **self._shard_stats(),
             **self._tenant_stats(),
         }
+
+    def _shard_stats(self) -> dict:
+        if self.shard_search is None:
+            return {}
+        cov = self.shard_search.coverage()
+        return {"shards": self.shard_search.stats(),
+                "coverage_frac": cov.coverage_frac,
+                "shard_losses": self.counters["shard_losses"],
+                "shard_recoveries": self.counters["shard_recoveries"],
+                "shard_degraded_ticks": self.counters["shard_degraded_ticks"],
+                "shard_failover_ticks": self.counters["shard_failover_ticks"],
+                "shard_rebuilt_ranges": self.counters["shard_rebuilt_ranges"]}
 
     def _tenant_stats(self) -> dict:
         if self.tenants is None:

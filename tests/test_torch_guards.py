@@ -59,7 +59,8 @@ def test_the_scan_covers_every_module_of_the_port():
                 "kernels/hamming.py", "core/index.py",
                 "kernels/approx_select.py", "checkpoint/wal.py",
                 "checkpoint/manager.py", "core/mutable.py",
-                "core/tenant.py"):
+                "core/tenant.py", "core/hierarchy.py", "dist/health.py",
+                "dist/sharding.py", "dist/search.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
@@ -117,6 +118,32 @@ def test_store_entry_points_raise_without_a_device(tmp_path):
                  lambda: tenant.TenantArena.recover(64, str(tmp_path))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_sharded_entry_points_raise_without_a_device():
+    """The sharded search, its placement, the fault-tolerant search and its
+    oracle, and a server shadowed by one, put their tensors on CUDA unless
+    given device="cpu"; the device is resolved before the mesh is read."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the entry points would run")
+    from repro_torch.dist import search
+
+    codes = np.zeros((16, 2), np.uint32)
+    cfg = scaled_down(get_config("gemma-2b"))
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    fts = search.FaultTolerantSearch(codes, 64, device="cpu")
+    for call in (lambda: engine.search_sharded(codes, codes[:2], 4, 64,
+                                               object(), ("data",)),
+                 lambda: engine.shard_datastore(codes, object(), ("data",)),
+                 lambda: search.FaultTolerantSearch(codes, 64),
+                 lambda: search.reference_over_covered(codes, codes[:2], 4,
+                                                       64, np.arange(16)),
+                 lambda: server.Server(cfg, model, max_batch=1, max_len=8,
+                                       shard_search=fts)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert fts.device.type == "cpu"
+    assert fts._data["unit0"][0].device.type == "cpu"
 
 
 def test_flash_attention_on_cpu_tensors_takes_the_plain_path():

@@ -3,7 +3,9 @@
 layout policies and forced-plan overrides, both packages must choose the
 same stages, and write the same reason and compact strings; the cost hints
 ``explain()`` reports must agree; what the port has not ported raises.
-Index plans (``plan_index``) and their forced overrides too."""
+Index plans (``plan_index``) and their forced overrides too, and sharded
+plans (``plan_sharded``): merge strategies, merge keys of ``parse_force``
+and the ``merge`` part of ``explain()``."""
 import dataclasses
 import warnings
 
@@ -97,9 +99,10 @@ def test_bad_requests_raise_like_reference():
 
 
 def test_unported_paths_raise_not_implemented():
-    """Sharded plans name their ROADMAP queue instead of quietly running
-    another path; the approximate tier, K3 (method='pallas') and gather
-    candidates, ported since, run and agree with the reference."""
+    """The approximate tier, K3 (method='pallas'), gather candidates and
+    sharded plans, ported since, run and agree with the reference (sharded
+    ones in test_torch_sharded.py); a sharded plan without its mesh
+    raises rather than running another path."""
     stats = tplan.StoreStats(**FLAT)
     rng = np.random.default_rng(0)
     qn = rng.integers(0, 1 << 32, (2, 4), dtype=np.uint32)
@@ -121,9 +124,9 @@ def test_unported_paths_raise_not_implemented():
                                      kind="kmeans", select="approx")
     with pytest.raises(ValueError, match="pruning stats"):
         tplan.execute(masked_approx, q, layout=object(), return_stats=True)
-    sharded = dataclasses.replace(
-        tplan.plan_local(stats, 4), merge=tplan.MergeStage(kind="sharded"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    sharded = tplan.plan_sharded(tplan.StoreStats(**FLAT, n_shards=4), 4,
+                                 axes=("data",))
+    with pytest.raises(ValueError, match="needs the mesh"):
         tplan.execute(sharded, q, codes=codes)
     jstats = jplan.StoreStats(**FLAT)
     pallas = tplan.plan_local(stats, 4, select="counting", method="pallas")
@@ -208,3 +211,85 @@ def test_stats_and_auto_chunk_match_reference():
     for d in (8, 64, 128, 256, 1024):
         for chunk in (1000, 1 << 16, 1 << 20):
             assert tplan._auto_chunk(chunk, d) == jplan._auto_chunk(chunk, d)
+
+
+# sharded plans: the planner's merge rules (DESIGN.md's sharded rows and
+# tests/test_shard_faults.py's hist_tree selection)
+SHARDED_ROWS = [
+    (8, {}), (8, dict(select="approx", recall_target=0.95)),
+    (8, dict(merge="concat_sort")), (64, {}),
+    (8, dict(merge="hist_tree", fanout=4)), (8, dict(reorder_local=True)),
+    (8, dict(k_local=4, select="fused", reorder_local=True)),
+    (8, dict(select="counting", reorder_local=True)), (4, {}),
+    (4, dict(merge="hist_tree")), (4, dict(uneven=True, k_local=4)),
+    (4, dict(merge="hist_merge", k_local=4)), (4, dict(fanout=3)),
+    (8, dict(layout_policy="require")),
+    (8, dict(select="approx", merge="hist_tree")),
+]
+SHARDED_FORCES = [None, "merge=concat_sort", "merge=hist_tree",
+                  "merge=hist_tree,fanout=4", "fanout=4", "k_local=4",
+                  "reorder_local=1", "reorder_local=0", "select=counting",
+                  "select=approx,recall_target=0.9", "merge=hist_merge",
+                  "select=fused_scan,layout=local_sort", "recall_target=0.5"]
+
+
+def _sharded(n_shards, kw, force=None):
+    stats = dict(FLAT, n_shards=n_shards)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return (jplan.plan_sharded(jplan.StoreStats(**stats), 16,
+                                   axes=("data",), force=force, **kw),
+                tplan.plan_sharded(tplan.StoreStats(**stats), 16,
+                                   axes=("data",), force=force, **kw))
+
+
+def _same_sharded(jp, tp):
+    for stage in ("probe", "candidates", "select", "merge"):
+        assert dataclasses.asdict(getattr(tp, stage)) == dataclasses.asdict(
+            getattr(jp, stage)), stage
+    assert tp.reason == _norm(jp.reason)
+    assert tp.compact() == jp.compact()
+    assert tp.n_shards == jp.n_shards
+
+
+@pytest.mark.parametrize("n_shards,kw", SHARDED_ROWS, ids=str)
+def test_plan_sharded_matches_reference(n_shards, kw):
+    """Stages, reason, compact form and explain() — the merge sub-dict of
+    the geometry (tuning.shard_hints) and the explain_str merge lines
+    included; only the kernel names are the port's own."""
+    jp, tp = _sharded(n_shards, kw)
+    _same_sharded(jp, tp)
+    je, te = jp.explain(), tp.explain()
+    for key in ("shape", "stages", "geometry", "predicted_pruning",
+                "compact"):
+        assert te[key] == je[key], key
+    tlines = tp.explain_str().splitlines()
+    jlines = jp.explain_str().splitlines()
+    assert [ln for ln in tlines if "merge" in ln.split(":")[0]] == [
+        ln for ln in jlines if "merge" in ln.split(":")[0]]
+    if tp.merge.strategy in tplan.HIST_STRATEGIES:
+        assert any("hamming_topk_sharded" in k or "approx_topk_sharded" in k
+                   for k in te["kernels"])
+
+
+@pytest.mark.parametrize("force", SHARDED_FORCES, ids=str)
+@pytest.mark.parametrize("row", [0, 1, 2, 3, 6])
+def test_sharded_forced_overrides_match_reference(row, force):
+    """parse_force's merge keys (merge, fanout, k_local, reorder_local) and
+    the demotions they trigger, as repro applies them."""
+    n_shards, kw = SHARDED_ROWS[row]
+    jp, tp = _sharded(n_shards, kw, force=force)
+    _same_sharded(jp, tp)
+
+
+def test_bad_sharded_requests_raise_like_reference():
+    stats = dict(FLAT, n_shards=4)
+    for kw in (dict(merge="nope"), dict(force="merge=hist_tree,fanout=1"),
+               dict(force="merge=sideways")):
+        with pytest.raises(ValueError):
+            jplan.plan_sharded(jplan.StoreStats(**stats), 16,
+                               axes=("data",), **kw)
+        with pytest.raises(ValueError):
+            tplan.plan_sharded(tplan.StoreStats(**stats), 16,
+                               axes=("data",), **kw)
+    assert tplan.HIST_STRATEGIES == jplan.HIST_STRATEGIES

@@ -11,6 +11,7 @@ JAX PRNG), so it is held to invariants: the same PCA subspace, an
 orthogonal rotation and an objective within 2 % of the reference's."""
 import dataclasses
 import logging
+import types
 
 import numpy as np
 import jax
@@ -191,14 +192,26 @@ def test_synthetic_datastore_and_logged_plan(caplog):
 
 
 def test_unported_retrieval_paths_raise(stores):
-    """Sharded plans still name their queue; the degraded probe calls and
-    the approx tier, ported since, run and agree with repro."""
+    """Sharded plans, the degraded probe calls and the approx tier, ported
+    since, run and agree with repro (the sharded search itself in
+    test_torch_sharded.py): a sharded store's plan is repro's for the same
+    shard count, the store's codes being one rank's slice."""
     jc, tc = _cfgs(code_bits=64)
     js, ts = stores["hamming_prefix"]
     hid = torch.zeros((2, 128))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tret.plan_for_store(ts, tc.retrieval, 2, mesh=object(),
-                            axes=("data",))
+    n_loc = ts.codes.shape[0] // 4
+    sharded = ts._replace(codes=ts.codes[:n_loc])
+    jmesh = types.SimpleNamespace(shape={"data": 4})
+    tmesh = types.SimpleNamespace(mesh_dim_names=("data",),
+                                  size=lambda dim: 4)
+    for rcfg_kw in ({}, {"local_k": 16}):
+        jr = dataclasses.replace(jc.retrieval, **rcfg_kw)
+        tr = dataclasses.replace(tc.retrieval, **rcfg_kw)
+        jp = jret.plan_for_store(js._replace(codes=js.codes[:n_loc * 4]),
+                                 jr, 2, mesh=jmesh, axes=("data",))
+        tp = tret.plan_for_store(sharded, tr, 2, mesh=tmesh, axes=("data",))
+        assert (tp.compact(), tp.n_shards, tp.n) == (jp.compact(), 4, jp.n)
+        assert tp.merge == tplan.MergeStage(**dataclasses.asdict(jp.merge))
     hid_np = np.random.default_rng(4).standard_normal((3, 128)).astype(
         np.float32)
     for rt in (0.8, 1.0):

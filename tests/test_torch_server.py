@@ -8,7 +8,9 @@ own hidden states, on the same requests: the reference on a 1x1 mesh, the
 port on the CPU. Their output tokens must be identical and their
 ``stats()`` counters equal (latencies aside); with a seeded
 ``FaultInjector`` on ``store_search`` both count the same retries,
-failures and failover ticks."""
+failures and failover ticks; with a ``FaultTolerantSearch`` attached
+(``shard_search``) both walk the same shard-loss rung under the same kill
+schedule."""
 import dataclasses
 
 import numpy as np
@@ -24,6 +26,7 @@ from repro.core import layout as jlay
 from repro.core import mutable as jmut
 from repro.core import tenant as jten
 from repro.core import retrieval as jret
+from repro.dist import search as jsearch
 from repro.dist import steps as jsteps
 from repro.models import lm as jlm
 from repro.runtime import faults as jfaults
@@ -33,6 +36,7 @@ from repro_torch.configs import get_config, scaled_down
 from repro_torch.core import mutable as tmut
 from repro_torch.core import retrieval as tret
 from repro_torch.core import tenant as tten
+from repro_torch.dist import search as tsearch
 from repro_torch.dist import steps
 from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as tlm
@@ -185,7 +189,6 @@ def test_prefill_step_matches_reference_prefill(env):
 
 
 @pytest.mark.parametrize("option,value,queue", [
-    ("shard_search", object(), "item 8"),
     ("shard_axes", ("data",), "item 8"),
 ])
 def test_unported_server_options_raise(env, option, value, queue):
@@ -193,6 +196,46 @@ def test_unported_server_options_raise(env, option, value, queue):
     with pytest.raises(NotImplementedError, match=queue):
         tserver.Server(tc, model, max_batch=1, max_len=8, store=tstore,
                        device="cpu", **{option: value})
+
+
+def test_shard_loss_rung_matches_reference(env):
+    """Both servers shadow the store with a FaultTolerantSearch of its codes
+    (4 units, factor 1). unit2 killed after 3 ticks: each serves the
+    degraded view of the covered rows (shard_losses 1); revived with its
+    data 3 ticks later, maintain() brings the full store back
+    (shard_recoveries 1). Tokens and stats() — stats()["shards"] included
+    — are equal, and nothing is lost."""
+    jc, tc, params, model, store, tstore, corpus, mesh = env
+    codes = np.asarray(store.codes)
+    jf = jsearch.FaultTolerantSearch(codes, jc.retrieval.code_bits)
+    tf = tsearch.FaultTolerantSearch(codes, tc.retrieval.code_bits,
+                                     device="cpu")
+    js = jserver.Server(jc, mesh, params, max_batch=2, max_len=24,
+                        store=store, shard_search=jf)
+    ts = tserver.Server(tc, model, max_batch=2, max_len=24, store=tstore,
+                        device="cpu", shard_search=tf)
+    for srv, mod, fts in ((js, jserver, jf), (ts, tserver, tf)):
+        for req in _requests(mod, corpus):
+            srv.submit(req)
+        for _ in range(3):
+            srv.tick()
+        fts.kill("unit2")
+        for _ in range(3):
+            srv.tick()
+        assert srv.store is not srv._full_store
+        assert srv.store.codes.shape[0] == fts.coverage().covered_rows
+        fts.revive("unit2", with_data=True)
+        srv.run(max_ticks=200)
+        assert srv.store is srv._full_store
+    _assert_same(js, ts)
+    st = ts.stats()
+    assert (st["shard_losses"], st["shard_recoveries"]) == (1, 1)
+    assert st["shard_degraded_ticks"] == 3 and st["coverage_frac"] == 1.0
+    assert st["shards"]["registry"]["states"]["unit2"] == "healthy"
+    with pytest.raises(ValueError, match="covers"):
+        tserver.Server(tc, model, max_batch=2, max_len=24,
+                       store=tstore._replace(codes=tstore.codes[:8]),
+                       device="cpu", shard_search=tf)
 
 
 def test_mutable_store_raises(env, tmp_path):
