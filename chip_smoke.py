@@ -96,10 +96,22 @@ kernel launch counts set to 0 just before it and read just after:
   pad rows, one tenant smaller than k) packed in one arena; a mixed batch
   of 4096 queries through one K1 and one K2 launch, each tenant equal to
   its own store's search, the run-split emit equal to the single-run one.
+* training — gemma-2b at its registered width and depth (2,506,172,416
+  bf16 parameters, f32 AdamW moments, remat on) through
+  ``trainer.train`` for 4 steps of 8 x 2048 tokens in 4 microbatches
+  (train_4k's 256 x 4096 cut for one card's memory and the time limit):
+  per step loss, grad norm, lr and ms; tokens/s, train_mfu and peak
+  memory; one more step under ``torch.profiler``. Every loss and grad
+  norm finite, every parameter changed, params and moments on the card,
+  no K1-K4 launch (training takes the blockwise attention path). Then a
+  ``scaled_down`` f32 gemma: 3 ``make_train_step`` steps on the card and
+  on the CPU from the same weights and batches, the losses and params
+  within stated tolerances; and ``trainer.train`` preempted at step 3 and
+  resumed from its checkpoint, equal to an uninterrupted run.
 
 Output: progress lines; ``main_path``, ``board_scan``, ``index_path``,
 ``sharded_path``, ``shard_faults``, ``serving_path``, ``approx_path``,
-``mutable_path`` and ``tenant_path`` JSON lines;
+``mutable_path``, ``tenant_path`` and ``train_path`` JSON lines;
 a ``kernels`` JSON line (launches on the paths, error against the plain
 version, kernel / plain / library ms, and the bound: the least time for
 the operations or the HBM bytes, whichever is larger); the card's name and
@@ -114,6 +126,7 @@ import contextlib
 import ctypes
 import dataclasses
 import datetime
+import gc
 import json
 import statistics
 import subprocess
@@ -130,7 +143,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import carry, device  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.configs import scaled_down  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.core import binary, index, layout, plan  # noqa: E402
 from repro_torch.core import quantize, retrieval, topk  # noqa: E402
 from repro_torch.core import engine, hierarchy, mutable, tenant  # noqa: E402
@@ -141,7 +156,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hamming as tham  # noqa: E402
 from repro_torch.kernels import topk_select as tsel  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.runtime import faults, server  # noqa: E402
+from repro_torch.optim import optimizer  # noqa: E402
+from repro_torch.runtime import faults, server, trainer  # noqa: E402
 
 N_ROWS = 1 << 20         # 1M codes: SIFT1M/GIST1M-class store
 D_BITS = 256             # kNN-TagSpace: d = 256, k = 16, 4096 queries
@@ -242,6 +258,34 @@ SHARD_TIMEOUT_S = 300          # a rank's collectives, and the whole phase
 SHARD_PHASES = ("k1", "hist_reduce", "counts", "k2", "out_reduce")
 # the shard-fault-tolerance layer over the main store: units, replication
 FTS_UNITS, FTS_FACTOR = 4, 2
+# training: gemma-2b at full width and depth through trainer.train, cut from
+# train_4k (256 x 4096 tokens a step) to 8 x 2048 in 4 microbatches of 2 for
+# one card's memory and the run's time limit; then a scaled_down f32 gemma
+# (card against CPU, preemption and resume)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 2048, 8, 4, 4
+TRAIN_SMALL_SEQ, TRAIN_SMALL_BATCH = 128, 8
+TRAIN_CHECK_STEPS = 3
+TRAIN_PREEMPT_AT, TRAIN_RESUME_STEPS, TRAIN_CKPT_EVERY = 3, 6, 2
+# card against CPU, f32 with TF32 off, for two seeds: the first loss is
+# taken before any update (summation order only); later losses and the
+# final params after 3 AdamW steps at lr 3e-4. Adam's first step moves an
+# entry by lr * g / (|g| + 1e-8), so an entry whose gradient is rounding
+# noise near zero moves apart by up to 2 lr where its sign flips, and by
+# a part of that where |g| is near 1e-8. A control (the first seed with
+# TF32 on: 10-bit products) must read above every limit, so a limit that
+# a lower precision passes fails the run. Each limit lies between the
+# largest reading of seeds 0 and 1 and the control's, with a factor of 4
+# or more to each (H100 80GB HBM3, 700 W; PERF.md §6): the losses read
+# 4.77e-7 (one f32 ulp at 6.25) against 1.76e-5 at step 0 and 1.91e-5 at
+# most; the params 3.02e-5 (seed 1, a part-flipped entry) against 7.16e-4
+# (a flipped one)
+TRAIN_CHECK_SEEDS = 2
+TRAIN_LOSS0_ATOL, TRAIN_LOSS_ATOL, TRAIN_PARAM_ATOL = 2e-6, 4e-6, 1.5e-4
+TRAIN_PROFILE_TOP = 12
+# preempted and resumed against uninterrupted, both on the card: the same
+# kernels on the same inputs; atomics in CUDA's index backward may reorder
+# f32 sums, so the params are held within this bound (0 means bit-equal)
+TRAIN_RESUME_ATOL = 1e-6
 
 
 def fail(msg: str) -> int:
@@ -2298,6 +2342,275 @@ def shard_faults(codes_np, q, fused):
     return out
 
 
+def _max_param_diff(a, b) -> float:
+    return max(float((pa.detach().cpu().float() - pb.detach().cpu().float())
+                     .abs().max())
+               for (_, pa), (_, pb) in zip(a.named_parameters(),
+                                           b.named_parameters()))
+
+
+def _kernel_kind(name: str) -> str:
+    """A device event's kind, from its name (cuBLAS, CUTLASS and ATen)."""
+    n = name.lower()
+    if "sgemm" in n or "f32f32" in n:
+        return "f32 GEMM (CUDA cores)"
+    if "gemm" in n or "nvjet" in n or "xmma" in n:
+        return "GEMM (tensor cores)"
+    if "copy" in n or "memcpy" in n or "memset" in n:
+        return "copy or cast"
+    if "elementwise" in n:
+        return "elementwise"
+    if "reduce" in n:
+        return "reduction"
+    return "other"
+
+
+def _profile_step(step_fn, model, opt, batch, step) -> dict:
+    """One train step under torch.profiler: wall ms, the summed device time
+    of its kernels and copies, by kind, and the kernels that take the
+    most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(model, opt, batch, step)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    device_ms = sum(by_name.values())
+    by_kind: dict = {}
+    for n, ms in by_name.items():
+        by_kind[_kernel_kind(n)] = by_kind.get(_kernel_kind(n), 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TRAIN_PROFILE_TOP]
+    return {"wall_ms": wall_ms, "device_ms": device_ms or "not measured",
+            "busy_share": device_ms / wall_ms if device_ms else
+            "not measured", "kernels": len(by_name), "by_kind": by_kind,
+            "top": [[n[:90], ms] for n, ms in top]}
+
+
+def train_full_width(seed: int) -> dict:
+    """gemma-2b at its registered width and depth through trainer.train."""
+    cfg = get_config(ARCH)
+    n_params = lm.param_count(cfg)
+    tc = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=1,
+                     microbatches=TRAIN_MICRO, seed=seed)
+    # the initial weights, as the trainer draws them, kept on the host
+    init = lm.init_params(torch.Generator(device=DEV).manual_seed(seed),
+                          cfg, device=DEV)
+    snap = {n: p.detach().cpu() for n, p in init.named_parameters()}
+    del init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    print(f"  model: {ARCH}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} x {cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; {n_params:,} parameters; AdamW f32 moments, remat "
+          f"{tc.remat}", flush=True)
+    print(f"  cut: train_4k takes 256 x 4096 tokens a step; this run takes "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} in {TRAIN_MICRO} "
+          f"microbatches, {TRAIN_STEPS} steps (one card's memory, the time "
+          f"limit)", flush=True)
+    steps_out = []
+    rep = trainer.train(
+        cfg, tc, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, device=DEV,
+        log_every=0, on_metrics=lambda s, m: steps_out.append(
+            {"step": s, "loss": float(m["loss"]),
+             "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"])}))
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for row, dt in zip(steps_out, rep.step_times):
+        row["ms"] = dt * 1e3
+        print(f"  step {row['step']}: loss {row['loss']:.4f}, grad_norm "
+              f"{row['grad_norm']:.4f}, lr {row['lr']:.3e}, "
+              f"{row['ms']:.1f} ms", flush=True)
+    if len(steps_out) != TRAIN_STEPS or rep.steps_done != TRAIN_STEPS:
+        raise AssertionError(f"{rep.steps_done} steps ran, expected "
+                             f"{TRAIN_STEPS}")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in steps_out):
+        raise AssertionError(f"a loss or grad norm is not finite: "
+                             f"{steps_out}")
+    # step 0 runs at lr 0 (warmup 1): the weights move from step 1 on
+    unchanged = [n for n, p in rep.model.named_parameters()
+                 if torch.equal(p.detach().cpu(), snap[n])]
+    if unchanged:
+        raise AssertionError(f"parameters unchanged by training: "
+                             f"{unchanged[:5]} ({len(unchanged)} in all)")
+    del snap
+    st = rep.opt_state
+    tensors = list(rep.model.parameters()) + [st.count] + [
+        t for tree in (st.mu, st.nu) for t in tree.values()]
+    off = sum(t.device.type != torch.device(DEV).type for t in tensors)
+    if off:
+        raise AssertionError(f"{off} parameters or moments are not on the "
+                             f"card")
+    if sum(p.numel() for p in rep.model.parameters()) != n_params:
+        raise AssertionError("the model's parameters != param_count")
+    step_s = statistics.median(rep.step_times[1:])
+    # one more step under the profiler: where the step's time goes
+    dc = pipeline.data_config_for(cfg, TRAIN_SEQ, TRAIN_BATCH, tc.seed)
+    prof = _profile_step(steps.make_train_step(cfg, tc, device=DEV),
+                         rep.model, rep.opt_state,
+                         pipeline.make_batch(dc, TRAIN_STEPS), TRAIN_STEPS)
+    print(f"  profiled step: wall {prof['wall_ms']:.1f} ms, device "
+          f"{prof['device_ms']} ms over {prof['kernels']} kernel names; by "
+          f"kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+              prof["by_kind"].items(), key=lambda kv: -kv[1])) + "; top:",
+          flush=True)
+    for name, ms in prof["top"]:
+        print(f"    {ms:9.2f} ms  {name}", flush=True)
+    out = {"arch": ARCH, "n_params": n_params, "dtype": cfg.dtype,
+           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+           "microbatches": TRAIN_MICRO, "steps": steps_out,
+           "cut": f"train_4k 256 x 4096 -> {TRAIN_BATCH} x {TRAIN_SEQ}, "
+                  f"{TRAIN_STEPS} steps",
+           "median_step_ms": step_s * 1e3,
+           "tokens_per_s": tokens / step_s,
+           "train_mfu": 6 * n_params * tokens / (step_s * BF16_FLOPS_PER_S),
+           "peak_mem_gb": peak_gb, "profile": prof}
+    print(f"  steady step (median of steps 1-{TRAIN_STEPS - 1}) "
+          f"{out['median_step_ms']:.1f} ms, {out['tokens_per_s']:.0f} "
+          f"tokens/s, train_mfu {out['train_mfu']:.4f}, peak memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    del rep, st, tensors
+    torch.cuda.empty_cache()
+    return out
+
+
+def _small_run(cfg, tc, dc, dev, seed, tf32=False):
+    """TRAIN_CHECK_STEPS make_train_step steps of the scaled model on
+    ``dev`` from weights drawn on the CPU: (model, per-step losses)."""
+    model = lm.init_params(torch.Generator().manual_seed(seed + 11), cfg,
+                           device=dev)
+    opt = optimizer.init(dict(model.named_parameters()), tc)
+    step = steps.make_train_step(cfg, tc, device=dev)
+    losses = []
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        for s in range(TRAIN_CHECK_STEPS):
+            model, opt, m = step(model, opt, pipeline.make_batch(dc, s), s)
+            losses.append(float(m["loss"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if next(model.parameters()).device.type != torch.device(dev).type:
+        raise AssertionError(f"the model left {dev}")
+    return model, losses
+
+
+def _against_cpu(card, cpu) -> dict:
+    (gm, gl), (cm, cl) = card, cpu
+    err = [abs(a - b) for a, b in zip(gl, cl)]
+    return {"loss_card": gl, "loss_cpu": cl, "loss_abs_err": err,
+            "loss0_abs_err": err[0], "loss_max_abs_err": max(err),
+            "param_max_abs_err": _max_param_diff(gm, cm)}
+
+
+def train_card_vs_cpu(seed: int) -> dict:
+    """The same initial weights and batches through make_train_step on the
+    card and on the CPU, f32 with TF32 off, for TRAIN_CHECK_SEEDS seeds;
+    then the first seed on the card with TF32 on, as the control."""
+    cfg = scaled_down(get_config(ARCH), dtype="float32")
+    limits = {"loss0_abs_err": TRAIN_LOSS0_ATOL,
+              "loss_max_abs_err": TRAIN_LOSS_ATOL,
+              "param_max_abs_err": TRAIN_PARAM_ATOL}
+    out = {"steps": TRAIN_CHECK_STEPS, "tol": limits, "seeds": {}}
+    for sd in range(seed, seed + TRAIN_CHECK_SEEDS):
+        tc = TrainConfig(total_steps=TRAIN_CHECK_STEPS, warmup_steps=0,
+                         seed=sd)
+        dc = pipeline.data_config_for(cfg, TRAIN_SMALL_SEQ,
+                                      TRAIN_SMALL_BATCH, sd)
+        cpu = _small_run(cfg, tc, dc, "cpu", sd)
+        r = _against_cpu(_small_run(cfg, tc, dc, DEV, sd), cpu)
+        out["seeds"][sd] = r
+        print(f"  card vs CPU, seed {sd} ({cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, f32): loss errors "
+              f"{', '.join(f'{e:.2e}' for e in r['loss_abs_err'])}, params "
+              f"{r['param_max_abs_err']:.2e}", flush=True)
+        if sd == seed:
+            ctl = _against_cpu(_small_run(cfg, tc, dc, DEV, sd, tf32=True),
+                               cpu)
+            out["control_tf32"] = ctl
+            print(f"  control, seed {sd} with TF32 on: loss errors "
+                  f"{', '.join(f'{e:.2e}' for e in ctl['loss_abs_err'])}, "
+                  f"params {ctl['param_max_abs_err']:.2e}", flush=True)
+        del cpu
+    for key, lim in limits.items():
+        worst = max(r[key] for r in out["seeds"].values())
+        if worst > lim:
+            raise AssertionError(f"card and CPU training disagree: {key} "
+                                 f"{worst} > {lim}: {out}")
+        if out["control_tf32"][key] <= lim:
+            raise AssertionError(f"the TF32 control passes the {key} limit "
+                                 f"{lim}: {out['control_tf32']}")
+    return out
+
+
+def train_preempt_resume(seed: int) -> dict:
+    """trainer.train preempted at TRAIN_PREEMPT_AT and resumed, against an
+    uninterrupted run, all on the card."""
+    cfg = scaled_down(get_config(ARCH), dtype="float32")
+    tc = TrainConfig(total_steps=TRAIN_RESUME_STEPS, warmup_steps=1,
+                     seed=seed)
+    kw = dict(seq_len=TRAIN_SMALL_SEQ, global_batch=TRAIN_SMALL_BATCH,
+              device=DEV, log_every=0)
+    full = trainer.train(cfg, tc, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = str(Path(tmp) / "run")
+        try:
+            trainer.train(cfg, tc, ckpt_dir=root,
+                          ckpt_every=TRAIN_CKPT_EVERY,
+                          preempt_at=TRAIN_PREEMPT_AT, **kw)
+            raise AssertionError("the preempted run did not raise")
+        except trainer.PreemptionError:
+            pass
+        rep = trainer.train(cfg, tc, ckpt_dir=root,
+                            ckpt_every=TRAIN_CKPT_EVERY, **kw)
+    err = _max_param_diff(rep.model, full.model)
+    out = {"preempt_at": TRAIN_PREEMPT_AT, "steps": TRAIN_RESUME_STEPS,
+           "resumed_from": rep.resumed_from,
+           "final_loss": rep.final_loss, "uninterrupted_loss": full.final_loss,
+           "param_max_abs_err": err, "tol": TRAIN_RESUME_ATOL}
+    print(f"  preempted at step {TRAIN_PREEMPT_AT}, resumed from "
+          f"{rep.resumed_from}: final params {err:.2e} from the "
+          f"uninterrupted run, loss {rep.final_loss:.6f} vs "
+          f"{full.final_loss:.6f}", flush=True)
+    if rep.resumed_from != TRAIN_PREEMPT_AT or err > TRAIN_RESUME_ATOL:
+        raise AssertionError(f"resume differs from the uninterrupted run: "
+                             f"{out}")
+    return out
+
+
+def train_path(seed: int) -> dict:
+    """Training on the card: gemma-2b at full width, then the card against
+    the CPU and preemption with resume on a scaled_down model. None of
+    K1-K4 may launch: training takes the blockwise attention path."""
+    t0 = time.perf_counter()
+    tsel.reset_launch_counts()
+    tham.reset_launch_counts()
+    fa.reset_launch_counts()
+    out = train_full_width(seed)
+    out["card_vs_cpu"] = train_card_vs_cpu(seed)
+    out["preempt_resume"] = train_preempt_resume(seed)
+    out["kernel_launches"] = {
+        "K1": tsel.hamming_hist_kernel.launches,
+        "K2": tsel.hamming_emit_kernel.launches,
+        "K3": tham.hamming_distance_kernel.launches,
+        "K4": fa.flash_attention_kernel.launches}
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"a kernel launched on the training path: "
+                             f"{out['kernel_launches']}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  train phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2435,6 +2748,14 @@ def main() -> int:
     print(f"tenant path: {len(TENANT_SIZES)} tenants, Q={N_QUERIES} k={K}",
           flush=True)
     tp = tenant_path(codes_np, q_np)
+
+    # phase 11: training, with the serving phases' memory given back
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"train path: {ARCH} through trainer.train, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens a step", flush=True)
+    trp = train_path(args.seed)
     print("main_path: " + json.dumps({
         "search_ms": main_ms, "queries_per_s": N_QUERIES / main_ms * 1e3,
         "blocks_skipped_frac": kt["skipped"],
@@ -2452,6 +2773,7 @@ def main() -> int:
     print("approx_path: " + json.dumps(ap), flush=True)
     print("mutable_path: " + json.dumps(mp), flush=True)
     print("tenant_path: " + json.dumps(tp), flush=True)
+    print("train_path: " + json.dumps(trp), flush=True)
     src = "src/repro_torch/kernels/csrc/topk_select.cu"
     # K1/K2 as they were before this design: CUDA-core popcounts, K2 as one
     # run (measured in this run by route_comparison)

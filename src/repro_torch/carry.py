@@ -2,9 +2,10 @@
 
 ``repro`` hands its state over as numpy arrays: packed codes (uint32),
 optionally a ``BucketLayout``'s ``codes``/``perm``/``inv``/``starts``, an
-``lm.init_params`` pytree, ``ITQParams``, a ``DataStore`` and the arrays
-of a ``KMeansIndex`` or ``LSHIndex``. These functions return the port's
-tensors, ``BucketLayout``, ``KNNEngine``, model, ``ITQParams``,
+``lm.init_params`` pytree and an ``AdamState`` over it, ``ITQParams``, a
+``DataStore`` and the arrays of a ``KMeansIndex`` or ``LSHIndex``. These
+functions return the port's tensors, ``BucketLayout``, ``KNNEngine``,
+model, optimizer state, ``ITQParams``,
 ``DataStore`` and indexes on the given device (CUDA unless
 ``device="cpu"`` is asked for; with no device given and no CUDA device
 present they raise). Codes keep their bit pattern: uint32 words are
@@ -22,6 +23,7 @@ from repro_torch.core import index, quantize, retrieval
 from repro_torch.core.engine import KNNEngine, as_codes
 from repro_torch.core.layout import BucketLayout
 from repro_torch.models import lm
+from repro_torch.optim import optimizer
 
 
 def codes(packed, device=None) -> torch.Tensor:
@@ -58,30 +60,57 @@ def tensor(a, device=None) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(dev)
 
 
-def lm_params(tree, cfg: ModelConfig, device=None) -> lm.LM:
-    """``repro``'s ``lm.init_params`` pytree as numpy (``blocks`` leaves
-    stacked on a leading layer axis) -> the port's model."""
-    dev = device_mod.resolve(device)
-    model = lm._build(cfg, dev)
+def _flat_lm_tree(tree, n_layers: int) -> dict:
+    """A tree of ``repro``'s ``lm.init_params`` structure (``blocks``
+    leaves stacked on a leading layer axis) -> {module name: array}."""
     flat = {"embed.table": tree["embed"]["table"],
             "final_norm.scale": tree["final_norm"]["scale"]}
     if "unembed" in tree:
         flat["unembed.table"] = tree["unembed"]["table"]
     for part, leaves in tree["blocks"].items():
         for leaf, stacked in _leaves(leaves):
-            for i in range(cfg.num_layers):
+            for i in range(n_layers):
                 flat[f"blocks.{i}.{part}.{leaf}"] = np.asarray(stacked)[i]
-    params = dict(model.named_parameters())
-    if set(flat) != set(params):
-        raise ValueError(f"pytree leaves {sorted(set(flat) ^ set(params))} "
-                         f"do not match the model")
-    for name, p in params.items():
-        t = tensor(flat[name], dev)
+    return flat
+
+
+def _keyed_like(tree, model: lm.LM, dev) -> dict:
+    """A ``repro`` tree of the params' structure -> tensors keyed like
+    ``model.named_parameters()``."""
+    flat = _flat_lm_tree(tree, len(model.blocks))
+    names = {n for n, _ in model.named_parameters()}
+    if set(flat) != names:
+        raise ValueError(f"pytree leaves {sorted(set(flat) ^ names)} do not "
+                         f"match the model")
+    return {n: tensor(flat[n], dev) for n in sorted(names)}
+
+
+def lm_params(tree, cfg: ModelConfig, device=None) -> lm.LM:
+    """``repro``'s ``lm.init_params`` pytree as numpy (``blocks`` leaves
+    stacked on a leading layer axis) -> the port's model."""
+    dev = device_mod.resolve(device)
+    model = lm._build(cfg, dev)
+    flat = _keyed_like(tree, model, dev)
+    for name, p in model.named_parameters():
+        t = flat[name]
         if t.shape != p.shape or t.dtype != p.dtype:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} != "
                              f"{tuple(p.shape)} {p.dtype}")
         p.copy_(t)
     return model
+
+
+def adam_state(state, model: lm.LM, device=None) -> optimizer.AdamState:
+    """``repro``'s ``optimizer.AdamState`` as numpy (each moment tree of
+    the params' structure) -> the port's, keyed like
+    ``model.named_parameters()``."""
+    dev = device_mod.resolve(device)
+    keyed = lambda t: None if t is None else _keyed_like(t, model, dev)
+    return optimizer.AdamState(
+        mu=keyed(state.mu), nu=keyed(state.nu),
+        count=tensor(np.asarray(state.count, np.int32), dev),
+        ef=keyed(state.ef), mu_scale=keyed(state.mu_scale),
+        nu_scale=keyed(state.nu_scale))
 
 
 def _leaves(d, prefix=""):

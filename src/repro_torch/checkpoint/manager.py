@@ -112,14 +112,15 @@ def describe(tree: Any) -> str:
 # leaves
 # ---------------------------------------------------------------------------
 
-def _to_savable(leaf) -> np.ndarray:
-    """A leaf as the numpy array npz stores (bfloat16 as uint16 bits)."""
+def _to_savable(leaf, copy: bool = False) -> np.ndarray:
+    """A leaf as the numpy array npz stores (bfloat16 as uint16 bits);
+    with ``copy`` it shares no memory with ``leaf``, also on the CPU."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach().to("cpu", copy=copy)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
         return t.numpy()
-    arr = np.asarray(leaf)
+    arr = np.array(leaf) if copy else np.asarray(leaf)
     if arr.dtype.kind == "V" or arr.dtype.name in ("bfloat16",
                                                    "float8_e4m3fn",
                                                    "float8_e5m2"):
@@ -178,8 +179,9 @@ def save(root: str, step: int, tree: Any, process_index: int = 0,
          blocking: bool = True,
          fault_hook: Optional[Any] = None) -> Optional[SaveHandle]:
     """Atomically write ``tree`` (a tree of tensors or arrays) for
-    ``step``. The leaves are copied to the host before this returns, also
-    for a non-blocking save.
+    ``step``. The leaves are copied to the host before this returns; a
+    non-blocking save copies also the leaves already there, so updates
+    made in place while it writes do not reach the checkpoint.
 
     ``fault_hook`` (zero-arg callable) runs mid-write — after the tmp dir
     is populated, before the rename — i.e. at the point a kill leaves an
@@ -187,7 +189,7 @@ def save(root: str, step: int, tree: Any, process_index: int = 0,
     Non-blocking saves return a ``SaveHandle`` whose ``result()``
     re-raises writer exceptions."""
     leaves, _ = tree_flatten(tree)
-    host_leaves = [_to_savable(l) for l in leaves]
+    host_leaves = [_to_savable(l, copy=not blocking) for l in leaves]
     structure = describe(tree)
 
     def _write():

@@ -4,8 +4,9 @@ A ModelConfig fully describes one architecture. Configs are plain frozen
 dataclasses so they hash, print, and diff cleanly and can key the step
 caches (``dist/steps.py``). The fields, defaults and ``scaled_down`` are
 ``repro``'s, so a config built by either package describes the same model.
-The workload-cell and training configs (``ShapeConfig``, ``StepKind``,
-``TrainConfig``) wait with the trainer (ROADMAP queue 1 item 11).
+A ShapeConfig describes one (seq_len, global_batch, step-kind) workload
+cell, a TrainConfig one training run (optimizer, schedule, remat and
+gradient accumulation).
 """
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ class BlockKind(str, enum.Enum):
     MAMBA2 = "mamba2"              # Mamba2 SSD block
     RWKV6 = "rwkv6"                # RWKV6 time-mix + channel-mix
     MOE = "moe"                    # attention + MoE FFN (optional dense residual)
+
+
+class StepKind(str, enum.Enum):
+    TRAIN = "train"                # train_step: fwd+bwd+opt over (batch, seq)
+    PREFILL = "prefill"            # serve prefill: fwd building the KV cache
+    DECODE = "decode"              # serve decode: one token against a KV cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +176,35 @@ class ModelConfig:
         from repro_torch.models import lm
 
         return lm.param_count(self, active_only=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    step: StepKind
+
+    @property
+    def is_decode(self) -> bool:
+        return self.step == StepKind.DECODE
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    zero1: bool = True             # shard optimizer state along data axis
+    remat: bool = True             # activation checkpointing per block
+    grad_compression: str = "none"  # none | int8_ef
+    microbatches: int = 1          # gradient accumulation (activation memory /M)
+    opt_int8: bool = False         # 8-bit Adam moments (blockwise quantized)
+    seed: int = 0
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

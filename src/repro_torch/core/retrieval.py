@@ -98,8 +98,8 @@ def synthetic_datastore(cfg: ModelConfig, n: Optional[int] = None,
 def plan_for_store(store: DataStore, rcfg: RetrievalConfig, q: int,
                    mesh=None, axes: Sequence[str] = (), method: str = "xor",
                    select: Optional[str] = None,
-                   recall_target: Optional[float] = None
-                   ) -> plan_mod.QueryPlan:
+                   recall_target: Optional[float] = None,
+                   n_rows: Optional[int] = None) -> plan_mod.QueryPlan:
     """The QueryPlan ``knn_logits`` executes against this store.
 
     Select precedence: explicit ``select`` argument > ``rcfg.plan`` (when
@@ -108,7 +108,9 @@ def plan_for_store(store: DataStore, rcfg: RetrievalConfig, q: int,
     "require"``): the planner streams the prebuilt store layout when one
     exists, else falls back to a per-call re-sort.
     Sharded (a mesh and axes; ``store.codes`` is this rank's slice, so N is
-    its rows times the shard count), a prebuilt GLOBAL layout cannot
+    its rows times the shard count, unless ``n_rows`` gives the global
+    count: a store held whole, as the server's is), a prebuilt GLOBAL
+    layout cannot
     follow the shard slicing, so the planner only opts into per-shard
     re-sorting when the config asks. Exact sharded serving
     (``rcfg.local_k >= rcfg.k``) rides the hist_merge distributed counting
@@ -126,7 +128,8 @@ def plan_for_store(store: DataStore, rcfg: RetrievalConfig, q: int,
         # a prebuilt GLOBAL layout cannot follow the shard slicing, so the
         # sharded stats deliberately omit it (layout_policy still carries
         # the config's demand, satisfied per shard via local_sort)
-        stats = plan_mod.stats_for(n * n_dev, rcfg.code_bits, w, q,
+        stats = plan_mod.stats_for(n * n_dev if n_rows is None else n_rows,
+                                   rcfg.code_bits, w, q,
                                    k=rcfg.k, n_shards=n_dev)
         return plan_mod.plan_sharded(
             stats, rcfg.k, axes=tuple(axes), k_local=rcfg.local_k,
@@ -142,14 +145,16 @@ def plan_for_store(store: DataStore, rcfg: RetrievalConfig, q: int,
 
 
 def log_store_plan(store: DataStore, rcfg: RetrievalConfig, q: int,
-                   logger, mesh=None, axes: Sequence[str] = ()
-                   ) -> plan_mod.QueryPlan:
+                   logger, mesh=None, axes: Sequence[str] = (),
+                   n_rows: Optional[int] = None) -> plan_mod.QueryPlan:
     """Resolve and log the store's QueryPlan (serving-side ``explain()``);
-    the server calls this once per store at startup. Sharded plans also
-    log the merge strategy and its predicted cross-rank traffic
-    (``tuning.shard_hints`` via ``plan.geometry()``)."""
-    p = plan_for_store(store, rcfg, q, mesh=mesh, axes=axes)
-    n_rows = store.codes.shape[0] * max(p.n_shards, 1)
+    the server calls this once per store at startup, with ``n_rows`` the
+    rows of the whole store it holds. Sharded plans also log the merge
+    strategy and its predicted cross-rank traffic (``tuning.shard_hints``
+    via ``plan.geometry()``)."""
+    p = plan_for_store(store, rcfg, q, mesh=mesh, axes=axes, n_rows=n_rows)
+    if n_rows is None:
+        n_rows = store.codes.shape[0] * max(p.n_shards, 1)
     logger.info("retrieval store: %d entries, active plan %s",
                 n_rows, p.compact())
     if p.merge.kind == "sharded":

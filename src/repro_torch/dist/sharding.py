@@ -1,14 +1,15 @@
-"""Placement of the retrieval datastore, and row-range replication (port
-of ``repro.dist.sharding``).
+"""Placement of the model, its decode state and the retrieval datastore,
+and row-range replication (port of ``repro.dist.sharding``).
 
-``datastore_specs`` is the counterpart of ``repro``'s spec tree for a
-``retrieval.DataStore``: every leaf placed ``Replicate()`` (the DTensor
-placement ``repro``'s ``P()`` names), a tree of the store's own
-structure. The sharded search re-shards the codes explicitly
+``param_specs``, ``decode_state_specs`` and ``datastore_specs`` are the
+counterparts of ``repro``'s spec trees: every leaf placed ``Replicate()``
+(the DTensor placement ``repro``'s ``P()`` names), over the port's own
+structures — the model's parameters keyed by their ``named_parameters()``
+names, the decode state's ``{"pos", "cache": KVCache}`` and the store's
+tree. The sharded search re-shards the codes explicitly
 (``engine.shard_datastore`` hands each rank its contiguous slice of rows),
-so the specs only describe where a whole store lives. The model's specs
-(``param_specs``, ``decode_state_specs``) wait for the other model families
-(ROADMAP queue 1 item 11).
+so the specs only describe where a whole structure lives, and they take
+no mesh: on any mesh every placement is ``Replicate()``.
 
 Row-range replication (``ReplicaMap``) lives here too, copied whole: the
 pure placement arithmetic of the shard-fault-tolerance layer — which unit
@@ -23,22 +24,40 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from torch.distributed.tensor import Replicate
 
+from repro_torch.configs.base import ModelConfig
 
-def _replicated_like(tree: Any) -> Any:
+
+def replicated_like(tree: Any) -> Any:
     """``tree`` with every tensor leaf (and None kept as None) replaced by
     ``Replicate()``; NamedTuples keep their type."""
     if tree is None:
         return None
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_replicated_like(v) for v in tree))
+        return type(tree)(*(replicated_like(v) for v in tree))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_replicated_like(v) for v in tree)
+        return type(tree)(replicated_like(v) for v in tree)
     if isinstance(tree, dict):
-        return {k: _replicated_like(v) for k, v in tree.items()}
+        return {k: replicated_like(v) for k, v in tree.items()}
     return Replicate()
 
 
-def datastore_specs(mesh=None, store=None) -> Any:
+def param_specs(cfg: ModelConfig) -> Any:
+    """Placements for the model of ``cfg``, keyed like its
+    ``named_parameters()`` (the structure from a meta-device build)."""
+    from repro_torch.models import lm
+
+    return replicated_like(dict(lm._build(cfg, "meta").named_parameters()))
+
+
+def decode_state_specs(cfg: ModelConfig) -> Any:
+    """Placements for ``lm.init_decode_state`` (batch/len-free
+    structure)."""
+    from repro_torch.models import lm
+
+    return replicated_like(lm.init_decode_state(cfg, 1, 2, device="meta"))
+
+
+def datastore_specs(store=None) -> Any:
     """Placements matching a ``retrieval.DataStore``.
 
     Without ``store``, assumes the common ``layout=None`` store; pass the
@@ -46,7 +65,7 @@ def datastore_specs(mesh=None, store=None) -> Any:
     from repro_torch.core import quantize, retrieval as retrieval_mod
 
     if store is not None:
-        return _replicated_like(store)
+        return replicated_like(store)
     return retrieval_mod.DataStore(
         codes=Replicate(), values=Replicate(),
         itq=quantize.ITQParams(mean=Replicate(), proj=Replicate(),

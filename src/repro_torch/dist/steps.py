@@ -1,25 +1,86 @@
-"""Step builders: the one place the prefill and serve computations are
-assembled (port of the single-device half of ``repro.dist.steps``).
+"""Step builders: the one place the train, prefill and serve computations
+are assembled (port of the single-device half of ``repro.dist.steps``).
 
 Without a mesh there are no partition specs to return, so each builder
-returns its step function alone. Steps run under ``torch.inference_mode``.
-The serve builder is memoized per (cfg, max_len, retrieval variant), as
-``repro``'s is (the degraded probe variant keys on the identity of its
-probe positions, as there): the server asks for its rungs' steps again
-mid-serve, and failover must find the step it already has. The per-unit
-search steps of dist/search.py are memoized per (bins, k) as there. The
-train step waits (ROADMAP queue 1 item 11).
+returns its step function alone (the specs live in ``dist/sharding.py``).
+The prefill and serve steps run under ``torch.inference_mode``; the train
+step runs autograd over the blockwise attention path. The serve builder
+is memoized per (cfg, max_len, retrieval variant), as ``repro``'s is (the
+degraded probe variant keys on the identity of its probe positions, as
+there): the server asks for its rungs' steps again mid-serve, and
+failover must find the step it already has. The per-unit
+search steps of dist/search.py are memoized per (bins, k) as there.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import retrieval as retrieval_mod
 from repro_torch.models import lm
+from repro_torch.optim import optimizer
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """Every mesh axis except the tensor/expert axis is data parallel."""
+    return tuple(a for a in mesh.mesh_dim_names if a != "model")
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
+                    causal_skip: bool = False, attn_p_bf16: bool = False,
+                    device=None):
+    """Returns ``step_fn(model, opt_state, batch, step) -> (model,
+    opt_state, metrics)`` with metrics at least {loss, ce, aux, grad_norm,
+    lr}; the batch's tokens and labels are moved to ``device`` — CUDA
+    unless ``device="cpu"``.
+
+    The step turns ``requires_grad`` on for the model it trains and
+    updates its parameters and ``opt_state``'s moments in place (the
+    reference's donated buffers). ``tc.microbatches > 1`` splits the batch
+    and accumulates the gradients in the param dtype, then divides them
+    by M; loss and aux are averaged in f32. Attention takes the blockwise
+    path (``attn_impl="xla"``): K4 is forward-only."""
+    dev = device_mod.resolve(device)
+    ctx = lm.RunCtx(causal_skip=causal_skip, attn_p_bf16=attn_p_bf16,
+                    remat=tc.remat)
+    micro = max(int(tc.microbatches), 1)
+
+    def step(model, opt_state, batch, step_idx):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+            p.grad = None
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        mbs = ([{k: v.reshape((micro, v.shape[0] // micro) + v.shape[1:])[i]
+                 for k, v in batch.items()} for i in range(micro)]
+               if micro > 1 else [batch])
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        asum = {"ce": lsum.clone(), "aux": lsum.clone()}
+        for b in mbs:
+            lval, aux = lm.loss_fn(model, cfg, b, ctx)
+            lval.backward()
+            lsum += lval.detach()
+            for k in asum:
+                asum[k] += aux[k].detach()
+        grads = {n: p.grad.div_(micro) if micro > 1 else p.grad
+                 for n, p in params.items()}
+        _, new_opt, om = optimizer.update(grads, opt_state, params, tc,
+                                          step_idx)
+        for p in params.values():
+            p.grad = None
+        metrics = {k: a / micro for k, a in asum.items()}
+        metrics.update(om)
+        metrics["loss"] = lsum / micro
+        return model, new_opt, metrics
+
+    return step
 
 # ---------------------------------------------------------------------------
 # prefill

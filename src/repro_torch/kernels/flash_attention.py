@@ -124,12 +124,25 @@ def _launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def refuse_grad(*ts: torch.Tensor) -> None:
+    """Raise when autograd would need K4's backward, which does not exist:
+    training takes the blockwise path (``attn_impl="xla"``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "K4 (flash attention) is forward-only: its output would carry "
+            "no gradient. Train with the blockwise path (attn_impl='xla', "
+            "models/attention.blockwise_causal_attention)")
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, bq: int = 512,
                            bk: int = 512) -> torch.Tensor:
     """q: (B, H, S, hd); k, v: (B, KV, S, hd) -> (B, H, S, hd). Replaces
     ``flash_attention_fwd``. The inputs may be strided views (the hd axis
-    contiguous); the output has q's memory layout."""
+    contiguous); the output has q's memory layout. Forward only, as in
+    ``repro``: with gradients on and an input that requires them it
+    raises rather than return an output with no graph."""
+    refuse_grad(q, k, v)
     dev = _check(q, k, v, bq, bk)
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, bq, bk)

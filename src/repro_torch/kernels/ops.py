@@ -40,7 +40,8 @@ import torch.distributed as dist
 from repro_torch import device as device_mod
 from repro_torch.core.topk import sort_key_val
 from repro_torch.kernels import tuning
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                 refuse_grad)
 from repro_torch.kernels.hamming import hamming_distance_kernel
 from repro_torch.kernels.topk_select import (default_runs,
                                              hamming_emit_kernel,
@@ -534,7 +535,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal flash-attention forward. q: (B, S, H, hd); k, v: (B, S, KV, hd)
     -> (B, S, H, hd). Pads S to a block multiple (future positions are
     causally invisible); the kernel reads the (B, H, S, hd) views through
-    their strides, so the transposes copy nothing."""
+    their strides, so the transposes copy nothing. Forward only: raises
+    when gradients are on and an input requires them."""
+    refuse_grad(q, k, v)
     B, S, H, hd = q.shape
     s_pad = _round_up(S, max(bq, bk))
     if s_pad != S:

@@ -6,8 +6,9 @@ from ``repro`` need no transposes. Every layer has an ``*_init`` that
 returns the module with weights drawn from a caller's ``torch.Generator``,
 and an apply function of ``repro``'s name and signature that takes the
 module where ``repro`` takes the param dict: the modules hold weights,
-the functions compute. Parameters are created without gradients: the
-port serves and does not train yet.
+the functions compute. Parameters are created without gradients; the
+train step (``dist/steps.make_train_step``) turns them on for the model it
+trains.
 """
 from __future__ import annotations
 
@@ -148,7 +149,9 @@ def embedding_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
 
 
 def embed(params: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return params.table[tokens]
+    # F.embedding's backward sums each row's gradients in a fixed order on
+    # the CPU; indexing's accumulates in parallel and varies run to run
+    return F.embedding(tokens, params.table)
 
 
 def unembed(params: Embedding, x: torch.Tensor) -> torch.Tensor:

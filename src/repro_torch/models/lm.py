@@ -6,12 +6,16 @@ The model is an ``nn.Module`` tree — ``embed`` (the table), ``blocks`` (one
 module-level functions keep ``repro``'s names and signatures, with the
 module where ``repro`` takes the param pytree:
 
-  forward        — full-sequence logits (scoring, datastore builds)
+  forward        — full-sequence logits (training, scoring, datastore builds)
+  loss_fn        — next-token cross entropy for the train step
   prefill        — full sequence + the decode state (stacked KV caches)
   decode_step    — one token against the decode state
 
 The layer stack is a Python loop over ``blocks`` (``repro`` scans stacked
-params). The decode state keeps ``repro``'s shape: ``{"pos": (B,) int32,
+params); with ``RunCtx.remat`` and gradients on, each block runs under
+``torch.utils.checkpoint`` (``repro``'s ``jax.checkpoint`` of the scan
+body), so the backward pass keeps one activation per block and recomputes
+the rest. The decode state keeps ``repro``'s shape: ``{"pos": (B,) int32,
 "cache": KVCache}`` with k, v of (L, B, S_max, KV, hd).
 
 MoE, Mamba2, RWKV6, the hybrid stack and the modality frontends raise
@@ -24,6 +28,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import BlockKind, ModelConfig
@@ -31,8 +36,8 @@ from repro_torch.models.attention import (Attention, KVCache,
                                           attention_decode, attention_init,
                                           attention_prefill)
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm, _dtype,
-                                       embed, embedding_init, mlp, mlp_init,
-                                       rmsnorm, unembed)
+                                       cross_entropy, embed, embedding_init,
+                                       mlp, mlp_init, rmsnorm, unembed)
 
 _QUEUE_11 = "ROADMAP queue 1 item 11"
 
@@ -45,7 +50,7 @@ class RunCtx:
     causal_skip: bool = False          # triangular attention schedule
     attn_p_bf16: bool = False          # bf16 probability tensor
     attn_impl: str = "xla"             # 'xla' (blockwise) | 'flash' (K4)
-    remat: bool = True                 # no effect without gradients
+    remat: bool = True                 # checkpoint each block (with grads)
     attn_chunk: int = 1024
 
 
@@ -175,6 +180,12 @@ def _run_stack(model: LM, cfg: ModelConfig, ctx: RunCtx, x, positions,
     """Returns (hidden, aux_loss, stacked caches-or-None)."""
     _check_supported(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not want_cache and ctx.remat and torch.is_grad_enabled():
+        for blk in model.blocks:
+            x = checkpoint(lambda b, h: _apply_attn_mlp(
+                b, cfg, ctx, h, positions, False)[0], blk, x,
+                use_reentrant=False)
+        return x, aux, None
     caches = []
     for blk in model.blocks:
         x, cache = _apply_attn_mlp(blk, cfg, ctx, x, positions, want_cache)
@@ -200,6 +211,16 @@ def forward(model: LM, cfg: ModelConfig, tokens, prefix_emb=None,
     if return_hidden:
         return logits, aux, h
     return logits, aux
+
+
+def loss_fn(model: LM, cfg: ModelConfig, batch, ctx: RunCtx = DEFAULT_CTX):
+    """batch: {'tokens': (B,S), 'labels': (B,S), optional 'mask'} ->
+    (loss, {'ce', 'aux'}); the aux weight is the MoE router's, 0 here."""
+    logits, aux = forward(model, cfg, batch["tokens"],
+                          batch.get("prefix_emb"), ctx)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    aux_w = cfg.moe.router_aux_loss if cfg.moe is not None else 0.0
+    return ce + aux_w * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

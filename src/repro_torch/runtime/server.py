@@ -39,9 +39,11 @@ installed epoch per view, runs cooperative compaction + flush + periodic
 ``rate_limited``, ``quota_exceeded``, ``backlog_full``), and per-tenant
 counters land under ``stats()["tenants"]``.
 
-Not ported yet, and raising ``NotImplementedError``: ``shard_axes``
-(SPMD serving over the ranks of a mesh needs every rank to run the server
-loop; ROADMAP queue 1, the leftover of item 8).
+``mesh`` and ``shard_axes`` choose the plan the server logs at startup, as
+in ``repro``: with both, the sharded plan over the whole store (merge
+strategy and predicted traffic included), else the store's local plan.
+The decode step searches the server's own store on its device either
+way, as ``repro``'s serve step does.
 """
 from __future__ import annotations
 
@@ -67,13 +69,6 @@ log = logging.getLogger(__name__)
 
 QUEUED, ACTIVE, DONE, SHED, TIMED_OUT = (
     "queued", "active", "done", "shed", "timed_out")
-
-_UNPORTED_OPTIONS = {
-    "shard_axes": "SPMD serving over the ranks of a mesh is not ported yet "
-                  "(every rank would run the server loop): ROADMAP queue 1, "
-                  "the leftover of item 8",
-}
-
 
 @dataclasses.dataclass
 class Request:
@@ -151,7 +146,8 @@ class DegradationPolicy:
 
 class Server:
     def __init__(self, cfg: ModelConfig, model: lm.LM, *, max_batch: int,
-                 max_len: int, store=None, device=None, shard_axes=(),
+                 max_len: int, store=None, device=None, mesh=None,
+                 shard_axes=(),
                  max_queue: Optional[int] = None,
                  default_deadline_ticks: Optional[int] = None,
                  degradation: Optional[DegradationPolicy] = None,
@@ -164,9 +160,8 @@ class Server:
                  tenants: Optional[tenant_mod.TenantArena] = None,
                  shard_search=None):
         self.device = device_mod.resolve(device)
-        if tuple(shard_axes):
-            raise NotImplementedError(f"Server(shard_axes=...): "
-                                      f"{_UNPORTED_OPTIONS['shard_axes']}")
+        if tuple(shard_axes) and mesh is None:
+            raise ValueError("shard_axes names axes of a mesh: pass mesh=")
         if not device_mod.same(model.device, self.device):
             raise ValueError(f"the model is on {model.device}, the server "
                              f"runs on {self.device}")
@@ -223,10 +218,17 @@ class Server:
         self.snapshot_dir = snapshot_dir
         self.snapshot_every = snapshot_every
         # resolve and log the retrieval QueryPlan once per store at startup
+        # (retrieval.log_store_plan). ``shard_axes``: the mesh axes the
+        # datastore is planned over — with them the logged plan is the
+        # SHARDED plan over the whole store, including the merge strategy
+        # (hist_merge vs concat_sort) and its predicted cross-rank traffic;
+        # without them it is the store's LOCAL plan.
         self.retrieval_plan = None
         if self.with_retrieval:
             self.retrieval_plan = retrieval_mod.log_store_plan(
-                store, cfg.retrieval, q=max_batch, logger=log)
+                store, cfg.retrieval, q=max_batch, logger=log,
+                mesh=mesh if shard_axes else None, axes=tuple(shard_axes),
+                n_rows=int(store.codes.shape[0]))
         self.rungs = self._build_ladder()
         self.rung = 0
         self._fns: Dict[Rung, object] = {}

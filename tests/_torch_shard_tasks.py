@@ -123,3 +123,37 @@ def no_fallback(shape, names, codes, q, k, d):
     # every rank raised before the output reduction, so no rank is left
     # inside a collective
     return counts, raised
+
+
+def serve(shape, names, cfg, model, store, prompts, max_new):
+    """A ``Server`` over the whole store on this rank with ``mesh`` and
+    ``shard_axes=names``: (the logged plan's compact form, its merge
+    geometry, the INFO lines the server logged, each request's tokens)."""
+    import logging
+
+    from repro_torch.runtime import server
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log = logging.getLogger(server.__name__)
+    handler, level = Keep(logging.INFO), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        srv = server.Server(cfg, model, max_batch=2, max_len=24, store=store,
+                            device="cpu", mesh=mesh(shape, names),
+                            shard_axes=names)
+        for uid, prompt in enumerate(prompts):
+            srv.submit(server.Request(uid=uid, prompt=prompt,
+                                      max_new_tokens=max_new))
+        srv.run(max_ticks=200)
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    p = srv.retrieval_plan
+    return (p.compact(), p.geometry()["merge"], lines,
+            {r.uid: list(r.out_tokens) for r in srv.done})

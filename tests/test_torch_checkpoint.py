@@ -10,6 +10,7 @@ commit, async-save failures, verification and garbage collection behave
 as the reference's tests pin them."""
 import json
 import os
+import threading
 
 import numpy as np
 import jax
@@ -118,6 +119,32 @@ def test_kill_mid_write_and_async_failure(tmp_path, stores):
     assert h.done() and tman.latest_step(root) == 4
     tman.garbage_collect(root, keep=1)
     assert sorted(os.listdir(root)) == ["step_00000004"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_async_save_writes_the_tree_as_it_was_when_called(tmp_path,
+                                                           monkeypatch,
+                                                           dtype):
+    """The writer is held until the caller has updated the CPU leaves in
+    place; the checkpoint still holds the values of the call."""
+    go = threading.Event()
+    real = np.savez
+
+    def held(*a, **kw):
+        assert go.wait(30)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tman.np, "savez", held)
+    w = torch.arange(6, dtype=torch.float32).reshape(2, 3).to(dtype)
+    tree = {"w": w.clone(), "n": np.arange(4.0)}
+    h = tman.save(str(tmp_path), 1, tree, blocking=False)
+    tree["w"].add_(100)
+    tree["n"] += 100
+    go.set()
+    h.result()
+    got = tman.restore(str(tmp_path), 1, tree)
+    assert torch.equal(got["w"], w)
+    np.testing.assert_array_equal(got["n"], np.arange(4.0))
 
 
 def test_corrupt_steps_fall_back_like_the_reference(tmp_path, stores):

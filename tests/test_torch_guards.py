@@ -60,7 +60,9 @@ def test_the_scan_covers_every_module_of_the_port():
                 "kernels/approx_select.py", "checkpoint/wal.py",
                 "checkpoint/manager.py", "core/mutable.py",
                 "core/tenant.py", "core/hierarchy.py", "dist/health.py",
-                "dist/sharding.py", "dist/search.py"):
+                "dist/sharding.py", "dist/search.py", "configs/shapes.py",
+                "data/pipeline.py", "optim/optimizer.py",
+                "runtime/trainer.py", "launch/train.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
@@ -144,6 +146,48 @@ def test_sharded_entry_points_raise_without_a_device():
             call()
     assert fts.device.type == "cpu"
     assert fts._data["unit0"][0].device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_a_device():
+    """The trainer, its launcher and the train step put the model and the
+    batches on CUDA unless given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the entry points would run")
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.runtime import trainer
+
+    cfg = scaled_down(get_config("gemma-2b"))
+    tc = TrainConfig(total_steps=1, warmup_steps=0)
+    steps.make_train_step(cfg, tc, device="cpu")
+    for call in (lambda: trainer.train(cfg, tc, seq_len=8, global_batch=2),
+                 lambda: train.main(["--arch", "gemma-2b", "--scaled",
+                                     "--steps", "1"]),
+                 lambda: steps.make_train_step(cfg, tc)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+@pytest.mark.parametrize("entry", ["kernel", "ops"])
+def test_flash_attention_refuses_inputs_that_need_gradients(entry):
+    """K4 is forward-only: with gradients on, an input that requires them
+    raises instead of giving an output without a graph."""
+    if entry == "kernel":
+        shape_q, shape_kv = (1, 2, 40, 32), (1, 1, 40, 32)
+        call = lambda q, k, v: tfa.flash_attention_kernel(q, k, v, bq=8,
+                                                          bk=8)
+    else:
+        shape_q, shape_kv = (1, 40, 2, 32), (1, 40, 1, 32)
+        call = lambda q, k, v: ops.flash_attention(q, k, v, bq=8, bk=8)
+    q, kv = torch.randn(shape_q), torch.randn(shape_kv)
+    for grads in ((q.clone().requires_grad_(), kv, kv),
+                  (q, kv, kv.clone().requires_grad_())):
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call(*grads)
+        with torch.no_grad():
+            assert torch.equal(call(*grads), call(q, kv, kv))
+    assert not call(q, kv, kv).requires_grad
+    assert tfa.flash_attention_kernel.launches == 0
 
 
 def test_flash_attention_on_cpu_tensors_takes_the_plain_path():

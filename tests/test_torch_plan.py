@@ -5,9 +5,13 @@ same stages, and write the same reason and compact strings; the cost hints
 ``explain()`` reports must agree; what the port has not ported raises.
 Index plans (``plan_index``) and their forced overrides too, and sharded
 plans (``plan_sharded``): merge strategies, merge keys of ``parse_force``
-and the ``merge`` part of ``explain()``."""
+and the ``merge`` part of ``explain()``. The generated decision table
+equals the reference's but for the one recorded wording ("XLA top_k" ->
+"top_k"), and its check passes on DESIGN.md without writing it."""
 import dataclasses
+import json
 import warnings
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -293,3 +297,51 @@ def test_bad_sharded_requests_raise_like_reference():
             tplan.plan_sharded(tplan.StoreStats(**stats), 16,
                                axes=("data",), **kw)
     assert tplan.HIST_STRATEGIES == jplan.HIST_STRATEGIES
+
+
+# -- the generated decision table and its DESIGN.md check ------------------
+
+DESIGN = Path(__file__).resolve().parents[1] / "DESIGN.md"
+
+
+def test_decision_table_matches_reference():
+    got = tplan.decision_table()
+    ref = jplan.decision_table()
+    assert got == ref.replace(*tplan.DESIGN_WORDING)
+    assert got != ref          # the recorded wording is in the table
+    assert (tplan.TABLE_BEGIN, tplan.TABLE_END) == (jplan.TABLE_BEGIN,
+                                                    jplan.TABLE_END)
+
+
+def test_table_scenarios_explain_like_reference(capsys):
+    assert tplan.main(["--json"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    ref = {label: p.explain() for label, p in jplan._table_scenarios()}
+    assert list(got) == list(ref)
+    # every field but the kernel names (the port lists its own kernels)
+    ref = json.loads(json.dumps(ref).replace(*tplan.DESIGN_WORDING))
+    for label in ref:
+        assert got[label].pop("kernels") and ref[label].pop("kernels")
+        assert got[label] == ref[label], label
+    assert tplan.main(["--table"]) == 0
+    assert capsys.readouterr().out == tplan.decision_table() + "\n"
+
+
+def test_check_design_passes_on_the_repo_and_only_reads_it(capsys):
+    before = DESIGN.read_bytes()
+    assert tplan.check_design(str(DESIGN)) == 0
+    assert tplan.main(["--check-design", str(DESIGN)]) == 0
+    assert "up to date" in capsys.readouterr().out
+    assert DESIGN.read_bytes() == before
+
+
+def test_check_design_reports_drift_and_missing_markers(tmp_path, capsys):
+    text = DESIGN.read_text()
+    drifted = tmp_path / "drifted.md"
+    drifted.write_text(text.replace("| forced bisect", "| forced bisect!"))
+    assert tplan.check_design(str(drifted)) == 1
+    assert "DRIFTED" in capsys.readouterr().err
+    bare = tmp_path / "bare.md"
+    bare.write_text("no table here\n")
+    assert tplan.check_design(str(bare)) == 1
+    assert tplan.extract_design_table("no table") is None

@@ -10,7 +10,8 @@ port on the CPU. Their output tokens must be identical and their
 ``FaultInjector`` on ``store_search`` both count the same retries,
 failures and failover ticks; with a ``FaultTolerantSearch`` attached
 (``shard_search``) both walk the same shard-loss rung under the same kill
-schedule."""
+schedule. With ``mesh`` and ``shard_axes`` (a 4-rank gloo world) the port's
+server logs the reference's sharded plan and serves the same tokens."""
 import dataclasses
 
 import numpy as np
@@ -188,14 +189,90 @@ def test_prefill_step_matches_reference_prefill(env):
     assert logits.is_inference()
 
 
-@pytest.mark.parametrize("option,value,queue", [
-    ("shard_axes", ("data",), "item 8"),
-])
-def test_unported_server_options_raise(env, option, value, queue):
+class _FakeMesh:
+    """What ``repro``'s ``log_store_plan`` reads of a mesh: axis sizes."""
+
+    def __init__(self, **sizes):
+        self.shape = sizes
+
+
+def _local_k(cfg, local_k):
+    return dataclasses.replace(cfg, retrieval=dataclasses.replace(
+        cfg.retrieval, local_k=local_k))
+
+
+@pytest.fixture(scope="module")
+def sharded_serving(env):
+    """Servers with ``mesh`` and ``shard_axes=("data",)`` on every rank
+    of a 4-rank gloo world, at local_k 4 (the concat_sort merge) and 16
+    (hist_merge); the same requests as the other tests."""
+    import _torch_shard_tasks as tasks
+    from _torch_world import World
+
+    tc, model, tstore, corpus = env[1], env[3], env[5], env[6]
+    prompts = [r.prompt for r in _requests(tserver, corpus)]
+    out = {}
+    with World(4) as world:
+        for local_k in (4, 16):
+            out[local_k] = world.run(tasks.serve, (4,), ("data",),
+                                     _local_k(tc, local_k), model, tstore,
+                                     prompts, 5)
+    return out
+
+
+@pytest.mark.parametrize("local_k", [4, 16])
+def test_shard_axes_logs_the_reference_sharded_plan(env, sharded_serving,
+                                                    local_k):
+    """``repro``'s server logs ``log_store_plan(store, ..., mesh=mesh,
+    axes=shard_axes)`` over its whole store; the port's logs the same
+    plan, merge geometry and lines on every rank."""
+    import logging
+
+    jc, store = env[0], env[4]
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger = logging.getLogger("reference_plan")
+    logger.addHandler(Keep(logging.INFO))
+    logger.setLevel(logging.INFO)
+    ref = jret.log_store_plan(store, _local_k(jc, local_k).retrieval, q=2,
+                              logger=logger, mesh=_FakeMesh(data=4),
+                              axes=("data",))
+    assert ref.merge.kind == "sharded" and ref.n_shards == 4
+    assert ref.merge.strategy == ("hist_merge" if local_k == 16
+                                  else "concat_sort")
+    for compact, merge, logged, _ in sharded_serving[local_k]:
+        assert compact == ref.compact()
+        assert merge == ref.geometry()["merge"]
+        assert logged[:2] == lines
+        assert f"{store.codes.shape[0]} entries" in logged[0]
+
+
+@pytest.mark.parametrize("local_k", [4, 16])
+def test_shard_axes_serves_the_same_tokens(env, sharded_serving, local_k):
+    """The decode step stays local over the server's store: with
+    ``shard_axes`` every rank serves what a server without them serves."""
+    tc, model, tstore, corpus = env[1], env[3], env[5], env[6]
+    ts = tserver.Server(_local_k(tc, local_k), model, max_batch=2,
+                        max_len=24, store=tstore, device="cpu")
+    for req in _requests(tserver, corpus):
+        ts.submit(req)
+    ts.run(max_ticks=200)
+    want = {r.uid: list(r.out_tokens) for r in ts.done}
+    assert len(want) == 5
+    for *_, tokens in sharded_serving[local_k]:
+        assert tokens == want
+    assert ts.retrieval_plan.merge.kind == "none"
+
+
+def test_shard_axes_need_a_mesh(env):
     tc, model, tstore = env[1], env[3], env[5]
-    with pytest.raises(NotImplementedError, match=queue):
+    with pytest.raises(ValueError, match="mesh"):
         tserver.Server(tc, model, max_batch=1, max_len=8, store=tstore,
-                       device="cpu", **{option: value})
+                       device="cpu", shard_axes=("data",))
 
 
 def test_shard_loss_rung_matches_reference(env):
