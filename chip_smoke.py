@@ -60,6 +60,22 @@ kernel launch counts set to 0 just before it and read just after:
   every 4 ticks) with a two-tenant arena attached, takes online appends
   and deletes between ticks, and answers a ``tenant_search`` equal to each
   tenant's own store.
+* the recurrent families — zamba2-2.7b (54 Mamba2 blocks in 9 groups
+  around one shared attention block of hd 80, d_model 2560, vocab 32000)
+  and rwkv6-1.6b (24 RWKV6 layers, d_model 2048, vocab 65536), each at its
+  registered width and depth in bf16 with seeded random weights: a flash
+  prefill of 8 x 2048 (9 K4 launches for zamba2, none for rwkv6), zamba2's
+  flash against its blockwise path, the chunked forward against prefill +
+  one decode step at S = 300 (the scans' padded tails against the step
+  recurrences), rwkv6's decode state equal in bytes at max_len 1024 and
+  4096, a datastore of 128 x 2047 = 262,016 entries from the model's own
+  hidden states, and the server answering 16 requests on 8 slots (every
+  slot reused once): K-kernel launches per decode step as the plan says,
+  requests on reused slots equal to each served alone on a fresh server,
+  one decode batch's retrieval equal through the plan, fused (K1 + K2)
+  and the board-scan composite (K3). K4 is also held against its plain
+  version at hd 80 and 112 (S = 1, ragged 300 and 333, both dtypes) and
+  at zamba2's prefill shape, and timed there.
 * the approximate tier — ``approx_topk`` on the first path's store, in
   insertion order and (through the planner) in layout order, at recall
   targets 0.8, 0.9, 0.95, 0.99 and 1.0: ms, block rows, per-block L, the
@@ -110,7 +126,8 @@ kernel launch counts set to 0 just before it and read just after:
   resumed from its checkpoint, equal to an uninterrupted run.
 
 Output: progress lines; ``main_path``, ``board_scan``, ``index_path``,
-``sharded_path``, ``shard_faults``, ``serving_path``, ``approx_path``,
+``sharded_path``, ``shard_faults``, ``serving_path``, ``recurrent_path``,
+``approx_path``,
 ``mutable_path``, ``tenant_path`` and ``train_path`` JSON lines;
 a ``kernels`` JSON line (launches on the paths, error against the plain
 version, kernel / plain / library ms, and the bound: the least time for
@@ -155,7 +172,7 @@ from repro_torch.kernels import approx_select  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hamming as tham  # noqa: E402
 from repro_torch.kernels import topk_select as tsel  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import layers, lm, mamba2, rwkv6  # noqa: E402
 from repro_torch.optim import optimizer  # noqa: E402
 from repro_torch.runtime import faults, server, trainer  # noqa: E402
 
@@ -219,6 +236,37 @@ FLASH_XLA_ATOL_F32 = 1e-4
 # summation order)
 K4_ATOL_F32 = 1e-5
 K4_BF16_ULPS = 2
+# K4 at zamba2-2.7b's prefill: (B, H, KV, hd) of its shared attention
+K4_ZAMBA2 = (PREFILL_BATCH, 32, 32, 80)
+
+# the recurrent path: zamba2-2.7b (Mamba2 hybrid) and rwkv6-1.6b at their
+# registered configs, nothing cut in width or depth. The store is cut from
+# gemma's 512 sequences to 128 (128 x 2047 = 262,016 entries) for the run's
+# time limit: its hidden states take one full-width forward per 4
+# sequences through the eager chunk loops.
+REC_ARCHS = ("zamba2-2.7b", "rwkv6-1.6b")
+REC_CORPUS_SEQS = 128
+REC_TIMED = 3
+# Random-init recurrent stacks amplify bf16 rounding far more than
+# gemma's 18 layers: on one H100 with seed 0, zamba2's blockwise path
+# against itself at attention chunk 256 instead of 1024 differs by
+# 7.66e-2 in the final hidden state, flash by 9.63e-2, over serving_path's
+# 3e-2. So each full-depth bf16 comparison here is gated at REC_NOISE_X
+# times its own run's noise (the same function at another chunk size,
+# printed beside it), never below the fixed floor; the kernels' and the
+# scans' arithmetic is held tightly on short float32 copies at full width
+# (REC_F32_LAYERS layers, TF32 off).
+REC_NOISE_X = 3.0
+# forward's logits at position S - 1 against prefill over S - 1 tokens and
+# one decode step, S = 300 (a padded tail at both scan chunks, 128 and 64):
+# relative L2 over the batch's (8, vocab) logits; the noise: the same
+# forward at half the scan chunk (Mamba2 64, RWKV6 32)
+REC_CHECK_LEN = 300
+REC_REL_L2_BF16 = 3e-2
+REC_F32_LAYERS = {"zamba2-2.7b": 6, "rwkv6-1.6b": 2}
+REC_REL_L2_F32 = 1e-4
+# requests on a reused slot served again alone on a fresh Server
+REC_FRESH_CHECKS = 2
 
 # the approximate tier on the kNN cell: recall targets timed (1.0 is gated
 # equal to fused), the masked approx probe of the IVF store, and the
@@ -1100,18 +1148,29 @@ def run_k4_cases():
             ("main shape", (PREFILL_BATCH, PREFILL_LEN, 8, 1, 256),
              torch.bfloat16),
             ("main shape", (PREFILL_BATCH, PREFILL_LEN, 8, 1, 256),
-             torch.float32)]:
+             torch.float32),
+            # zamba2-2.7b's prefill: hd 80, 32 heads, no grouping
+            ("zamba2 prefill", (PREFILL_BATCH, PREFILL_LEN) + K4_ZAMBA2[1:],
+             torch.bfloat16)]:
         err = max(err, k4_case(name, *shape, dt, *tiles))
+    # hd 80 (zamba2-2.7b) and 112 (kimi-k2): 5 and 7 k16 slices on the
+    # tensor cores, a partial last column per lane on the CUDA cores
+    for hd in (80, 112):
+        for dt in (torch.float32, torch.bfloat16):
+            err = max(err, k4_case(f"hd={hd}, S=1", 2, 1, 4, 2, hd, dt))
+            err = max(err, k4_case(f"hd={hd}, ragged", 2, 300, 4, 2, hd, dt))
+            err = max(err, k4_case(f"hd={hd}, ragged tiles, no padding", 1,
+                                   333, 4, 1, hd, dt, 1, 1))
     return err
 
 
-def k4_timings():
-    """K4 at the main shape (the kernel layout): the bf16 route (tensor
-    cores), its plain version and SDPA, then the f32 route (CUDA cores) on
-    the same inputs in f32; the bound: 2 * B * H * S^2 * hd FLOPs (QK^T
-    and PV over the causal half) on the bf16 tensor cores, or q, k, v and
-    o once through HBM, whichever takes longer. TFLOP/s count those FLOPs."""
-    B, H, KV, S, hd = PREFILL_BATCH, 8, 1, PREFILL_LEN, 256
+def k4_timings(B=PREFILL_BATCH, H=8, KV=1, S=PREFILL_LEN, hd=256):
+    """K4 at one prefill's shape (the kernel layout; gemma-2b's by
+    default): the bf16 route (tensor cores), its plain version and SDPA,
+    then the f32 route (CUDA cores) on the same inputs in f32; the bound:
+    2 * B * H * S^2 * hd FLOPs (QK^T and PV over the causal half) on the
+    bf16 tensor cores, or q, k, v and o once through HBM, whichever takes
+    longer. TFLOP/s count those FLOPs."""
     g = torch.Generator(device=DEV).manual_seed(7)
     q = torch.randn((B, H, S, hd), generator=g, device=DEV).bfloat16()
     k, v = (torch.randn((B, KV, S, hd), generator=g, device=DEV).bfloat16()
@@ -1129,14 +1188,15 @@ def k4_timings():
     t = max((flops / BF16_FLOPS_PER_S, "operations"),
             (nbytes / HBM_BYTES_PER_S, "bytes"))
     tf = lambda t_ms: flops / t_ms / 1e9
-    print(f"  K4 at the main shape (B={B} H={H} KV={KV} S={S} hd={hd}): bf16 "
+    print(f"  K4 at B={B} H={H} KV={KV} S={S} hd={hd}: bf16 "
           f"(tensor cores) {ms:.3f} ms = {tf(ms):.1f} TFLOP/s, plain "
           f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms = {tf(lib_ms):.1f} "
           f"TFLOP/s; f32 (CUDA cores) {ms_f32:.3f} ms = {tf(ms_f32):.1f} "
           f"TFLOP/s; bound {t[0] * 1e3:.4f} ms by {t[1]} ({flops / 1e9:.1f} "
           f"GFLOP, {nbytes / 2**20:.0f} MiB in bf16)", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "ms_f32": ms_f32, "bound_ms": t[0] * 1e3, "bound_by": t[1]}
+            "ms_f32": ms_f32, "bound_ms": t[0] * 1e3, "bound_by": t[1],
+            "tflops": tf(ms)}
 
 
 # ---------------------------------------------------------------------------
@@ -1156,10 +1216,10 @@ def final_hidden(model, cfg, tokens, impl, chunk=1024):
     return h
 
 
-def flash_vs_xla_f32(cfg, seed):
-    """A 2-layer, full-width float32 copy of the model: flash (K4) and the
-    plain blockwise path agree to FLASH_XLA_ATOL_F32."""
-    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+def flash_vs_xla_f32(cfg, seed, layers=2):
+    """A ``layers``-layer, full-width float32 copy of the model: flash (K4)
+    and the plain blockwise path agree to FLASH_XLA_ATOL_F32."""
+    small = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
     model = lm.init_params(torch.Generator(device=DEV).manual_seed(seed + 1),
                            small, device=DEV)
     g = torch.Generator(device=DEV).manual_seed(seed + 2)
@@ -1168,7 +1228,7 @@ def flash_vs_xla_f32(cfg, seed):
     a = final_hidden(model, small, tok, "flash")
     b = final_hidden(model, small, tok, "xla")
     err = float((a - b).abs().max())
-    print(f"  2-layer f32 copy: flash vs xla max_abs_err {err:.3e} "
+    print(f"  {layers}-layer f32 copy: flash vs xla max_abs_err {err:.3e} "
           f"(limit {FLASH_XLA_ATOL_F32})", flush=True)
     if err > FLASH_XLA_ATOL_F32:
         raise AssertionError("flash and xla prefill disagree in f32")
@@ -1369,6 +1429,385 @@ def serving_path(seed: int):
     torch.cuda.empty_cache()
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the recurrent families, zamba2-2.7b and rwkv6-1.6b
+# ---------------------------------------------------------------------------
+
+def _attention_layers(cfg) -> int:
+    """K4 launches in one prefill: the hybrid's shared block once per
+    group; an attention-free stack none."""
+    if cfg.shared_attn_every:
+        return cfg.num_layers // cfg.shared_attn_every
+    return cfg.num_layers if cfg.block_pattern[0].value == "attention" else 0
+
+
+def _leaves_of(t):
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in _leaves_of(t[k])]
+    if isinstance(t, tuple):
+        return [x for v in t for x in _leaves_of(v)]
+    return [t]
+
+
+def _state_bytes(state) -> int:
+    return sum(a.numel() * a.element_size()
+               for a in _leaves_of(state["cache"]))
+
+
+def _last_logits(model, cfg, tokens, chunked: bool):
+    """Logits at the last position: ``forward`` over all of ``tokens``
+    (the chunked scans), or ``prefill`` over all but the last and one
+    ``decode_step`` (the step recurrences), both with K4."""
+    ctx = lm.RunCtx(attn_impl="flash")
+    with torch.inference_mode():
+        if chunked:
+            return lm.forward(model, cfg, tokens, ctx=ctx)[0][:, -1].float()
+        _, st = lm.prefill(model, cfg, tokens[:, :-1], ctx=ctx)
+        st = lm.pad_decode_state(cfg, st, tokens.shape[1])
+        return lm.decode_step(model, cfg, tokens[:, -1:], st)[0][:, 0].float()
+
+
+def chunked_vs_recurrent(model, cfg, tokens):
+    """Forward's logits at S - 1 against prefill + one decode step, gated
+    at REC_NOISE_X times the same forward at half the scan chunk (bf16),
+    or at REC_REL_L2_F32 (float32)."""
+    chunked = _last_logits(model, cfg, tokens, True)
+    err = rel_l2(_last_logits(model, cfg, tokens, False), chunked)
+    if cfg.ssm is not None:
+        half = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk_size=cfg.ssm.chunk_size // 2))
+        noise = rel_l2(_last_logits(model, half, tokens, True), chunked)
+    else:
+        old = rwkv6.WKV_CHUNK
+        rwkv6.WKV_CHUNK = old // 2
+        try:
+            noise = rel_l2(_last_logits(model, cfg, tokens, True), chunked)
+        finally:
+            rwkv6.WKV_CHUNK = old
+    limit = (REC_REL_L2_F32 if cfg.dtype == "float32"
+             else max(REC_REL_L2_BF16, REC_NOISE_X * noise))
+    print(f"  chunked vs recurrent, {cfg.num_layers} layers, S="
+          f"{tokens.shape[1]}, {cfg.dtype}: logits at S-1 relative L2 "
+          f"{err:.3e} (limit {limit:.3e}); forward at half the scan chunk: "
+          f"{noise:.3e}", flush=True)
+    if not err <= limit:
+        raise AssertionError(f"{cfg.name}: the chunked forward and the step "
+                             f"recurrence disagree")
+    return err, noise
+
+
+def chunked_vs_recurrent_f32(cfg, seed, tokens):
+    """The same check on a float32 copy of the model at full width and
+    REC_F32_LAYERS layers (one shared-attention group for zamba2)."""
+    small = dataclasses.replace(cfg, num_layers=REC_F32_LAYERS[cfg.name],
+                                dtype="float32")
+    model = lm.init_params(torch.Generator(device=DEV).manual_seed(seed + 1),
+                           small, device=DEV)
+    out = chunked_vs_recurrent(model, small, tokens)
+    del model
+    return out
+
+
+def scan_share(model, cfg, tokens) -> dict:
+    """One layer's chunked scan (``_ssd_chunked`` / ``_wkv_chunked``) and
+    its whole block, on the prefill's own first-layer inputs, each timed
+    alone (CUDA events) and counted once per layer: the scans' and the
+    blocks' share of a prefill."""
+    B, S = tokens.shape
+    eps = cfg.norm_eps
+    with torch.inference_mode():
+        x = layers.embed(model.embed, tokens)
+        if cfg.ssm is not None:
+            blk = model.blocks[0][0] if cfg.shared_attn_every else (
+                model.blocks[0])
+            h = layers.rmsnorm(blk.ln, x, eps)
+            _, x_ssm, b, c, dt, _ = mamba2._projections(blk.mamba, h, None)
+            dt = torch.nn.functional.softplus(dt.float() + blk.mamba.dt_bias)
+            xh = x_ssm.reshape(B, S, -1, cfg.ssm.head_dim)
+            scan = lambda: mamba2._ssd_chunked(xh, b, c, dt, blk.mamba.a_log,
+                                               cfg.ssm.chunk_size)
+            block = lambda: lm._apply_mamba_block(blk, cfg, x, False)
+        else:
+            blk = model.blocks[0]
+            h = layers.rmsnorm(blk.ln1, x, eps)
+            r, k, v, logw, _ = rwkv6._time_mix_heads(blk.tm, cfg, h, None)
+            scan = lambda: rwkv6._wkv_chunked(r, k, v, logw, blk.tm.bonus,
+                                              rwkv6.WKV_CHUNK)
+            block = lambda: lm._apply_rwkv_block(blk, cfg, x, False)
+        scan_ms = cuda_ms(scan, REC_TIMED)[0]
+        block_ms = cuda_ms(block, REC_TIMED)[0]
+    n = cfg.num_layers
+    print(f"  one layer at {B} x {S}: chunked scan {scan_ms:.2f} ms, whole "
+          f"block {block_ms:.2f} ms; x {n} layers: scans {n * scan_ms:.1f} "
+          f"ms, blocks {n * block_ms:.1f} ms", flush=True)
+    return {"scan_ms_per_layer": scan_ms, "block_ms_per_layer": block_ms,
+            "scans_ms": n * scan_ms, "blocks_ms": n * block_ms}
+
+
+def _count_steps(srv):
+    """Count the server's decode steps (admission replays and ticks)."""
+    n = [0]
+    step = srv._step
+
+    def counted(*a):
+        n[0] += 1
+        return step(*a)
+
+    srv._step = counted
+    return n
+
+
+def _k_launches():
+    return {"K1": tsel.hamming_hist_kernel.launches,
+            "K2": tsel.hamming_emit_kernel.launches,
+            "K3": tham.hamming_distance_kernel.launches,
+            "K4": fa.flash_attention_kernel.launches}
+
+
+def _reset_k_launches():
+    tsel.reset_launch_counts()
+    tham.reset_launch_counts()
+    fa.reset_launch_counts()
+
+
+def _plan_launches(p) -> dict:
+    """K-kernel launches one search of plan ``p`` makes: fused runs K1 and
+    K2 once; a materializing select runs K3 once per chunk only with
+    method "pallas" (with "xor" its distances are plain PyTorch)."""
+    out = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    if p.select.path == "fused":
+        out["K1"] = out["K2"] = 1
+    elif p.select.method == "pallas":
+        out["K3"] = p.geometry()["n_chunks"]
+    return out
+
+
+def _serve_alone(cfg, model, store, req):
+    """``req``'s prompt served alone on a fresh Server: its tokens."""
+    srv = server.Server(cfg, model, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                        store=store, device=DEV)
+    r = server.Request(uid=req.uid, prompt=req.prompt.copy(),
+                       max_new_tokens=req.max_new_tokens)
+    srv.submit(r)
+    srv.run(max_ticks=1000)
+    if r.status != "done":
+        raise AssertionError(f"request {r.uid} alone: {r.status}")
+    return r.out_tokens
+
+
+def recurrent_serving(cfg, model, store, corpus):
+    """16 requests on 8 slots (each slot reused once), with retrieval in
+    every decode step; K-kernel launches per decode step against the
+    plan; requests on reused slots equal the same requests alone on a
+    fresh server; one decode batch's retrieval through the plan, fused
+    (K1 + K2) and the board-scan composite (K3), all equal."""
+    rcfg = cfg.retrieval
+    srv = server.Server(cfg, model, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                        store=store, device=DEV)
+    n_steps = _count_steps(srv)
+    reqs = [server.Request(uid=i, prompt=corpus[i, :PROMPT_LEN].cpu().numpy()
+                           .astype(np.int32), max_new_tokens=MAX_NEW)
+            for i in range(N_REQUESTS)]
+    for r in reqs:
+        if not srv.submit(r):
+            raise AssertionError(f"request {r.uid} shed")
+    _reset_k_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = srv.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _k_launches()
+    st = srv.stats()
+    if (st["lost"] != 0 or st["done"] != N_REQUESTS
+            or any(r.status != "done" or len(r.out_tokens) != MAX_NEW
+                   for r in reqs)):
+        raise AssertionError(f"{cfg.name} serving failed: {st}")
+    per_step = _plan_launches(srv.retrieval_plan)
+    want = {k: v * n_steps[0] for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{cfg.name} serving: launches {launches} over "
+                             f"{n_steps[0]} decode steps, the plan "
+                             f"{srv.retrieval_plan.compact()} makes {want}")
+    new_tok = N_REQUESTS * MAX_NEW
+    print(f"  served {st['done']}/{N_REQUESTS} requests on {SERVE_BATCH} "
+          f"slots ({PROMPT_LEN}-token prompts, {MAX_NEW} new tokens) in "
+          f"{ticks} ticks, {n_steps[0]} decode steps, {wall:.2f} s: p50 "
+          f"token {st['p50_token_s'] * 1e3:.2f} ms, p99 token "
+          f"{st['p99_token_s'] * 1e3:.2f} ms, {new_tok / wall:.1f} new "
+          f"tokens/s; lost {st['lost']}; plan "
+          f"{srv.retrieval_plan.compact()}: per step {per_step}, launched "
+          f"{launches}", flush=True)
+
+    # the second half of the requests took slots the first half left
+    reused = [r for r in reqs if r.admit_tick > 0][:REC_FRESH_CHECKS]
+    if len(reused) < REC_FRESH_CHECKS:
+        raise AssertionError("no request was admitted to a reused slot")
+    for r in reused:
+        alone = _serve_alone(cfg, model, store, r)
+        if alone != r.out_tokens:
+            raise AssertionError(f"{cfg.name}: request {r.uid} on a reused "
+                                 f"slot {r.out_tokens} != alone {alone}")
+    print(f"  requests {[r.uid for r in reused]} on reused slots == each "
+          f"alone on a fresh server", flush=True)
+
+    with torch.inference_mode():
+        tok = torch.from_numpy(srv.last_token).to(DEV)
+        _, _, h = lm.decode_step(model, cfg, tok, srv.state,
+                                 return_hidden=True)
+        h = h[:, 0, :]
+        lp = retrieval.knn_logits(store, h, rcfg, cfg.vocab_size)
+        q_codes = binary.pack_bits(quantize.itq_encode(h, store.itq))
+        p_board = retrieval.plan_for_store(store, rcfg, SERVE_BATCH,
+                                           method="pallas",
+                                           select="composite")
+        _reset_k_launches()
+        lp_fused = retrieval.knn_logits(store, h, rcfg, cfg.vocab_size,
+                                        select="fused")
+        lp_board = retrieval.knn_logits(store, h, rcfg, cfg.vocab_size,
+                                        method="pallas", select="composite")
+        torch.cuda.synchronize()
+    batch_launches = _k_launches()
+    want = {k: _plan_launches(p_board)[k] + (1 if k in ("K1", "K2") else 0)
+            for k in batch_launches}
+    if not (torch.equal(lp, lp_fused) and torch.equal(lp, lp_board)
+            and batch_launches == want and q_codes.shape[0] == SERVE_BATCH):
+        raise AssertionError(f"{cfg.name}: decode batch retrieval differs "
+                             f"between plans (launches {batch_launches}, "
+                             f"expected {want})")
+    print(f"  decode batch retrieval: {srv.retrieval_plan.compact()} == fused "
+          f"== {p_board.compact()} (log-probs identical; launches "
+          f"{batch_launches})", flush=True)
+    out = {"plan": srv.retrieval_plan.compact(), "serve_ticks": ticks,
+           "decode_steps": n_steps[0], "launches": launches,
+           "launches_per_step_by_plan": per_step, "serve_wall_s": wall,
+           "p50_token_ms": st["p50_token_s"] * 1e3,
+           "p99_token_ms": st["p99_token_s"] * 1e3,
+           "new_tokens_per_s": new_tok / wall, "lost": st["lost"],
+           "reused_equal_alone": [r.uid for r in reused],
+           "decode_batch_launches": batch_launches}
+    out.update(decode_breakdown(model, cfg, store, srv))
+    tok = torch.from_numpy(srv.last_token).to(DEV)
+    active = torch.ones(SERVE_BATCH, dtype=torch.bool, device=DEV)
+    with torch.inference_mode():
+        prof = _profile(lambda: lm.decode_step(model, cfg, tok, srv.state,
+                                               active=active))
+    out["decode_step_profile"] = prof
+    print(f"  one decode step under torch.profiler: {prof['wall_ms']:.1f} "
+          f"ms wall, {prof['device_events']} device events, busy share "
+          f"{prof['busy_share']}; by kind {prof['by_kind']}", flush=True)
+    return out
+
+
+def recurrent_arch(arch: str, seed: int) -> dict:
+    cfg = get_config(arch)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.init_params(torch.Generator(device=DEV).manual_seed(seed),
+                           cfg, device=DEV)
+    torch.cuda.synchronize()
+    n_params = lm.param_count(cfg)
+    if sum(p.numel() for p in model.parameters()) != n_params:
+        raise AssertionError(f"{arch}: the parameters != param_count")
+    print(f"model: {arch} ({cfg.family}) {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}; param_count "
+          f"{n_params:,}; {torch.cuda.memory_allocated() / 1e9:.3f} GB in use",
+          flush=True)
+
+    g = torch.Generator(device=DEV).manual_seed(seed + 5)
+    corpus = torch.randint(0, cfg.vocab_size, (REC_CORPUS_SEQS, PREFILL_LEN),
+                           generator=g, device=DEV)
+    prompts = corpus[:PREFILL_BATCH]
+    prefill = steps.make_prefill_step(cfg, seq_len=PREFILL_LEN,
+                                      attn_impl="flash", device=DEV)
+    batch = {"tokens": prompts}
+    k4_want = _attention_layers(cfg)
+    fa.reset_launch_counts()
+    logits, state = prefill(model, batch)
+    torch.cuda.synchronize()
+    k4 = fa.flash_attention_kernel.launches
+    if k4 != k4_want:
+        raise AssertionError(f"{arch}: K4 launched {k4} times in one "
+                             f"prefill, expected {k4_want}")
+    ref = lm.init_decode_state(cfg, PREFILL_BATCH, PREFILL_LEN, device="meta")
+    shapes = lambda st: [tuple(a.shape) for a in
+                         _leaves_of(st["cache"])]
+    if (tuple(logits.shape) != (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())
+            or shapes(state) != shapes(ref)
+            or not all(bool(torch.isfinite(a.float()).all())
+                       for a in _leaves_of(state["cache"]))):
+        raise AssertionError(f"{arch}: prefill output shape or values wrong")
+    del logits, state
+    pre_ms, _ = cuda_ms(lambda: prefill(model, batch)[1]["pos"], REC_TIMED)
+    tok_s = PREFILL_BATCH * PREFILL_LEN / pre_ms * 1e3
+    print(f"  prefill (flash, {PREFILL_BATCH} x {PREFILL_LEN}): K4 launches "
+          f"{k4}, median {pre_ms:.1f} ms, {tok_s:.0f} tokens/s", flush=True)
+    out = {"arch": arch, "param_count": n_params, "prefill_ms": pre_ms,
+           "prefill_tokens_per_s": tok_s, "k4_launches_per_prefill": k4}
+    out.update(scan_share(model, cfg, prompts))
+    prof = _profile(lambda: prefill(model, batch))
+    out["prefill_profile"] = prof
+    print(f"  one prefill under torch.profiler: {prof['wall_ms']:.1f} ms "
+          f"wall, {prof['device_events']} device events, busy share "
+          f"{prof['busy_share']}; by kind {prof['by_kind']}", flush=True)
+    if k4_want:
+        h_xla = final_hidden(model, cfg, prompts, "xla")
+        err = rel_l2(final_hidden(model, cfg, prompts, "flash"), h_xla)
+        noise = rel_l2(final_hidden(model, cfg, prompts, "xla", chunk=256),
+                       h_xla)
+        del h_xla
+        limit = max(FLASH_XLA_REL_L2_BF16, REC_NOISE_X * noise)
+        print(f"  flash vs xla final hidden state: relative L2 {err:.3e} "
+              f"(limit {limit:.3e}); xla chunk 256 vs 1024: {noise:.3e}",
+              flush=True)
+        if not err <= limit:
+            raise AssertionError(f"{arch}: flash and xla prefill disagree")
+        out.update(flash_vs_xla_rel_l2_bf16=err, xla_chunk_rel_l2_bf16=noise,
+                   flash_vs_xla_max_abs_err_f32=flash_vs_xla_f32(
+                       cfg, seed, REC_F32_LAYERS[arch]))
+    check = prompts[:, :REC_CHECK_LEN]
+    err, noise = chunked_vs_recurrent(model, cfg, check)
+    err32, noise32 = chunked_vs_recurrent_f32(cfg, seed, check)
+    out.update(chunked_vs_recurrent_rel_l2=err, half_chunk_rel_l2=noise,
+               chunked_vs_recurrent_rel_l2_f32=err32,
+               half_chunk_rel_l2_f32=noise32)
+    sizes = {n: _state_bytes(lm.init_decode_state(cfg, SERVE_BATCH, n,
+                                                  device="meta"))
+             for n in (1024, 4096)}
+    print(f"  decode state at batch {SERVE_BATCH}: {sizes[1024] / 2**20:.1f} "
+          f"MiB at max_len 1024, {sizes[4096] / 2**20:.1f} MiB at 4096",
+          flush=True)
+    if not cfg.shared_attn_every and sizes[1024] != sizes[4096]:
+        raise AssertionError(f"{arch}: the decode state grows with max_len")
+    out["decode_state_bytes"] = sizes
+
+    store, t_hidden, t_build = build_corpus_store(model, cfg, corpus)
+    out.update(store_entries=int(store.codes.shape[0]),
+               store_hidden_s=t_hidden, store_build_s=t_build)
+    out.update(recurrent_serving(cfg, model, store, corpus))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  {arch}: peak {out['peak_gb']:.2f} GB, phase "
+          f"{out['wall_s']:.1f} s", flush=True)
+    del store, model, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_path(seed: int) -> dict:
+    """zamba2-2.7b and rwkv6-1.6b at their registered configs: prefill
+    through K4 (9 launches for zamba2, none for rwkv6), chunked against
+    recurrent, the sub-quadratic state, a datastore and a server whose
+    reused slots equal fresh ones."""
+    t0 = time.perf_counter()
+    out = {arch: recurrent_arch(arch, seed) for arch in REC_ARCHS}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  recurrent path: {out['wall_s']:.1f} s", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2366,21 +2805,28 @@ def _kernel_kind(name: str) -> str:
 
 
 def _profile_step(step_fn, model, opt, batch, step) -> dict:
-    """One train step under torch.profiler: wall ms, the summed device time
-    of its kernels and copies, by kind, and the kernels that take the
-    most."""
+    """One train step under torch.profiler (``_profile``)."""
+    return _profile(lambda: step_fn(model, opt, batch, step))
+
+
+def _profile(fn) -> dict:
+    """``fn()`` once under torch.profiler: wall ms, the summed device time
+    of its kernels and copies, by kind, their count, and the kernels that
+    take the most."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step_fn(model, opt, batch, step)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
+    n_events = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_events += 1
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
     device_ms = sum(by_name.values())
@@ -2390,7 +2836,8 @@ def _profile_step(step_fn, model, opt, batch, step) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TRAIN_PROFILE_TOP]
     return {"wall_ms": wall_ms, "device_ms": device_ms or "not measured",
             "busy_share": device_ms / wall_ms if device_ms else
-            "not measured", "kernels": len(by_name), "by_kind": by_kind,
+            "not measured", "kernels": len(by_name),
+            "device_events": n_events, "by_kind": by_kind,
             "top": [[n[:90], ms] for n, ms in top]}
 
 
@@ -2730,10 +3177,18 @@ def main() -> int:
         K4_ATOL_F32, K4_BF16_ULPS), flush=True)
     k4_err = run_k4_cases()
     k4 = k4_timings()
+    k4_zamba2 = k4_timings(*K4_ZAMBA2[:3], PREFILL_LEN, K4_ZAMBA2[3])
 
     # phase 7: kNN-LM serving of gemma-2b, prefill through K4
     print(f"serving path: {ARCH}", flush=True)
     sp = serving_path(args.seed)
+
+    # phase 7c: the recurrent families at full width, prefill of zamba2
+    # through K4
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"recurrent path: {', '.join(REC_ARCHS)}", flush=True)
+    rp = recurrent_path(args.seed)
 
     # phase 8: the approximate tier on the kNN cell
     print(f"approx path: approx_topk, Q={N_QUERIES} N={N_ROWS} d={D_BITS} "
@@ -2770,6 +3225,7 @@ def main() -> int:
     print("sharded_path: " + json.dumps(shp), flush=True)
     print("shard_faults: " + json.dumps(sf), flush=True)
     print("serving_path: " + json.dumps(sp), flush=True)
+    print("recurrent_path: " + json.dumps(rp), flush=True)
     print("approx_path: " + json.dumps(ap), flush=True)
     print("mutable_path: " + json.dumps(mp), flush=True)
     print("tenant_path: " + json.dumps(tp), flush=True)
@@ -2808,7 +3264,13 @@ def main() -> int:
          "ms": k4["ms"], "ms_f32": k4["ms_f32"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "bound_route": "bf16 tensor cores" if k4["bound_by"] ==
-         "operations" else "HBM bytes", "library_ms": k4["library_ms"]},
+         "operations" else "HBM bytes", "library_ms": k4["library_ms"],
+         "head_dims": list(fa._HEAD_DIMS),
+         "recurrent_launches_per_prefill": {
+             a: rp[a]["k4_launches_per_prefill"] for a in REC_ARCHS},
+         "zamba2_prefill_hd80": dict(
+             k4_zamba2, launches=rp["zamba2-2.7b"][
+                 "k4_launches_per_prefill"])},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

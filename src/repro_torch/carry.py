@@ -2,10 +2,11 @@
 
 ``repro`` hands its state over as numpy arrays: packed codes (uint32),
 optionally a ``BucketLayout``'s ``codes``/``perm``/``inv``/``starts``, an
-``lm.init_params`` pytree and an ``AdamState`` over it, ``ITQParams``, a
-``DataStore`` and the arrays of a ``KMeansIndex`` or ``LSHIndex``. These
+``lm.init_params`` pytree, a decode state, an ``AdamState`` over the
+params, ``ITQParams``, a ``DataStore`` and the arrays of a
+``KMeansIndex`` or ``LSHIndex``. These
 functions return the port's tensors, ``BucketLayout``, ``KNNEngine``,
-model, optimizer state, ``ITQParams``,
+model, decode state, optimizer state, ``ITQParams``,
 ``DataStore`` and indexes on the given device (CUDA unless
 ``device="cpu"`` is asked for; with no device given and no CUDA device
 present they raise). Codes keep their bit pattern: uint32 words are
@@ -23,6 +24,9 @@ from repro_torch.core import index, quantize, retrieval
 from repro_torch.core.engine import KNNEngine, as_codes
 from repro_torch.core.layout import BucketLayout
 from repro_torch.models import lm
+from repro_torch.models.attention import KVCache
+from repro_torch.models.mamba2 import MambaState
+from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.optim import optimizer
 
 
@@ -61,16 +65,25 @@ def tensor(a, device=None) -> torch.Tensor:
 
 
 def _flat_lm_tree(tree, n_layers: int) -> dict:
-    """A tree of ``repro``'s ``lm.init_params`` structure (``blocks``
-    leaves stacked on a leading layer axis) -> {module name: array}."""
+    """A tree of ``repro``'s ``lm.init_params`` structure -> {module name:
+    array}. ``blocks`` leaves are stacked on a leading layer axis of
+    ``n_layers``, or in the hybrid on (groups, per_group), read from the
+    leaves, with the one ``shared_attn`` tree beside them."""
     flat = {"embed.table": tree["embed"]["table"],
             "final_norm.scale": tree["final_norm"]["scale"]}
     if "unembed" in tree:
         flat["unembed.table"] = tree["unembed"]["table"]
-    for part, leaves in tree["blocks"].items():
-        for leaf, stacked in _leaves(leaves):
-            for i in range(n_layers):
-                flat[f"blocks.{i}.{part}.{leaf}"] = np.asarray(stacked)[i]
+    if "shared_attn" in tree:
+        groups, per_group = np.shape(tree["blocks"]["ln"]["scale"])[:2]
+        lead = [(g, i) for g in range(groups) for i in range(per_group)]
+        for leaf, a in _leaves(tree["shared_attn"]):
+            flat[f"shared_attn.{leaf}"] = a
+    else:
+        lead = [(i,) for i in range(n_layers)]
+    for leaf, stacked in _leaves(tree["blocks"]):
+        stacked = np.asarray(stacked)
+        for idx in lead:
+            flat[".".join(["blocks", *map(str, idx), leaf])] = stacked[idx]
     return flat
 
 
@@ -87,7 +100,9 @@ def _keyed_like(tree, model: lm.LM, dev) -> dict:
 
 def lm_params(tree, cfg: ModelConfig, device=None) -> lm.LM:
     """``repro``'s ``lm.init_params`` pytree as numpy (``blocks`` leaves
-    stacked on a leading layer axis) -> the port's model."""
+    stacked on a leading layer axis, or on (groups, per_group) in the
+    hybrid) -> the port's model. RWKV6's f32 leaves (``mu``, ``decay_b``,
+    ``bonus``, ``ln_scale``, ...) stay f32 in a bf16 model, as there."""
     dev = device_mod.resolve(device)
     model = lm._build(cfg, dev)
     flat = _keyed_like(tree, model, dev)
@@ -98,6 +113,26 @@ def lm_params(tree, cfg: ModelConfig, device=None) -> lm.LM:
                              f"{tuple(p.shape)} {p.dtype}")
         p.copy_(t)
     return model
+
+
+_STATE_TYPES = {"KVCache": KVCache, "MambaState": MambaState,
+                "RWKVState": RWKVState}
+
+
+def decode_state(state, device=None) -> dict:
+    """``repro``'s decode state as numpy (``{"pos", "cache"}`` with its
+    ``KVCache``, ``MambaState`` or ``RWKVState`` NamedTuples, stacked as
+    ``lm.init_decode_state`` stacks them) -> the port's, same structure."""
+    dev = device_mod.resolve(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if hasattr(x, "_fields"):
+            return _STATE_TYPES[type(x).__name__](*(conv(v) for v in x))
+        return tensor(np.asarray(x), dev)
+
+    return conv(state)
 
 
 def adam_state(state, model: lm.LM, device=None) -> optimizer.AdamState:

@@ -1,7 +1,7 @@
 """Config registry (port of ``repro.configs``): importing this package
-registers the archs the port serves. Only gemma-2b so far; the other
-archs of ``repro`` wait with their block families (ROADMAP queue 1
-item 11)."""
+registers the archs the port serves: gemma-2b (attention), zamba2-2.7b
+(the Mamba2 hybrid) and rwkv6-1.6b (RWKV6). ``repro``'s MoE, frontend and
+other dense archs wait with their families (ROADMAP queue 1 item 11)."""
 from repro_torch.configs.base import (BlockKind, ModelConfig, MoEConfig,
                                       RetrievalConfig, RWKVConfig,
                                       ShapeConfig, SSMConfig, StepKind,
@@ -11,7 +11,8 @@ from repro_torch.configs.shapes import (SHAPES, get_shape, runnable_cells,
                                         shape_applicable)
 
 # arch registrations (import side effects)
-from repro_torch.configs import gemma_2b  # noqa: F401
+from repro_torch.configs import (gemma_2b, rwkv6_1p6b,  # noqa: F401
+                                 zamba2_2p7b)
 
 ALL_ARCHS = list_archs()
 

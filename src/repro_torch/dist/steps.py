@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import BlockKind, ModelConfig, TrainConfig
 from repro_torch.core import retrieval as retrieval_mod
 from repro_torch.models import lm
 from repro_torch.optim import optimizer
@@ -46,7 +46,16 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
     reference's donated buffers). ``tc.microbatches > 1`` splits the batch
     and accumulates the gradients in the param dtype, then divides them
     by M; loss and aux are averaged in f32. Attention takes the blockwise
-    path (``attn_impl="xla"``): K4 is forward-only."""
+    path (``attn_impl="xla"``): K4 is forward-only. Only the attention
+    families train yet: the Mamba2 hybrid and RWKV6 raise (their forward
+    and ``lm.loss_fn`` run under autograd, but the optimizer's
+    per-leaf rules over ``repro``'s (groups, per_group) leaves are not
+    ported; ROADMAP queue 1 item 11)."""
+    lm._check_supported(cfg)
+    if cfg.shared_attn_every or cfg.block_pattern[0] != BlockKind.ATTENTION:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.block_pattern[0].value} family "
+            f"is not ported yet: ROADMAP queue 1 item 11")
     dev = device_mod.resolve(device)
     ctx = lm.RunCtx(causal_skip=causal_skip, attn_p_bf16=attn_p_bf16,
                     remat=tc.remat)

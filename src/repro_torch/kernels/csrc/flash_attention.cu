@@ -33,9 +33,10 @@
 //
 // Shared memory. Q (BQ x HD bf16) and two stages each of K and V (BK x HD
 // bf16), every row padded by 16 bytes (row stride HD + 8 elements). At
-// HD = 256 a row is then 33 16-byte units, so the 8 row addresses of an
-// ldmatrix fall in 8 different bank groups; an unpadded 512-byte stride
-// would put all 8 in the same banks. Padding rather than an XOR swizzle:
+// HD = 256 a row is then 33 16-byte units (11 at 80, 15 at 112, 17 at
+// 128: every one odd), so the 8 row addresses of an ldmatrix fall in 8
+// different bank groups; an unpadded 512-byte stride would put all 8 in
+// the same banks. Padding rather than an XOR swizzle:
 // the addresses stay plain and the extra 3 KB fit. 99 KB per CTA at
 // HD = 256, set with cudaFuncSetAttribute; two CTAs fit in the SM's 228 KB.
 //
@@ -50,12 +51,16 @@
 // fragment (the row-major A operand), ldmatrix.x4 without .trans two n8
 // key tiles of K (K stored [key][hd] is exactly the "col" B operand), and
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 accumulates in f32.
+// Nothing pairs k16 slices, so an odd count (5 at hd = 80, 7 at 112) needs
+// no tail; PV pairs n8 tiles of hd, and hd / 8 is even for every hd that
+// is a multiple of 16 (the head dims instantiated: 32, 64, 80, 112, 128,
+// 256). The O accumulator is hd / 2 registers a thread (40 at hd = 80).
 // Q is re-read from shared memory on every key tile rather than held in
 // registers: at HD = 256 the O accumulator alone is 128 registers a
 // thread. The f32 scores are scaled by hd^-0.5 after the product. At
 // hd = 256 and 64 the scale is a power of two, so this equals the Pallas
-// kernel's (q * scale) . k up to summation order; at hd = 128 and 32 it
-// differs by one f32 rounding of each q element.
+// kernel's (q * scale) . k up to summation order; at hd = 32, 80, 112 and
+// 128 it differs by one f32 rounding of each q element.
 //
 // Softmax. Only key tiles that cross a warp's diagonal compute the mask;
 // a warp whose rows all lie before a tile's first key skips the tile (its
@@ -100,10 +105,12 @@
 // dots key j against the warp's four q rows (broadcast float4 reads). The
 // row max is a warp shuffle reduction; each lane keeps a partial row sum
 // l, scaled by the same alpha, and the lanes' partial sums are added once
-// at the end. PV: lane c owns output columns c, c + 32, ... (hd / 32 of
-// them per row, in registers); each key's probability is broadcast from
-// its lane with a shuffle. q/k/v/o are read through their strides (last
-// dim contiguous), so the (B, S, H, hd) layout of the model needs no copy.
+// at the end. PV: lane c owns output columns c, c + 32, ... below hd
+// (ceil(hd / 32) of them per row, in registers; at hd = 80 and 112 the
+// last is owned by lanes below hd % 32 only); each key's probability is
+// broadcast from its lane with a shuffle. q/k/v/o are read through their
+// strides (last dim contiguous), so the (B, S, H, hd) layout of the model
+// needs no copy.
 // Any S works: rows >= S are not stored and keys >= S load as zeros, which
 // the causal mask hides from every stored row.
 //
@@ -154,8 +161,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long ksb, long long ksh, long long kss,
                  long long vsb, long long vsh, long long vss,
                  long long osb, long long osh, long long oss, float scale) {
-  static_assert(HD % 32 == 0, "each lane owns hd / 32 output columns");
-  constexpr int C = HD / 32;
+  static_assert(HD % 16 == 0, "float4 rows of q");
+  constexpr int C = (HD + 31) / 32;  // lane c owns columns c, c + 32, ...
+  constexpr bool EVEN = HD % 32 == 0;  // ... each of them below HD
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // BQ x HD, scaled f32
   float* Ks = Qs + BQ * HD;                      // BK x (HD + 1)
@@ -236,7 +244,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       float vv[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) vv[c] = Vs[j * HD + lane + 32 * c];
+      for (int c = 0; c < C; ++c)
+        vv[c] = EVEN || lane + 32 * c < HD ? Vs[j * HD + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float pj = __shfl_sync(FULL, p[r], j);
@@ -253,7 +262,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (s >= S) continue;
     T* orow = o + b * osb + h * osh + s * oss;
 #pragma unroll
-    for (int c = 0; c < C; ++c) store_out(orow + lane + 32 * c, acc[r][c] / l);
+    for (int c = 0; c < C; ++c)
+      if (EVEN || lane + 32 * c < HD)
+        store_out(orow + lane + 32 * c, acc[r][c] / l);
   }
 }
 
@@ -281,6 +292,8 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
   switch (hd) {
     case 32: return launch<T, 32>(q, k, v, o, B, H, G, S, st, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, H, G, S, st, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, H, G, S, st, scale, stream);
+    case 112: return launch<T, 112>(q, k, v, o, B, H, G, S, st, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, G, S, st, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, B, H, G, S, st, scale, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -592,6 +605,8 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
   switch (hd) {
     case 32: return launch<32>(q, k, v, o, B, H, G, S, st, scale, stream);
     case 64: return launch<64>(q, k, v, o, B, H, G, S, st, scale, stream);
+    case 80: return launch<80>(q, k, v, o, B, H, G, S, st, scale, stream);
+    case 112: return launch<112>(q, k, v, o, B, H, G, S, st, scale, stream);
     case 128: return launch<128>(q, k, v, o, B, H, G, S, st, scale, stream);
     case 256: return launch<256>(q, k, v, o, B, H, G, S, st, scale, stream);
     default: return (int)cudaErrorInvalidValue;

@@ -26,7 +26,7 @@ import torch
 
 _SOURCE = "flash_attention.cu"
 NEG_INF = -1e30
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 112, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -1,25 +1,37 @@
-"""Causal LM of the attention families (port of ``repro.models.lm``).
+"""Causal LM over the attention, Mamba2-hybrid and RWKV6 families (port of
+``repro.models.lm``).
 
-The model is an ``nn.Module`` tree — ``embed`` (the table), ``blocks`` (one
-``Block`` per layer: ln1, attn, ln2, mlp), ``final_norm`` and, untied,
-``unembed`` — with ``repro``'s leaf names and (in, out) weight layout. The
+The model is an ``nn.Module`` tree with ``repro``'s leaf names and (in,
+out) weight layout: ``embed`` (the table), ``blocks``, ``final_norm`` and,
+untied, ``unembed``. ``blocks`` holds one ``Block`` (ln1, attn, ln2, mlp)
+per layer for attention archs, one ``RWKVBlock`` (ln1, tm, ln2) per layer
+for RWKV6, one ``MambaBlock`` (ln, mamba) per layer for a pure Mamba2
+stack, and for the hybrid (zamba2) ``num_layers // shared_attn_every``
+groups of ``shared_attn_every`` ``MambaBlock``s, each group followed by the
+ONE weight-shared attention + MLP block ``shared_attn`` (a single module
+applied once per group, as ``repro`` applies one param tree). The
 module-level functions keep ``repro``'s names and signatures, with the
 module where ``repro`` takes the param pytree:
 
   forward        — full-sequence logits (training, scoring, datastore builds)
   loss_fn        — next-token cross entropy for the train step
-  prefill        — full sequence + the decode state (stacked KV caches)
+  prefill        — full sequence + the decode state
   decode_step    — one token against the decode state
 
 The layer stack is a Python loop over ``blocks`` (``repro`` scans stacked
-params); with ``RunCtx.remat`` and gradients on, each block runs under
-``torch.utils.checkpoint`` (``repro``'s ``jax.checkpoint`` of the scan
-body), so the backward pass keeps one activation per block and recomputes
-the rest. The decode state keeps ``repro``'s shape: ``{"pos": (B,) int32,
-"cache": KVCache}`` with k, v of (L, B, S_max, KV, hd).
+params); with ``RunCtx.remat`` and gradients on, each block (each group in
+the hybrid) runs under ``torch.utils.checkpoint`` (``repro``'s
+``jax.checkpoint`` of the scan body), so the backward pass keeps one
+activation per block and recomputes the rest. The decode state keeps
+``repro``'s shapes, every leaf stacked on a leading layer axis:
 
-MoE, Mamba2, RWKV6, the hybrid stack and the modality frontends raise
-``NotImplementedError`` (ROADMAP queue 1 item 11).
+  attention  {"pos": (B,) int32, "cache": KVCache}, k, v (L, B, S_max, KV, hd)
+  hybrid     {"pos", "cache": {"kv": KVCache (G, B, S_max, KV, hd),
+                               "mamba": MambaState (G, per_group, B, ...)}}
+  RWKV6      {"pos", "cache": RWKVState (L, B, ...)}
+
+As in ``repro``, a pure Mamba2 stack has no decode step. MoE and the
+modality frontends raise ``NotImplementedError`` (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -38,6 +50,12 @@ from repro_torch.models.attention import (Attention, KVCache,
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm, _dtype,
                                        cross_entropy, embed, embedding_init,
                                        mlp, mlp_init, rmsnorm, unembed)
+from repro_torch.models.mamba2 import (Mamba2, MambaState, init_mamba_state,
+                                       mamba2_forward, mamba2_init,
+                                       mamba2_step)
+from repro_torch.models.rwkv6 import (RWKV6, RWKVState, init_rwkv_state,
+                                      rwkv6_channel_mix, rwkv6_init,
+                                      rwkv6_time_mix)
 
 _QUEUE_11 = "ROADMAP queue 1 item 11"
 
@@ -59,18 +77,19 @@ DEFAULT_CTX = RunCtx()
 
 def _check_supported(cfg: ModelConfig) -> None:
     kind = cfg.block_pattern[0]
-    if cfg.shared_attn_every:
+    if kind == BlockKind.MOE or cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the hybrid (shared-attention) stack is not ported "
-            f"yet: {_QUEUE_11}")
-    if kind != BlockKind.ATTENTION or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {kind.value} blocks are not ported yet: "
+            f"{cfg.name}: {BlockKind.MOE.value} blocks are not ported yet: "
             f"{_QUEUE_11}")
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet: "
             f"{_QUEUE_11}")
+
+
+def _groups(cfg: ModelConfig):
+    """(groups, per_group) of the hybrid stack."""
+    return cfg.num_layers // cfg.shared_attn_every, cfg.shared_attn_every
 
 
 class Block(nn.Module):
@@ -82,15 +101,34 @@ class Block(nn.Module):
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
 
 
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 residual block."""
+
+    def __init__(self, ln: RMSNorm, mamba: Mamba2):
+        super().__init__()
+        self.ln, self.mamba = ln, mamba
+
+
+class RWKVBlock(nn.Module):
+    """RWKV6 time-mix + channel-mix residual block (both under ``tm``)."""
+
+    def __init__(self, ln1: RMSNorm, tm: RWKV6, ln2: RMSNorm):
+        super().__init__()
+        self.ln1, self.tm, self.ln2 = ln1, tm, ln2
+
+
 class LM(nn.Module):
     def __init__(self, embed: Embedding, blocks, final_norm: RMSNorm,
-                 unembed: Optional[Embedding] = None):
+                 unembed: Optional[Embedding] = None,
+                 shared_attn: Optional[Block] = None):
         super().__init__()
         self.embed = embed
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
         if unembed is not None:
             self.unembed = unembed
+        if shared_attn is not None:
+            self.shared_attn = shared_attn
 
     @property
     def device(self) -> torch.device:
@@ -120,10 +158,34 @@ def _build(cfg: ModelConfig, device, gen: Optional[torch.Generator] = None
             ff = mlp_init(gen, d, cfg.d_ff, cfg.mlp_activation, dt, device)
         return Block(RMSNorm(d, device), attn, RMSNorm(d, device), ff)
 
+    def mamba_block():
+        mix = (Mamba2(cfg, dt, device) if gen is None
+               else mamba2_init(gen, cfg, dt, device))
+        return MambaBlock(RMSNorm(d, device), mix)
+
+    def rwkv_block():
+        mix = (RWKV6(cfg, dt, device) if gen is None
+               else rwkv6_init(gen, cfg, dt, device))
+        return RWKVBlock(RMSNorm(d, device), mix, RMSNorm(d, device))
+
     emb = table()
-    blocks = [block() for _ in range(cfg.num_layers)]
+    shared = None
+    kind = cfg.block_pattern[0]
+    if cfg.shared_attn_every:
+        groups, per_group = _groups(cfg)
+        blocks = [nn.ModuleList([mamba_block() for _ in range(per_group)])
+                  for _ in range(groups)]
+        shared = block()
+    elif kind == BlockKind.ATTENTION:
+        blocks = [block() for _ in range(cfg.num_layers)]
+    elif kind == BlockKind.MAMBA2:
+        blocks = [mamba_block() for _ in range(cfg.num_layers)]
+    elif kind == BlockKind.RWKV6:
+        blocks = [rwkv_block() for _ in range(cfg.num_layers)]
+    else:
+        raise ValueError(kind)
     return LM(emb, blocks, RMSNorm(d, device),
-              None if cfg.tie_embeddings else table())
+              None if cfg.tie_embeddings else table(), shared)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> LM:
@@ -175,25 +237,87 @@ def _apply_attn_mlp(p: Block, cfg: ModelConfig, ctx: RunCtx, x, positions,
     return x, cache
 
 
+def _apply_mamba_block(p: MambaBlock, cfg: ModelConfig, x,
+                       want_state: bool):
+    y = mamba2_forward(p.mamba, cfg, rmsnorm(p.ln, x, cfg.norm_eps),
+                       return_state=want_state)
+    y, st = y if want_state else (y, None)
+    return x + y, st
+
+
+def _apply_rwkv_block(p: RWKVBlock, cfg: ModelConfig, x, want_state: bool,
+                      state: Optional[RWKVState] = None):
+    """From ``state`` (decode) or a zero state (prefill); the new state
+    when ``want_state``."""
+    out = rwkv6_time_mix(p.tm, cfg, rmsnorm(p.ln1, x, cfg.norm_eps), state,
+                         return_state=want_state)
+    tm, s_fin, last_t = out if want_state else (out, None, None)
+    h = x + tm
+    out = rwkv6_channel_mix(p.tm, cfg, rmsnorm(p.ln2, h, cfg.norm_eps), state,
+                            return_state=want_state)
+    cm, last_c = out if want_state else (out, None)
+    new = (RWKVState(wkv=s_fin, shift_t=last_t, shift_c=last_c)
+           if want_state else None)
+    return h + cm, new
+
+
+def _stack(items):
+    """A list of NamedTuples of tensors -> one of stacked tensors."""
+    return type(items[0])(*(torch.stack(f) for f in zip(*items)))
+
+
+def _at(state, *idx):
+    """The layer ``idx`` of a stacked NamedTuple state."""
+    return type(state)(*(f[idx] for f in state))
+
+
+def _stack_units(model: LM, cfg: ModelConfig, ctx: RunCtx, positions,
+                 want_cache: bool):
+    """The stack as (unit, fn) pairs with ``fn(unit, x) -> (x, cache)``:
+    one per block, one per group in the hybrid, and the function that
+    stacks the units' caches into the decode state's ``cache``."""
+    kind = cfg.block_pattern[0]
+    if cfg.shared_attn_every:
+        def group(blocks, x):
+            sts = []
+            for blk in blocks:
+                x, st = _apply_mamba_block(blk, cfg, x, want_cache)
+                sts.append(st)
+            x, kv = _apply_attn_mlp(model.shared_attn, cfg, ctx, x,
+                                    positions, want_cache)
+            return x, (_stack(sts) if want_cache else None, kv)
+
+        finish = lambda cs: {"kv": _stack([c[1] for c in cs]),
+                             "mamba": _stack([c[0] for c in cs])}
+        return [(g, group) for g in model.blocks], finish
+    if kind == BlockKind.ATTENTION:
+        fn = lambda blk, x: _apply_attn_mlp(blk, cfg, ctx, x, positions,
+                                            want_cache)
+    elif kind == BlockKind.MAMBA2:
+        fn = lambda blk, x: _apply_mamba_block(blk, cfg, x, want_cache)
+    elif kind == BlockKind.RWKV6:
+        fn = lambda blk, x: _apply_rwkv_block(blk, cfg, x, want_cache)
+    else:
+        raise ValueError(kind)
+    return [(blk, fn) for blk in model.blocks], _stack
+
+
 def _run_stack(model: LM, cfg: ModelConfig, ctx: RunCtx, x, positions,
                want_cache: bool = False):
-    """Returns (hidden, aux_loss, stacked caches-or-None)."""
+    """Returns (hidden, aux_loss, the decode state's cache or None)."""
     _check_supported(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    units, finish = _stack_units(model, cfg, ctx, positions, want_cache)
     if not want_cache and ctx.remat and torch.is_grad_enabled():
-        for blk in model.blocks:
-            x = checkpoint(lambda b, h: _apply_attn_mlp(
-                b, cfg, ctx, h, positions, False)[0], blk, x,
-                use_reentrant=False)
+        for unit, fn in units:
+            x = checkpoint(lambda u, h, f=fn: f(u, h)[0], unit, x,
+                           use_reentrant=False)
         return x, aux, None
     caches = []
-    for blk in model.blocks:
-        x, cache = _apply_attn_mlp(blk, cfg, ctx, x, positions, want_cache)
+    for unit, fn in units:
+        x, cache = fn(unit, x)
         caches.append(cache)
-    if not want_cache:
-        return x, aux, None
-    return x, aux, KVCache(k=torch.stack([c.k for c in caches]),
-                           v=torch.stack([c.v for c in caches]))
+    return x, aux, finish(caches) if want_cache else None
 
 
 def _logits(model: LM, cfg: ModelConfig, x):
@@ -229,7 +353,8 @@ def loss_fn(model: LM, cfg: ModelConfig, batch, ctx: RunCtx = DEFAULT_CTX):
 
 def prefill(model: LM, cfg: ModelConfig, tokens, prefix_emb=None,
             ctx: RunCtx = DEFAULT_CTX):
-    """Full-sequence forward that also returns the decode state."""
+    """Full-sequence forward that also returns the decode state (KV
+    caches, Mamba2 states or RWKV states, as the family has)."""
     x, positions = _embed_inputs(model, cfg, tokens, prefix_emb)
     x, _, caches = _run_stack(model, cfg, ctx, x, positions, want_cache=True)
     logits, _ = _logits(model, cfg, x)
@@ -260,6 +385,13 @@ def _decode_attn_mlp(p: Block, cfg: ModelConfig, ctx: RunCtx, x,
     return x, new_cache
 
 
+def _decode_mamba(blk: MambaBlock, cfg: ModelConfig, x, st: MambaState,
+                  active):
+    y, new_st = mamba2_step(blk.mamba, cfg, rmsnorm(blk.ln, x, cfg.norm_eps),
+                            st)
+    return x + y, _keep_active(active, new_st, st)
+
+
 def decode_step(model: LM, cfg: ModelConfig, token, state,
                 ctx: RunCtx = DEFAULT_CTX, active=None,
                 return_hidden: bool = False):
@@ -270,30 +402,54 @@ def decode_step(model: LM, cfg: ModelConfig, token, state,
     Returns (logits (B,1,V), new_state[, hidden]); ``state`` itself is not
     modified."""
     _check_supported(cfg)
+    kind = cfg.block_pattern[0]
     B = token.shape[0]
     pos = torch.as_tensor(state["pos"], dtype=torch.int32,
                           device=token.device)
     pos = pos.expand(B) if pos.dim() == 0 else pos
     x = _embed_scale(cfg, embed(model.embed, token))
     cache = state["cache"]
-    ks, vs = [], []
-    for i, blk in enumerate(model.blocks):
-        x, c = _decode_attn_mlp(blk, cfg, ctx, x,
-                                KVCache(k=cache.k[i], v=cache.v[i]), pos,
-                                active)
-        ks.append(c.k)
-        vs.append(c.v)
+    if cfg.shared_attn_every:
+        kvs, ms = [], []
+        for g, group in enumerate(model.blocks):
+            sts = []
+            for i, blk in enumerate(group):
+                x, st = _decode_mamba(blk, cfg, x, _at(cache["mamba"], g, i),
+                                      active)
+                sts.append(st)
+            x, kv = _decode_attn_mlp(model.shared_attn, cfg, ctx, x,
+                                     _at(cache["kv"], g), pos, active)
+            kvs.append(kv)
+            ms.append(_stack(sts))
+        new_cache = {"kv": _stack(kvs), "mamba": _stack(ms)}
+    elif kind == BlockKind.ATTENTION:
+        kvs = []
+        for i, blk in enumerate(model.blocks):
+            x, kv = _decode_attn_mlp(blk, cfg, ctx, x, _at(cache, i), pos,
+                                     active)
+            kvs.append(kv)
+        new_cache = _stack(kvs)
+    elif kind == BlockKind.RWKV6:
+        sts = []
+        for i, blk in enumerate(model.blocks):
+            st = _at(cache, i)
+            x, new_st = _apply_rwkv_block(blk, cfg, x, True, st)
+            sts.append(_keep_active(active, new_st, st))
+        new_cache = _stack(sts)
+    else:
+        # repro's decode_step has no branch for a pure Mamba2 stack
+        raise ValueError(kind)
     logits, h = _logits(model, cfg, x)
     new_pos = pos + (1 if active is None else active.to(torch.int32))
-    new_state = {"pos": new_pos,
-                 "cache": KVCache(k=torch.stack(ks), v=torch.stack(vs))}
+    new_state = {"pos": new_pos, "cache": new_cache}
     if return_hidden:
         return logits, new_state, h
     return logits, new_state
 
 
 def pad_decode_state(cfg: ModelConfig, state, max_len: int):
-    """Grow the KV-cache capacity of a prefill state to ``max_len``."""
+    """Grow the KV-cache capacity of a prefill state to ``max_len``; the
+    recurrent states have no length and stay as they are."""
     _check_supported(cfg)
 
     def pad(a):
@@ -302,8 +458,29 @@ def pad_decode_state(cfg: ModelConfig, state, max_len: int):
             return a
         return torch.nn.functional.pad(a, (0, 0, 0, 0, 0, extra))
 
-    c = state["cache"]
-    return {"pos": state["pos"], "cache": KVCache(k=pad(c.k), v=pad(c.v))}
+    pad_kv = lambda c: KVCache(k=pad(c.k), v=pad(c.v))
+    cache = state["cache"]
+    if cfg.shared_attn_every:
+        cache = {"kv": pad_kv(cache["kv"]), "mamba": cache["mamba"]}
+    elif isinstance(cache, KVCache):
+        cache = pad_kv(cache)
+    return {"pos": state["pos"], "cache": cache}
+
+
+def zero_recurrent_row(cfg: ModelConfig, cache, row: int):
+    """The decode state's ``cache`` with batch row ``row`` of every
+    recurrent leaf (the Mamba2 and RWKV6 states) zeroed, as a fresh state
+    has it; KV caches come back as they are (their stale rows are masked
+    by position). ``cache`` itself is not modified."""
+    def zero(st, axis):
+        idx = torch.tensor([row], device=st[0].device)
+        return type(st)(*(a.index_fill(axis, idx, 0) for a in st))
+
+    if cfg.shared_attn_every:
+        return {"kv": cache["kv"], "mamba": zero(cache["mamba"], 2)}
+    if isinstance(cache, KVCache):
+        return cache
+    return zero(cache, 1)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -312,8 +489,29 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     unless ``device="cpu"``."""
     _check_supported(cfg)
     dev = device_mod.resolve(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    zeros = lambda: torch.zeros(shape, dtype=_dtype(cfg), device=dev)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "cache": KVCache(k=zeros(), v=zeros())}
+
+    def kv(n_stack):
+        shape = (n_stack, batch, max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        zeros = lambda: torch.zeros(shape, dtype=_dtype(cfg), device=dev)
+        return KVCache(k=zeros(), v=zeros())
+
+    def stacked(st, *lead):
+        return type(st)(*(torch.zeros(lead + tuple(a.shape), dtype=a.dtype,
+                                      device=dev) for a in st))
+
+    pos0 = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    kind = cfg.block_pattern[0]
+    if cfg.shared_attn_every:
+        ms = stacked(init_mamba_state(cfg, batch, "meta"), *_groups(cfg))
+        return {"pos": pos0, "cache": {"kv": kv(_groups(cfg)[0]),
+                                       "mamba": ms}}
+    if kind == BlockKind.ATTENTION:
+        return {"pos": pos0, "cache": kv(cfg.num_layers)}
+    if kind == BlockKind.RWKV6:
+        return {"pos": pos0, "cache": stacked(
+            init_rwkv_state(cfg, batch, "meta"), cfg.num_layers)}
+    if kind == BlockKind.MAMBA2:
+        return {"pos": pos0, "cache": stacked(
+            init_mamba_state(cfg, batch, "meta"), cfg.num_layers)}
+    raise ValueError(kind)

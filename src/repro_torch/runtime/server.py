@@ -5,7 +5,9 @@ kNN-LM retrieval (the paper's engine) in the decode loop (port of
 Requests enter a bounded waiting queue (submissions beyond ``max_queue``
 are SHED immediately); free slots admit them by replaying the prompt
 through the decode step with a one-hot ``active`` mask (per-row positions
-make the shared cache sound); each ``tick`` then decodes one token for
+make the shared KV cache sound; a reused slot's recurrent-state rows, the
+Mamba2 and RWKV6 states, start from zero, where ``repro`` keeps the last
+request's); each ``tick`` then decodes one token for
 every live slot. Requests that outlive ``deadline_ticks`` are evicted from
 the queue or their slot with a ``timed_out`` status.
 
@@ -639,11 +641,15 @@ class Server:
         if req.queue_ticks is not None:
             self.queue_wait_ticks.append(req.queue_ticks)
         self.slots[slot] = req
-        # a reused slot restarts at position 0; stale cache rows beyond
-        # ``pos`` are masked by position, so no cache wipe is needed
+        # a reused slot restarts at position 0; stale KV rows beyond
+        # ``pos`` are masked by position, so no KV wipe is needed. The
+        # recurrent states (Mamba2, RWKV6) carry no position: the slot's
+        # rows are zeroed, so a request's tokens do not depend on the one
+        # that held the slot before (repro keeps them; ROADMAP queue 3)
         pos = self.state["pos"].clone()
         pos[slot] = 0
-        self.state = dict(self.state, pos=pos)
+        self.state = {"pos": pos, "cache": lm.zero_recurrent_row(
+            self.cfg, self.state["cache"], slot)}
         active = np.zeros(self.max_batch, bool)
         active[slot] = True
         tok = np.zeros((self.max_batch, 1), np.int32)

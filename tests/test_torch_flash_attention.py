@@ -170,3 +170,34 @@ def test_cp_async_alignment_copies_only_misaligned_tensors():
     # a unit axis's stride is never used, so it forces no copy
     one = buf.as_strided((1, 1, 40, 32), (3, 5, 32, 1))
     assert tfa._aligned(one) is one
+
+
+@pytest.mark.parametrize("hd", [80, 112])
+def test_plain_k4_at_zamba2_and_kimi_head_dims(hd):
+    """hd 80 (zamba2-2.7b) and 112 (kimi-k2), multiples of 16 but not of
+    32: the plain K4 against the Pallas kernel in interpret mode, f32."""
+    B, H, KV, S = 1, 2, 1, 128
+    rng = np.random.default_rng(hd)
+    q = rng.standard_normal((B, H, S, hd), np.float32)
+    k, v = (rng.standard_normal((B, KV, S, hd), np.float32)
+            for _ in range(2))
+    ref = jfa.flash_attention_fwd(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), bq=64, bk=32,
+                                  interpret=True)
+    out = tfa.flash_attention_kernel(*map(torch.from_numpy, (q, k, v)),
+                                     bq=64, bk=32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+
+
+def test_head_dims_cover_every_registered_config():
+    """K4's CUDA kernels are built for every head dim a registered config
+    of either package resolves to (attention-free rwkv6's 0 aside)."""
+    from repro.configs import ALL_ARCHS, get_config as jget_config
+    from repro_torch.configs import get_config
+
+    dims = {jget_config(a).resolved_head_dim for a in ALL_ARCHS} - {0}
+    assert dims == {64, 80, 112, 128, 256}
+    assert dims <= set(tfa._HEAD_DIMS)
+    from repro_torch.configs import ALL_ARCHS as T_ARCHS
+    assert {get_config(a).resolved_head_dim for a in T_ARCHS} - {0} <= dims

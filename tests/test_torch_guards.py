@@ -54,7 +54,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_the_scan_covers_every_module_of_the_port():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("configs/base.py", "kernels/flash_attention.py",
-                "models/lm.py", "core/retrieval.py", "runtime/server.py",
+                "models/lm.py", "models/mamba2.py", "models/rwkv6.py",
+                "core/retrieval.py", "runtime/server.py",
                 "runtime/faults.py", "dist/steps.py", "launch/serve.py",
                 "kernels/hamming.py", "core/index.py",
                 "kernels/approx_select.py", "checkpoint/wal.py",
@@ -103,6 +104,36 @@ def test_serving_entry_points_raise_without_a_device():
                                                  attn_impl="flash")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_recurrent_entry_points_raise_without_a_device(arch):
+    """The recurrent families' model, decode state, server, launcher and
+    prefill step put their tensors on CUDA unless given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the entry points would run")
+    cfg = scaled_down(get_config(arch))
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    state = lm.init_decode_state(cfg, 1, 8, device="cpu")
+
+    def as_np(t):
+        if isinstance(t, dict):
+            return {k: as_np(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return type(t)(*map(as_np, t))
+        return t.numpy() if t.dtype != torch.bfloat16 else t.float().numpy()
+
+    for call in (lambda: lm.init_params(torch.Generator(), cfg),
+                 lambda: lm.init_decode_state(cfg, 1, 8),
+                 lambda: carry.decode_state(as_np(state)),
+                 lambda: server.Server(cfg, model, max_batch=1, max_len=8),
+                 lambda: serve.main(["--arch", arch, "--scaled"]),
+                 lambda: steps.make_prefill_step(cfg, 16,
+                                                 attn_impl="flash")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert carry.decode_state(as_np(state), device="cpu")["pos"].device == (
+        torch.device("cpu"))
 
 
 def test_store_entry_points_raise_without_a_device(tmp_path):

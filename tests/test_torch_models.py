@@ -23,8 +23,10 @@ from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro_torch import carry
-from repro_torch.configs import (BlockKind, MoEConfig, get_config,
+from repro_torch.configs import (BlockKind, MoEConfig, RWKVConfig,
+                                  SSMConfig, TrainConfig, get_config,
                                   scaled_down)
+from repro_torch.dist import steps
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
@@ -281,21 +283,47 @@ def test_decode_from_zero_state_matches_forward(f32_model):
     _close(full, jlm.forward(params, jc, jnp.asarray(tok))[0])
 
 
+_SSM = SSMConfig(state_dim=16, head_dim=16, chunk_size=32)
+
+
 @pytest.mark.parametrize("change", [
     dict(block_pattern=(BlockKind.MOE,),
          moe=MoEConfig(num_experts=8, experts_per_token=2, expert_d_ff=64)),
-    dict(block_pattern=(BlockKind.MAMBA2,)),
-    dict(block_pattern=(BlockKind.RWKV6,)),
-    dict(shared_attn_every=2),
+    dict(block_pattern=(BlockKind.MAMBA2,), ssm=_SSM),
+    dict(block_pattern=(BlockKind.RWKV6,),
+         rwkv=RWKVConfig(head_dim=32, decay_lora=16, gate_lora=16)),
+    dict(block_pattern=(BlockKind.MAMBA2,), shared_attn_every=2, ssm=_SSM),
     dict(frontend="vision_patches", frontend_positions=4),
 ], ids=["moe", "mamba2", "rwkv6", "hybrid", "frontend"])
 def test_unported_families_raise(change):
+    """MoE and the frontends raise wherever a model would be built; the
+    recurrent families (Mamba2, RWKV6, the hybrid) build and serve, but
+    their train step raises (ROADMAP queue 1 item 11), and a pure Mamba2
+    stack has no decode step, as in ``repro``."""
     cfg = dataclasses.replace(scaled_down(get_config("gemma-2b")), **change)
-    for call in (lambda: tlm.init_params(torch.Generator(), cfg, "cpu"),
-                 lambda: tlm.param_count(cfg),
-                 lambda: tlm.init_decode_state(cfg, 1, 4, device="cpu")):
+    calls = [lambda: steps.make_train_step(cfg, TrainConfig(),
+                                           device="cpu")]
+    recurrent = cfg.block_pattern[0] in (BlockKind.MAMBA2, BlockKind.RWKV6)
+    if not recurrent:
+        calls += [lambda: tlm.init_params(torch.Generator(), cfg, "cpu"),
+                  lambda: tlm.param_count(cfg),
+                  lambda: tlm.init_decode_state(cfg, 1, 4, device="cpu")]
+    for call in calls:
         with pytest.raises(NotImplementedError, match="queue 1 item 11"):
             call()
+    if recurrent:
+        model = tlm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        state = tlm.init_decode_state(cfg, 1, 4, device="cpu")
+        assert tlm.param_count(cfg) == sum(p.numel()
+                                           for p in model.parameters())
+        step = lambda: tlm.decode_step(model, cfg,
+                                       torch.zeros((1, 1), dtype=torch.int64),
+                                       state)
+        if change.get("shared_attn_every") or "rwkv" in change:
+            assert step()[0].shape == (1, 1, cfg.vocab_size)
+        else:
+            with pytest.raises(ValueError):
+                step()
 
 
 def test_keep_active_selects_rows_as_the_reference():

@@ -522,3 +522,95 @@ def test_tenant_arena_serving_matches_reference(env, tmp_path):
     assert tst["tenants"].keys() == jst["tenants"].keys()
     for tid in q:
         assert tst["tenants"][tid] == jst["tenants"][tid], tid
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: zamba2-2.7b (Mamba2 hybrid) and rwkv6-1.6b
+# ---------------------------------------------------------------------------
+
+RECURRENT = ["zamba2-2.7b", "rwkv6-1.6b"]
+
+
+@pytest.fixture(scope="module", params=RECURRENT)
+def rec_env(request):
+    """The gemma ``env`` for one recurrent arch: scaled f32 weights and a
+    datastore built by the reference from the model's hidden states."""
+    arch = request.param
+    jc = jscaled_down(jget_config(arch), dtype="float32")
+    tc = scaled_down(get_config(arch), dtype="float32")
+    params = jlm.init_params(jax.random.PRNGKey(0), jc)
+    model = carry.lm_params(jax.tree_util.tree_map(np.asarray, params), tc,
+                            device="cpu")
+    corpus = np.random.default_rng(2).integers(
+        0, jc.vocab_size, (8, 48)).astype(np.int32)
+    _, _, hidden = jax.jit(lambda p, t: jlm.forward(
+        p, jc, t, return_hidden=True))(params, jnp.asarray(corpus))
+    store = jret.build_datastore(
+        hidden[:, :-1].reshape(-1, jc.d_model),
+        jnp.asarray(corpus[:, 1:].reshape(-1)), jc.retrieval.code_bits,
+        itq_iters=6)
+    tstore = carry.datastore(jax.tree_util.tree_map(np.asarray, store),
+                             device="cpu")
+    mesh = compat.make_mesh((1, 1), ("data", "model"))
+    return jc, tc, params, model, store, tstore, corpus, mesh
+
+
+def _serve(mod, srv, corpus, uids):
+    reqs = [mod.Request(uid=i, prompt=corpus[i, :3 + i % 3].copy(),
+                        max_new_tokens=4) for i in uids]
+    for r in reqs:
+        assert srv.submit(r)
+    srv.run(max_ticks=200)
+    return {r.uid: r.out_tokens for r in reqs}
+
+
+def _servers(env, max_batch):
+    jc, tc, params, model, store, tstore, corpus, mesh = env
+    return (jserver.Server(jc, mesh, params, max_batch=max_batch,
+                           max_len=24, store=store),
+            tserver.Server(tc, model, max_batch=max_batch, max_len=24,
+                           store=tstore, device="cpu"))
+
+
+def test_recurrent_server_matches_reference_on_fresh_slots(rec_env):
+    """Two requests on two fresh slots: the same tokens, ticks and
+    ``stats()`` counters as the reference, with retrieval in every step."""
+    js, ts = _servers(rec_env, 2)
+    corpus = rec_env[6]
+    assert _serve(jserver, js, corpus, [0, 1]) == _serve(tserver, ts, corpus,
+                                                         [0, 1])
+    _assert_same(js, ts)
+    assert ts.retrieval_plan.compact() == js.retrieval_plan.compact()
+
+
+def test_reused_slot_starts_from_a_zero_recurrent_state(rec_env):
+    """One slot serves requests 0, 1, 2 in turn. The port zeroes the
+    slot's Mamba2 / RWKV6 state rows on admission, so requests 1 and 2
+    get the tokens a fresh reference server gives each alone; the
+    reference keeps the last request's state there and its tokens differ
+    for at least one of them (ROADMAP queue 3, pinned divergence; the
+    retrieval mixture can hide the difference in a short answer). Request 0, on a fresh slot, is
+    served alike by both."""
+    corpus = rec_env[6]
+    js, ts = _servers(rec_env, 1)
+    reused_j = _serve(jserver, js, corpus, [0, 1, 2])
+    reused_t = _serve(tserver, ts, corpus, [0, 1, 2])
+    fresh = {}
+    for uid in (1, 2):
+        js1, ts1 = _servers(rec_env, 1)
+        fresh[uid] = _serve(jserver, js1, corpus, [uid])[uid]
+        assert _serve(tserver, ts1, corpus, [uid])[uid] == fresh[uid]
+    assert reused_t[0] == reused_j[0]
+    assert all(reused_t[uid] == fresh[uid] for uid in (1, 2))
+    assert any(reused_j[uid] != fresh[uid] for uid in (1, 2)), (reused_j,
+                                                                 fresh)
+    assert ts.stats()["lost"] == 0 and ts.stats()["done"] == 3
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_launcher_recurrent_archs_on_cpu(capsys, arch):
+    srv = tserve.main(["--arch", arch, "--scaled", "--device", "cpu",
+                       "--requests", "3", "--max-new", "4",
+                       "--max-batch", "2", "--max-len", "16"])
+    assert srv.stats()["done"] == 3 and srv.stats()["lost"] == 0
+    assert "served 3/3 requests" in capsys.readouterr().out
