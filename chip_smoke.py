@@ -76,6 +76,31 @@ kernel launch counts set to 0 just before it and read just after:
   and the board-scan composite (K3). K4 is also held against its plain
   version at hd 80 and 112 (S = 1, ragged 300 and 333, both dtypes) and
   at zamba2's prefill shape, and timed there.
+* the dense, frontend and MoE families — internlm2-20b (48 layers,
+  d_model 6144, GQA 48 / 8 heads of hd 128, vocab 92544, bf16, nothing
+  cut) served as the recurrent archs are: a flash prefill of 8 x 2048 (48
+  K4 launches, K4 timed at that shape beside SDPA and its bound), flash
+  against the blockwise path (full depth in bf16 within 3x the run's own
+  noise, a 2-layer f32 copy within 1e-4), a store CUT to 128 x 2047 =
+  262,016 entries, 16 requests on 8 slots with the fused-vs-composite
+  check; llava-next-mistral-7b and musicgen-medium whole, each a flash
+  prefill of 8 x 2048 tokens after its prefix of synthetic embeddings
+  (576 and 64 positions), and prefill + one decode step against forward
+  at S + 1 (bf16 at full depth; 2-layer f32 copies); arctic-480b and
+  kimi-k2 at full width DEPTH CUT to one layer each (one arch at a time):
+  a flash prefill (hd 128 in groups of 7; hd 112 in groups of 8), the
+  layer's MoE output on 256 sampled tokens against an independent f32
+  recomputation (the route and the MLPs written out here, the expert ids
+  equal to the program's route, only each token's K experts run), the
+  aux loss >= 1,
+  the expert loop's share of the layer's time, prefill + one decode step
+  against forward; and ``moe.moe_forward`` over 2 gloo ranks on the card
+  (arctic's width, experts CUT to 8 at capacity factor 8: nothing drops,
+  f32): a2a and allgather against the reference within 1e-4 of its
+  largest output, a2a_int8 within 0.05, with the transport each took.
+  K4 is held against its plain version at every new (H, KV, hd): 48/8/128,
+  48/1/128, 64/8/128, 56/8/128, 64/8/112 and 24/24/64, at S = 1 and 300,
+  both dtypes.
 * the approximate tier — ``approx_topk`` on the first path's store, in
   insertion order and (through the planner) in layout order, at recall
   targets 0.8, 0.9, 0.95, 0.99 and 1.0: ms, block rows, per-block L, the
@@ -127,6 +152,7 @@ kernel launch counts set to 0 just before it and read just after:
 
 Output: progress lines; ``main_path``, ``board_scan``, ``index_path``,
 ``sharded_path``, ``shard_faults``, ``serving_path``, ``recurrent_path``,
+``dense_path``, ``frontend_path``, ``moe_path``, ``moe_ep``,
 ``approx_path``,
 ``mutable_path``, ``tenant_path`` and ``train_path`` JSON lines;
 a ``kernels`` JSON line (launches on the paths, error against the plain
@@ -172,7 +198,8 @@ from repro_torch.kernels import approx_select  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hamming as tham  # noqa: E402
 from repro_torch.kernels import topk_select as tsel  # noqa: E402
-from repro_torch.models import layers, lm, mamba2, rwkv6  # noqa: E402
+from repro_torch.models import frontends, layers, lm  # noqa: E402
+from repro_torch.models import mamba2, moe, rwkv6  # noqa: E402
 from repro_torch.optim import optimizer  # noqa: E402
 from repro_torch.runtime import faults, server, trainer  # noqa: E402
 
@@ -267,6 +294,48 @@ REC_F32_LAYERS = {"zamba2-2.7b": 6, "rwkv6-1.6b": 2}
 REC_REL_L2_F32 = 1e-4
 # requests on a reused slot served again alone on a fresh Server
 REC_FRESH_CHECKS = 2
+
+# the dense, frontend and MoE families. internlm2-20b is served at its
+# registered width and depth, its store cut as the recurrent path's
+# (128 x 2047 = 262,016 entries) for the run's time limit; K4 is timed at
+# its prefill, (B, H, KV, hd)
+DENSE_ARCH = "internlm2-20b"
+DENSE_CORPUS_SEQS = 128
+K4_DENSE = (PREFILL_BATCH, 48, 8, 128)
+# llava-next-mistral-7b (576 prefix positions) and musicgen-medium (64),
+# whole. prefill + one decode step against forward at S + 1: relative L2
+# of the last logits, bf16 at full depth gated at REC_NOISE_X times the
+# same forward through the blockwise path (the run's own noise), never
+# below REC_REL_L2_BF16; float32 copies of DECODE_F32_LAYERS layers at
+# DECODE_F32_LEN tokens (plus the prefix) within REC_REL_L2_F32
+FRONTEND_ARCHS = ("llava-next-mistral-7b", "musicgen-medium")
+DECODE_F32_LAYERS, DECODE_F32_LEN = 2, 300
+# arctic-480b and kimi-k2 at full width, DEPTH CUT to MOE_LAYERS layer:
+# neither fits one card whole (953.7 GB and 2.09 TB in bf16). The layer's
+# bf16 MoE output on MOE_SAMPLE sampled tokens against an independent f32
+# recomputation: the expert ids equal to the program's route, relative
+# L2 within MOE_REL_L2 (bf16 rounds each product and the gate to 8
+# significand bits: ~2e-3 a rounding). The aux loss is
+# >= 1 (Cauchy-Schwarz; tests/test_models_parts.py)
+MOE_ARCHS = ("arctic-480b", "kimi-k2-1t-a32b")
+MOE_LAYERS, MOE_SAMPLE, MOE_REL_L2 = 1, 256, 2e-2
+MOE_F32_EXPERTS = 16
+MOE_AUX_MIN = 1 - 1e-3
+# expert parallelism on EP_RANKS gloo ranks on the one card: arctic's
+# d_model and expert_d_ff with the experts CUT to EP_EXPERTS at capacity
+# factor EP_CF (nothing drops), f32 with TF32 off, EP_B x EP_S tokens of
+# EP_X_SCALE x N(0, 1) (the scale of repro's int8 test,
+# tests/test_perf_paths.py). a2a and allgather within EP_REL_MAX of the
+# reference's largest |y|; a2a_int8 within repro's EP_INT8_ATOL absolute
+EP_RANKS, EP_EXPERTS, EP_CF = 2, 8, 8.0
+EP_B, EP_S, EP_X_SCALE = 2, 512, 0.1
+EP_REL_MAX, EP_INT8_ATOL, EP_TIMED = 1e-4, 0.05, 3
+EP_STRATEGIES = (("a2a", "a2a", False), ("allgather", "allgather", False),
+                 ("a2a_int8", "a2a", True))
+# the (H, KV, hd) the new families bring to K4: internlm2, granite (MQA),
+# deepseek, arctic (groups of 7), kimi-k2 (hd 112), musicgen (MHA, hd 64)
+K4_NEW_SHAPES = ((48, 8, 128), (48, 1, 128), (64, 8, 128), (56, 8, 128),
+                 (64, 8, 112), (24, 24, 64))
 
 # the approximate tier on the kNN cell: recall targets timed (1.0 is gated
 # equal to fused), the masked approx probe of the IVF store, and the
@@ -1161,6 +1230,11 @@ def run_k4_cases():
             err = max(err, k4_case(f"hd={hd}, ragged", 2, 300, 4, 2, hd, dt))
             err = max(err, k4_case(f"hd={hd}, ragged tiles, no padding", 1,
                                    333, 4, 1, hd, dt, 1, 1))
+    for H, KV, hd in K4_NEW_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for S in (1, 300):
+                err = max(err, k4_case(f"H={H} KV={KV} hd={hd}, S={S}", 2,
+                                       S, H, KV, hd, dt))
     return err
 
 
@@ -1456,56 +1530,78 @@ def _state_bytes(state) -> int:
                for a in _leaves_of(state["cache"]))
 
 
-def _last_logits(model, cfg, tokens, chunked: bool):
-    """Logits at the last position: ``forward`` over all of ``tokens``
-    (the chunked scans), or ``prefill`` over all but the last and one
-    ``decode_step`` (the step recurrences), both with K4."""
-    ctx = lm.RunCtx(attn_impl="flash")
+def _last(logits) -> torch.Tensor:
+    return logits[:, -1].to(torch.float32, copy=True)
+
+
+def _last_logits(model, cfg, tokens, chunked: bool, prefix=None,
+                 impl="flash"):
+    """Logits at the last position: ``forward`` over the prefix (if any)
+    and all of ``tokens`` (the chunked scans), or ``prefill`` over all but
+    the last token and one ``decode_step`` (the step recurrences)."""
+    ctx = lm.RunCtx(attn_impl=impl)
     with torch.inference_mode():
         if chunked:
-            return lm.forward(model, cfg, tokens, ctx=ctx)[0][:, -1].float()
-        _, st = lm.prefill(model, cfg, tokens[:, :-1], ctx=ctx)
-        st = lm.pad_decode_state(cfg, st, tokens.shape[1])
-        return lm.decode_step(model, cfg, tokens[:, -1:], st)[0][:, 0].float()
+            return _last(lm.forward(model, cfg, tokens, prefix, ctx=ctx)[0])
+        _, st = lm.prefill(model, cfg, tokens[:, :-1], prefix, ctx=ctx)
+        st = lm.pad_decode_state(cfg, st, int(st["pos"][0]) + 1)
+        return _last(lm.decode_step(model, cfg, tokens[:, -1:], st)[0])
 
 
-def chunked_vs_recurrent(model, cfg, tokens):
-    """Forward's logits at S - 1 against prefill + one decode step, gated
-    at REC_NOISE_X times the same forward at half the scan chunk (bf16),
-    or at REC_REL_L2_F32 (float32)."""
-    chunked = _last_logits(model, cfg, tokens, True)
-    err = rel_l2(_last_logits(model, cfg, tokens, False), chunked)
+def half_chunk_forward(model, cfg, tokens, prefix):
+    """The recurrent families' noise: forward at half the scan chunk
+    (Mamba2 64, RWKV6 32)."""
     if cfg.ssm is not None:
         half = dataclasses.replace(cfg, ssm=dataclasses.replace(
             cfg.ssm, chunk_size=cfg.ssm.chunk_size // 2))
-        noise = rel_l2(_last_logits(model, half, tokens, True), chunked)
-    else:
-        old = rwkv6.WKV_CHUNK
-        rwkv6.WKV_CHUNK = old // 2
-        try:
-            noise = rel_l2(_last_logits(model, cfg, tokens, True), chunked)
-        finally:
-            rwkv6.WKV_CHUNK = old
+        return _last_logits(model, half, tokens, True, prefix)
+    old = rwkv6.WKV_CHUNK
+    rwkv6.WKV_CHUNK = old // 2
+    try:
+        return _last_logits(model, cfg, tokens, True, prefix)
+    finally:
+        rwkv6.WKV_CHUNK = old
+
+
+def xla_forward(model, cfg, tokens, prefix):
+    """The attention families' noise: forward through the blockwise
+    attention instead of K4."""
+    return _last_logits(model, cfg, tokens, True, prefix, impl="xla")
+
+
+def forward_vs_decode(model, cfg, tokens, noise, prefix=None):
+    """Forward's logits at the last position against prefill over all but
+    the last token and one decode step, relative L2 over the batch's
+    (B, vocab) logits; ``noise`` gives the same logits by another route.
+    bf16 is gated at max(REC_REL_L2_BF16, REC_NOISE_X x noise), float32 at
+    REC_REL_L2_F32."""
+    full = _last_logits(model, cfg, tokens, True, prefix)
+    err = rel_l2(_last_logits(model, cfg, tokens, False, prefix), full)
+    noise_err = rel_l2(noise(model, cfg, tokens, prefix), full)
     limit = (REC_REL_L2_F32 if cfg.dtype == "float32"
-             else max(REC_REL_L2_BF16, REC_NOISE_X * noise))
-    print(f"  chunked vs recurrent, {cfg.num_layers} layers, S="
-          f"{tokens.shape[1]}, {cfg.dtype}: logits at S-1 relative L2 "
-          f"{err:.3e} (limit {limit:.3e}); forward at half the scan chunk: "
-          f"{noise:.3e}", flush=True)
+             else max(REC_REL_L2_BF16, REC_NOISE_X * noise_err))
+    print(f"  forward vs prefill + decode, {cfg.num_layers} layers, "
+          f"{tokens.shape[1]} tokens"
+          + (f" + {prefix.shape[1]} prefix" if prefix is not None else "")
+          + f", {cfg.dtype}: last logits relative L2 {err:.3e} (limit "
+          f"{limit:.3e}); noise ({noise.__name__}) {noise_err:.3e}",
+          flush=True)
     if not err <= limit:
-        raise AssertionError(f"{cfg.name}: the chunked forward and the step "
-                             f"recurrence disagree")
-    return err, noise
+        raise AssertionError(f"{cfg.name}: prefill + decode disagrees with "
+                             f"forward")
+    return err, noise_err
 
 
-def chunked_vs_recurrent_f32(cfg, seed, tokens):
+def forward_vs_decode_f32(cfg, seed, layers, tokens, noise):
     """The same check on a float32 copy of the model at full width and
-    REC_F32_LAYERS layers (one shared-attention group for zamba2)."""
-    small = dataclasses.replace(cfg, num_layers=REC_F32_LAYERS[cfg.name],
-                                dtype="float32")
+    ``layers`` layers, after a prefix drawn for it (frontend configs)."""
+    small = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
     model = lm.init_params(torch.Generator(device=DEV).manual_seed(seed + 1),
                            small, device=DEV)
-    out = chunked_vs_recurrent(model, small, tokens)
+    prefix = frontends.synthetic_prefix(
+        small, tokens.shape[0],
+        torch.Generator(device=DEV).manual_seed(seed + 2), device=DEV)
+    out = forward_vs_decode(model, small, tokens, noise, prefix)
     del model
     return out
 
@@ -1692,85 +1788,122 @@ def recurrent_serving(cfg, model, store, corpus):
     tok = torch.from_numpy(srv.last_token).to(DEV)
     active = torch.ones(SERVE_BATCH, dtype=torch.bool, device=DEV)
     with torch.inference_mode():
-        prof = _profile(lambda: lm.decode_step(model, cfg, tok, srv.state,
-                                               active=active))
-    out["decode_step_profile"] = prof
-    print(f"  one decode step under torch.profiler: {prof['wall_ms']:.1f} "
-          f"ms wall, {prof['device_events']} device events, busy share "
-          f"{prof['busy_share']}; by kind {prof['by_kind']}", flush=True)
+        out["decode_step_profile"] = _profiled(
+            "one decode step", lambda: lm.decode_step(
+                model, cfg, tok, srv.state, active=active))
     return out
+
+
+def flash_vs_xla_noise_gated(model, cfg, prompts):
+    """The final hidden state through flash (K4) against the blockwise
+    path at full depth in bf16, gated at REC_NOISE_X times the blockwise
+    path against itself at chunk 256 (the run's own noise), never below
+    FLASH_XLA_REL_L2_BF16: (relative L2, noise)."""
+    h_xla = final_hidden(model, cfg, prompts, "xla")
+    err = rel_l2(final_hidden(model, cfg, prompts, "flash"), h_xla)
+    noise = rel_l2(final_hidden(model, cfg, prompts, "xla", chunk=256), h_xla)
+    del h_xla
+    limit = max(FLASH_XLA_REL_L2_BF16, REC_NOISE_X * noise)
+    print(f"  flash vs xla final hidden state, {cfg.num_layers} bf16 layers: "
+          f"relative L2 {err:.3e} (limit {limit:.3e}); xla chunk 256 vs "
+          f"1024: {noise:.3e}", flush=True)
+    if not err <= limit:
+        raise AssertionError(f"{cfg.name}: flash and xla prefill disagree")
+    return err, noise
+
+
+def _init_arch(cfg, seed, label=""):
+    """The model of ``cfg`` drawn on the card, its parameters held to
+    ``param_count``; prints what it is and what it holds."""
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=DEV).manual_seed(seed),
+                           cfg, device=DEV)
+    torch.cuda.synchronize()
+    n_params = lm.param_count(cfg)
+    if sum(p.numel() for p in model.parameters()) != n_params:
+        raise AssertionError(f"{cfg.name}: the parameters != param_count")
+    print(f"model: {cfg.name} ({cfg.family}{label}) {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads / "
+          f"{cfg.num_kv_heads} KV, hd {cfg.resolved_head_dim}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}; param_count {n_params:,}; "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB in use; init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return model, n_params
+
+
+def _prefill_checked(model, cfg, batch, k4_want):
+    """One flash prefill of ``batch`` with the K4 count zeroed just before
+    and read just after (``k4_want`` launches), its logits and decode
+    state checked against their shapes and for finite values; then its
+    median time over REC_TIMED runs. Returns the readings and the step."""
+    prefill = steps.make_prefill_step(cfg, seq_len=PREFILL_LEN,
+                                      attn_impl="flash", device=DEV)
+    fa.reset_launch_counts()
+    logits, state = prefill(model, batch)
+    torch.cuda.synchronize()
+    k4 = fa.flash_attention_kernel.launches
+    if k4 != k4_want:
+        raise AssertionError(f"{cfg.name}: K4 launched {k4} times in one "
+                             f"prefill, expected {k4_want}")
+    B, S = batch["tokens"].shape
+    n = S + cfg.frontend_positions
+    ref = lm.init_decode_state(cfg, B, n, device="meta")
+    shapes = lambda st: [tuple(a.shape) for a in _leaves_of(st["cache"])]
+    if (tuple(logits.shape) != (B, n, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())
+            or shapes(state) != shapes(ref)
+            or state["pos"].tolist() != [n] * B
+            or not all(bool(torch.isfinite(a).all())
+                       for a in _leaves_of(state["cache"]))):
+        raise AssertionError(f"{cfg.name}: prefill output shape or values "
+                             f"wrong")
+    del logits, state
+    ms, _ = cuda_ms(lambda: prefill(model, batch)[1]["pos"], REC_TIMED)
+    print(f"  prefill (flash, {B} x {n}"
+          + (f" = {S} tokens + {cfg.frontend_positions} prefix"
+             if cfg.frontend_positions else "")
+          + f"): K4 launches {k4}, median {ms:.1f} ms, "
+          f"{B * n / ms * 1e3:.0f} positions/s", flush=True)
+    return {"k4_launches_per_prefill": k4, "prefill_positions": n,
+            "prefill_ms": ms, "prefill_tokens_per_s": B * n / ms * 1e3
+            }, prefill
+
+
+def _profiled(what, fn) -> dict:
+    """``_profile(fn)``, printed as ``what``."""
+    prof = _profile(fn)
+    print(f"  {what} under torch.profiler: {prof['wall_ms']:.1f} ms wall, "
+          f"{prof['device_events']} device events, busy share "
+          f"{prof['busy_share']}; by kind {prof['by_kind']}", flush=True)
+    return prof
 
 
 def recurrent_arch(arch: str, seed: int) -> dict:
     cfg = get_config(arch)
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model = lm.init_params(torch.Generator(device=DEV).manual_seed(seed),
-                           cfg, device=DEV)
-    torch.cuda.synchronize()
-    n_params = lm.param_count(cfg)
-    if sum(p.numel() for p in model.parameters()) != n_params:
-        raise AssertionError(f"{arch}: the parameters != param_count")
-    print(f"model: {arch} ({cfg.family}) {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}; param_count "
-          f"{n_params:,}; {torch.cuda.memory_allocated() / 1e9:.3f} GB in use",
-          flush=True)
-
+    model, n_params = _init_arch(cfg, seed)
     g = torch.Generator(device=DEV).manual_seed(seed + 5)
     corpus = torch.randint(0, cfg.vocab_size, (REC_CORPUS_SEQS, PREFILL_LEN),
                            generator=g, device=DEV)
     prompts = corpus[:PREFILL_BATCH]
-    prefill = steps.make_prefill_step(cfg, seq_len=PREFILL_LEN,
-                                      attn_impl="flash", device=DEV)
     batch = {"tokens": prompts}
     k4_want = _attention_layers(cfg)
-    fa.reset_launch_counts()
-    logits, state = prefill(model, batch)
-    torch.cuda.synchronize()
-    k4 = fa.flash_attention_kernel.launches
-    if k4 != k4_want:
-        raise AssertionError(f"{arch}: K4 launched {k4} times in one "
-                             f"prefill, expected {k4_want}")
-    ref = lm.init_decode_state(cfg, PREFILL_BATCH, PREFILL_LEN, device="meta")
-    shapes = lambda st: [tuple(a.shape) for a in
-                         _leaves_of(st["cache"])]
-    if (tuple(logits.shape) != (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size)
-            or not bool(torch.isfinite(logits).all())
-            or shapes(state) != shapes(ref)
-            or not all(bool(torch.isfinite(a.float()).all())
-                       for a in _leaves_of(state["cache"]))):
-        raise AssertionError(f"{arch}: prefill output shape or values wrong")
-    del logits, state
-    pre_ms, _ = cuda_ms(lambda: prefill(model, batch)[1]["pos"], REC_TIMED)
-    tok_s = PREFILL_BATCH * PREFILL_LEN / pre_ms * 1e3
-    print(f"  prefill (flash, {PREFILL_BATCH} x {PREFILL_LEN}): K4 launches "
-          f"{k4}, median {pre_ms:.1f} ms, {tok_s:.0f} tokens/s", flush=True)
-    out = {"arch": arch, "param_count": n_params, "prefill_ms": pre_ms,
-           "prefill_tokens_per_s": tok_s, "k4_launches_per_prefill": k4}
+    out = {"arch": arch, "param_count": n_params}
+    pre, prefill = _prefill_checked(model, cfg, batch, k4_want)
+    out.update(pre)
     out.update(scan_share(model, cfg, prompts))
-    prof = _profile(lambda: prefill(model, batch))
-    out["prefill_profile"] = prof
-    print(f"  one prefill under torch.profiler: {prof['wall_ms']:.1f} ms "
-          f"wall, {prof['device_events']} device events, busy share "
-          f"{prof['busy_share']}; by kind {prof['by_kind']}", flush=True)
+    out["prefill_profile"] = _profiled("one prefill",
+                                       lambda: prefill(model, batch))
     if k4_want:
-        h_xla = final_hidden(model, cfg, prompts, "xla")
-        err = rel_l2(final_hidden(model, cfg, prompts, "flash"), h_xla)
-        noise = rel_l2(final_hidden(model, cfg, prompts, "xla", chunk=256),
-                       h_xla)
-        del h_xla
-        limit = max(FLASH_XLA_REL_L2_BF16, REC_NOISE_X * noise)
-        print(f"  flash vs xla final hidden state: relative L2 {err:.3e} "
-              f"(limit {limit:.3e}); xla chunk 256 vs 1024: {noise:.3e}",
-              flush=True)
-        if not err <= limit:
-            raise AssertionError(f"{arch}: flash and xla prefill disagree")
+        err, noise = flash_vs_xla_noise_gated(model, cfg, prompts)
         out.update(flash_vs_xla_rel_l2_bf16=err, xla_chunk_rel_l2_bf16=noise,
                    flash_vs_xla_max_abs_err_f32=flash_vs_xla_f32(
                        cfg, seed, REC_F32_LAYERS[arch]))
     check = prompts[:, :REC_CHECK_LEN]
-    err, noise = chunked_vs_recurrent(model, cfg, check)
-    err32, noise32 = chunked_vs_recurrent_f32(cfg, seed, check)
+    err, noise = forward_vs_decode(model, cfg, check, half_chunk_forward)
+    err32, noise32 = forward_vs_decode_f32(cfg, seed, REC_F32_LAYERS[arch],
+                                           check, half_chunk_forward)
     out.update(chunked_vs_recurrent_rel_l2=err, half_chunk_rel_l2=noise,
                chunked_vs_recurrent_rel_l2_f32=err32,
                half_chunk_rel_l2_f32=noise32)
@@ -1807,6 +1940,368 @@ def recurrent_path(seed: int) -> dict:
     out = {arch: recurrent_arch(arch, seed) for arch in REC_ARCHS}
     out["wall_s"] = time.perf_counter() - t0
     print(f"  recurrent path: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: the dense, frontend and MoE families
+# ---------------------------------------------------------------------------
+
+def dense_path(seed: int) -> dict:
+    """internlm2-20b at its registered width and depth: a flash prefill of
+    8 x 2048 (48 K4 launches) with K4 timed at that shape, flash against
+    the blockwise path (bf16 at full depth within REC_NOISE_X of the run's
+    own noise; a 2-layer f32 copy within FLASH_XLA_ATOL_F32), a store of
+    DENSE_CORPUS_SEQS x 2047 entries from the model's hidden states (a cut
+    of the registered size), and 16 requests on 8 slots."""
+    cfg = get_config(DENSE_ARCH)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params = _init_arch(cfg, seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 5)
+    corpus = torch.randint(0, cfg.vocab_size,
+                           (DENSE_CORPUS_SEQS, PREFILL_LEN), generator=g,
+                           device=DEV)
+    prompts = corpus[:PREFILL_BATCH]
+    batch = {"tokens": prompts}
+    out = {"arch": DENSE_ARCH, "param_count": n_params}
+    pre, prefill = _prefill_checked(model, cfg, batch, cfg.num_layers)
+    out.update(pre)
+    out["prefill_profile"] = _profiled("one prefill",
+                                       lambda: prefill(model, batch))
+    err, noise = flash_vs_xla_noise_gated(model, cfg, prompts)
+    out.update(flash_vs_xla_rel_l2_bf16=err, xla_chunk_rel_l2_bf16=noise,
+               flash_vs_xla_max_abs_err_f32_2layer=flash_vs_xla_f32(cfg,
+                                                                    seed))
+    store, t_hidden, t_build = build_corpus_store(model, cfg, corpus)
+    print(f"  (the store is cut from the registered "
+          f"{cfg.retrieval.datastore_size:,} entries to "
+          f"{int(store.codes.shape[0]):,} for the run's time limit)",
+          flush=True)
+    out.update(store_entries=int(store.codes.shape[0]),
+               store_registered_entries=cfg.retrieval.datastore_size,
+               store_hidden_s=t_hidden, store_build_s=t_build)
+    out.update(recurrent_serving(cfg, model, store, corpus))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  {DENSE_ARCH}: peak {out['peak_gb']:.2f} GB, phase "
+          f"{out['wall_s']:.1f} s", flush=True)
+    del store, model, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_arch(arch: str, seed: int) -> dict:
+    """One frontend config at its registered width and depth: a flash
+    prefill of 8 x 2048 tokens after the config's prefix of synthetic
+    embeddings (drawn on a CUDA generator), then prefill + one decode step
+    against forward at S + 1, in bf16 at full depth and on a 2-layer f32
+    copy."""
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params = _init_arch(cfg, seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 5)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (PREFILL_BATCH, PREFILL_LEN + 1), generator=g,
+                           device=DEV)
+    prefix = frontends.synthetic_prefix(cfg, PREFILL_BATCH, g, device=DEV)
+    out = {"arch": arch, "param_count": n_params,
+           "prefix_positions": cfg.frontend_positions,
+           "prefix_width": frontends.frontend_dim(cfg)}
+    out.update(_prefill_checked(model, cfg, {
+        "tokens": tokens[:, :PREFILL_LEN], "prefix_emb": prefix},
+        cfg.num_layers)[0])
+    err, noise = forward_vs_decode(model, cfg, tokens, xla_forward, prefix)
+    err32, noise32 = forward_vs_decode_f32(
+        cfg, seed, DECODE_F32_LAYERS, tokens[:2, :DECODE_F32_LEN + 1],
+        xla_forward)
+    out.update(decode_vs_forward_rel_l2=err, flash_vs_xla_last_rel_l2=noise,
+               decode_vs_forward_rel_l2_f32=err32,
+               flash_vs_xla_last_rel_l2_f32=noise32,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               wall_s=time.perf_counter() - t0)
+    del model, prefix, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_path(seed: int) -> dict:
+    return {arch: frontend_arch(arch, seed) for arch in FRONTEND_ARCHS}
+
+
+def _swiglu_f32(x, w_gate, w_up, w_out):
+    """A swiglu MLP in f32, written out."""
+    silu = torch.nn.functional.silu
+    return (silu(x @ w_gate.float()) * (x @ w_up.float())) @ w_out.float()
+
+
+def moe_f32_recompute(mod, cfg, h):
+    """The MoE layer on rows ``h`` (T, d), recomputed in f32 without the
+    program's route or MLPs: f32 logits, softmax, a stable descending sort
+    (ties to the lower expert), the top K renormalised by max(sum, 1e-9);
+    then only each token's K experts (grouped by expert), weighted and
+    summed, plus the shared expert and the dense residual (swiglu in both
+    MoE configs). Returns (y, the (T, K) expert ids)."""
+    K = cfg.moe.experts_per_token
+    x = h.float()
+    probs = torch.softmax(x @ mod.router.float(), dim=-1)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[:, :K], idx[:, :K]
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    y = torch.zeros_like(x)
+    for e in torch.unique(idx).tolist():
+        tok, slot = torch.nonzero(idx == e, as_tuple=True)
+        y.index_add_(0, tok, w[tok, slot][:, None] * _swiglu_f32(
+            x[tok], mod.w_gate[e], mod.w_up[e], mod.w_out[e]))
+    if cfg.moe.num_shared_experts:
+        m = mod.shared
+        y = y + _swiglu_f32(x, m.w_gate, m.w_up, m.w_out)
+    if cfg.moe.dense_residual_d_ff:
+        if cfg.mlp_activation != "swiglu":
+            raise ValueError(f"{cfg.name}: the recomputation writes out "
+                             f"swiglu only, not {cfg.mlp_activation}")
+        m = mod.dense
+        y = y + _swiglu_f32(x, m.w_gate, m.w_up, m.w_out)
+    return y, idx
+
+
+def moe_arch(arch: str, seed: int) -> dict:
+    """One MoE config at its registered width, cut to MOE_LAYERS layer(s):
+    a flash prefill of 8 x 2048; the layer's MoE output on MOE_SAMPLE
+    sampled tokens against an independent f32 recomputation; the aux
+    loss; the expert loop's share of the layer's time; prefill + one
+    decode step against forward at S + 1 (bf16, and a 1-layer f32 copy
+    with MOE_F32_EXPERTS experts)."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params = _init_arch(
+        cfg, seed, f"; DEPTH CUT from {full.num_layers} layers to "
+        f"{MOE_LAYERS}, {lm.param_count(full):,} params registered")
+    moe_cfg = cfg.moe
+    g = torch.Generator(device=DEV).manual_seed(seed + 5)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (PREFILL_BATCH, PREFILL_LEN + 1), generator=g,
+                           device=DEV)
+    prompts = tokens[:, :PREFILL_LEN]
+    out = {"arch": arch, "layers": MOE_LAYERS,
+           "registered_layers": full.num_layers, "param_count": n_params,
+           "registered_param_count": lm.param_count(full),
+           "active_param_count": lm.param_count(full, active_only=True),
+           "experts": moe_cfg.num_experts, "top_k": moe_cfg.experts_per_token}
+    out.update(_prefill_checked(model, cfg, {"tokens": prompts},
+                                cfg.num_layers)[0])
+
+    # the first layer's MoE input, from the prefill's own tokens
+    blk = model.blocks[0]
+    ctx = lm.RunCtx(attn_impl="flash")
+    with torch.inference_mode():
+        x0 = lm._embed_scale(cfg, layers.embed(model.embed, prompts))
+        pos = torch.arange(PREFILL_LEN, device=DEV)[None].expand(
+            PREFILL_BATCH, PREFILL_LEN)
+        x1, _ = lm._attn_prefill(blk, cfg, ctx, x0, pos, False)
+        h = layers.rmsnorm(blk.ln2, x1, cfg.norm_eps)
+        h_tok = h.reshape(-1, cfg.d_model)
+        y, aux = moe.moe_forward(blk.moe, cfg, h)
+        loop_ms, _ = cuda_ms(lambda: moe.moe_reference(blk.moe, cfg, h_tok),
+                             REC_TIMED)
+        layer_ms, _ = cuda_ms(lambda: lm._apply_moe_block(
+            blk, cfg, ctx, x0, pos, False), REC_TIMED)
+        pick = torch.randperm(h_tok.shape[0], generator=g, device=DEV)[
+            :MOE_SAMPLE]
+        ref, ref_idx = moe_f32_recompute(blk.moe, cfg, h_tok[pick])
+        err = rel_l2(y.reshape(-1, cfg.d_model)[pick], ref)
+        ids_equal = torch.equal(moe._route(
+            blk.moe.router, h_tok[pick], moe_cfg.experts_per_token)[1],
+            ref_idx)
+    aux = float(aux)
+    ratio = moe_cfg.num_experts / moe_cfg.experts_per_token
+    print(f"  MoE layer on {MOE_SAMPLE} sampled tokens vs its f32 "
+          f"recomputation (routed experts only): relative L2 {err:.3e} "
+          f"(limit {MOE_REL_L2}), expert ids equal to the program's "
+          f"route: {ids_equal}; aux {aux:.6f} (>= {MOE_AUX_MIN}); the "
+          f"expert loop {loop_ms:.1f} ms of the layer's {layer_ms:.1f} ms "
+          f"({loop_ms / layer_ms:.1%}), running every expert on every "
+          f"token: {ratio:.0f}x the routed work", flush=True)
+    if not ids_equal:
+        raise AssertionError(f"{arch}: the program's route picks other "
+                             f"experts than the written-out one")
+    if not err <= MOE_REL_L2:
+        raise AssertionError(f"{arch}: the MoE layer disagrees with its f32 "
+                             f"recomputation")
+    if not aux >= MOE_AUX_MIN:
+        raise AssertionError(f"{arch}: aux loss {aux} < {MOE_AUX_MIN}")
+    del x0, x1, h, h_tok, y, ref, ref_idx
+    err_d, noise_d = forward_vs_decode(model, cfg, tokens, xla_forward)
+    del model, blk
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the f32 copy at full width holds MOE_F32_EXPERTS experts: one
+    # layer's 128 or 384 in f32 is 54-68 GB
+    err32, noise32 = forward_vs_decode_f32(dataclasses.replace(
+        cfg, moe=dataclasses.replace(moe_cfg, num_experts=min(
+            moe_cfg.num_experts, MOE_F32_EXPERTS))),
+        seed, MOE_LAYERS, tokens[:2, :DECODE_F32_LEN + 1], xla_forward)
+    out.update(moe_vs_f32_rel_l2=err, route_ids_equal=ids_equal, aux=aux,
+               expert_loop_ms=loop_ms,
+               layer_ms=layer_ms, expert_loop_share=loop_ms / layer_ms,
+               overcompute_x=ratio, decode_vs_forward_rel_l2=err_d,
+               flash_vs_xla_last_rel_l2=noise_d,
+               decode_vs_forward_rel_l2_f32=err32,
+               flash_vs_xla_last_rel_l2_f32=noise32,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               wall_s=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_path(seed: int) -> dict:
+    """arctic-480b and kimi-k2 at full width, one layer each (a depth
+    cut), one arch at a time."""
+    return {arch: moe_arch(arch, seed) for arch in MOE_ARCHS}
+
+
+def _ep_cfg():
+    """arctic-480b's layer for the EP check: full width, one layer, f32,
+    the experts cut to EP_EXPERTS at capacity factor EP_CF."""
+    cfg = get_config(MOE_ARCHS[0])
+    return dataclasses.replace(
+        cfg, num_layers=1, dtype="float32",
+        moe=dataclasses.replace(cfg.moe, num_experts=EP_EXPERTS,
+                                capacity_factor=EP_CF))
+
+
+def _ep_inputs(cfg, seed):
+    """The whole layer and the (EP_B, EP_S, d) tokens, both drawn on the
+    card from ``seed`` (every rank draws the same)."""
+    layer = moe.moe_init(torch.Generator(device=DEV).manual_seed(seed), cfg,
+                         torch.float32, DEV)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    x = torch.randn((EP_B, EP_S, cfg.d_model), generator=g, device=DEV)
+    return layer, x * EP_X_SCALE
+
+
+def ep_rank(rank: int, cfg: dict) -> None:
+    """One rank of the EP check, in a process of its own: joins the gloo
+    world, keeps its experts (``carry.expert_shard``) and its slice of the
+    tokens, runs each strategy once untimed and EP_TIMED times timed, and
+    writes its output slice and a JSON summary into ``cfg["dir"]``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{cfg['init']}", world_size=EP_RANKS,
+        rank=rank, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(DEV, (1, EP_RANKS),
+                                mesh_dim_names=("data", "model"))
+        mcfg = _ep_cfg()
+        layer, x = _ep_inputs(mcfg, cfg["seed"])
+        part = carry.expert_shard(layer, mcfg, rank, EP_RANKS)
+        del layer
+        summary = {}
+        for name, strategy, int8 in EP_STRATEGIES:
+            xs = x
+            if strategy == "a2a":
+                s = EP_S // EP_RANKS
+                xs = x[:, rank * s:(rank + 1) * s].contiguous()
+            run = lambda: moe.moe_forward(
+                part, mcfg, xs, mesh=mesh, strategy=strategy, a2a_int8=int8)
+            ms, (y, aux) = cuda_ms(run, EP_TIMED)
+            np.save(Path(cfg["dir"]) / f"{name}_{rank}.npy", y.cpu().numpy())
+            summary[name] = {"ms": ms, "aux": float(aux),
+                             "transport": moe.a2a_transport(
+                                 xs, mesh.get_group("model"))}
+        (Path(cfg["dir"]) / f"rank{rank}.json").write_text(
+            json.dumps(summary))
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_ep(seed: int) -> dict:
+    """``moe.moe_forward`` over EP_RANKS gloo ranks on the one card, each
+    holding EP_EXPERTS / EP_RANKS of arctic's full-width experts (the
+    expert count a cut): a2a and allgather within EP_REL_MAX (relative
+    max) of the single-device reference, a2a_int8 within EP_INT8_ATOL;
+    the transport each took."""
+    mcfg = _ep_cfg()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="moe_ep_") as tmp:
+        cfg = {"init": str(Path(tmp) / "init"), "dir": tmp, "seed": seed}
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=ep_rank, args=(r, cfg))
+                 for r in range(EP_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            while any(p.is_alive() for p in procs):
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(timeout=30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * EP_RANKS:
+            raise AssertionError(f"EP ranks exited with {codes}")
+        summaries = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(EP_RANKS)]
+        ys = {name: [torch.from_numpy(np.load(Path(tmp) / f"{name}_{r}.npy"))
+                     .to(DEV) for r in range(EP_RANKS)]
+              for name, _, _ in EP_STRATEGIES}
+    wall = time.perf_counter() - t0
+    layer, x = _ep_inputs(mcfg, seed)
+    with torch.inference_mode():
+        ref, ref_aux = moe.moe_forward(layer, mcfg, x)
+    del layer
+    scale = float(ref.abs().max())
+    out = {"experts": EP_EXPERTS, "registered_experts":
+           get_config(MOE_ARCHS[0]).moe.num_experts, "ranks": EP_RANKS,
+           "tokens": EP_B * EP_S, "d_model": mcfg.d_model,
+           "expert_d_ff": mcfg.moe.expert_d_ff, "wall_s": wall}
+    for name, strategy, int8 in EP_STRATEGIES:
+        parts = ys[name]
+        if strategy == "a2a":
+            y = torch.cat(parts, dim=1)
+        else:
+            if not torch.equal(parts[0], parts[1]):
+                raise AssertionError(f"EP {name}: the ranks' replicas differ")
+            y = parts[0]
+        err = float((y - ref).abs().max())
+        auxes = {s[name]["aux"] for s in summaries}
+        transports = {s[name]["transport"] for s in summaries}
+        ok = (err <= EP_INT8_ATOL if int8 else err <= EP_REL_MAX * scale)
+        # every rank holds the same aux; allgather's is over all tokens,
+        # a2a's the mean of the ranks' local ones (repro's definition)
+        ok = ok and len(auxes) == 1 and (
+            strategy != "allgather"
+            or abs(next(iter(auxes)) - float(ref_aux)) <= 1e-5)
+        print(f"  EP {name}: max_abs_err {err:.3e} vs the reference "
+              f"(relative {err / scale:.3e}; limit "
+              + (f"{EP_INT8_ATOL} absolute" if int8 else
+                 f"{EP_REL_MAX} relative") + f"); transport "
+              f"{sorted(transports)}; ms per rank "
+              f"{[round(s[name]['ms'], 3) for s in summaries]}", flush=True)
+        if not ok:
+            raise AssertionError(f"EP {name} disagrees with the reference")
+        out[name] = {"max_abs_err": err, "rel_max_err": err / scale,
+                     "aux": next(iter(auxes)),
+                     "transport": sorted(transports),
+                     "ms_per_rank": [s[name]["ms"] for s in summaries]}
+    print(f"  (the experts are cut from {out['registered_experts']} to "
+          f"{EP_EXPERTS}, at capacity factor {EP_CF}: nothing drops) "
+          f"{wall:.1f} s", flush=True)
     return out
 
 
@@ -3178,6 +3673,7 @@ def main() -> int:
     k4_err = run_k4_cases()
     k4 = k4_timings()
     k4_zamba2 = k4_timings(*K4_ZAMBA2[:3], PREFILL_LEN, K4_ZAMBA2[3])
+    k4_dense = k4_timings(*K4_DENSE[:3], PREFILL_LEN, K4_DENSE[3])
 
     # phase 7: kNN-LM serving of gemma-2b, prefill through K4
     print(f"serving path: {ARCH}", flush=True)
@@ -3189,6 +3685,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"recurrent path: {', '.join(REC_ARCHS)}", flush=True)
     rp = recurrent_path(args.seed)
+
+    # phase 7d: the dense, frontend and MoE families at full width, one
+    # model at a time
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"dense path: {DENSE_ARCH}", flush=True)
+    dp = dense_path(args.seed)
+    print(f"frontend path: {', '.join(FRONTEND_ARCHS)}", flush=True)
+    fp = frontend_path(args.seed)
+    print(f"moe path: {', '.join(MOE_ARCHS)}, {MOE_LAYERS} layer each "
+          f"(depth cut)", flush=True)
+    mop = moe_path(args.seed)
+    print(f"moe ep: moe_forward over {EP_RANKS} gloo ranks on one card, "
+          f"{EP_EXPERTS} experts (cut) of {MOE_ARCHS[0]}'s width",
+          flush=True)
+    mep = moe_ep(args.seed)
 
     # phase 8: the approximate tier on the kNN cell
     print(f"approx path: approx_topk, Q={N_QUERIES} N={N_ROWS} d={D_BITS} "
@@ -3226,6 +3738,10 @@ def main() -> int:
     print("shard_faults: " + json.dumps(sf), flush=True)
     print("serving_path: " + json.dumps(sp), flush=True)
     print("recurrent_path: " + json.dumps(rp), flush=True)
+    print("dense_path: " + json.dumps(dp), flush=True)
+    print("frontend_path: " + json.dumps(fp), flush=True)
+    print("moe_path: " + json.dumps(mop), flush=True)
+    print("moe_ep: " + json.dumps(mep), flush=True)
     print("approx_path: " + json.dumps(ap), flush=True)
     print("mutable_path: " + json.dumps(mp), flush=True)
     print("tenant_path: " + json.dumps(tp), flush=True)
@@ -3270,7 +3786,13 @@ def main() -> int:
              a: rp[a]["k4_launches_per_prefill"] for a in REC_ARCHS},
          "zamba2_prefill_hd80": dict(
              k4_zamba2, launches=rp["zamba2-2.7b"][
-                 "k4_launches_per_prefill"])},
+                 "k4_launches_per_prefill"]),
+         "dense_prefill_hd128": dict(
+             k4_dense, launches=dp["k4_launches_per_prefill"]),
+         "new_family_launches_per_prefill": {
+             DENSE_ARCH: dp["k4_launches_per_prefill"],
+             **{a: fp[a]["k4_launches_per_prefill"] for a in FRONTEND_ARCHS},
+             **{a: mop[a]["k4_launches_per_prefill"] for a in MOE_ARCHS}}},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

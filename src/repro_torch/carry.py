@@ -73,6 +73,8 @@ def _flat_lm_tree(tree, n_layers: int) -> dict:
             "final_norm.scale": tree["final_norm"]["scale"]}
     if "unembed" in tree:
         flat["unembed.table"] = tree["unembed"]["table"]
+    if "frontend" in tree:
+        flat["frontend.proj"] = tree["frontend"]["proj"]
     if "shared_attn" in tree:
         groups, per_group = np.shape(tree["blocks"]["ln"]["scale"])[:2]
         lead = [(g, i) for g in range(groups) for i in range(per_group)]
@@ -102,7 +104,10 @@ def lm_params(tree, cfg: ModelConfig, device=None) -> lm.LM:
     """``repro``'s ``lm.init_params`` pytree as numpy (``blocks`` leaves
     stacked on a leading layer axis, or on (groups, per_group) in the
     hybrid) -> the port's model. RWKV6's f32 leaves (``mu``, ``decay_b``,
-    ``bonus``, ``ln_scale``, ...) stay f32 in a bf16 model, as there."""
+    ``bonus``, ``ln_scale``, ...) and the MoE router stay f32 in a bf16
+    model, as there; the MoE leaves (``blocks.moe.*``, stacked (L, E, ...)
+    for the experts, with ``shared`` and ``dense``) and a frontend's
+    ``frontend.proj`` come across by the same names."""
     dev = device_mod.resolve(device)
     model = lm._build(cfg, dev)
     flat = _keyed_like(tree, model, dev)
@@ -113,6 +118,30 @@ def lm_params(tree, cfg: ModelConfig, device=None) -> lm.LM:
                              f"{tuple(p.shape)} {p.dtype}")
         p.copy_(t)
     return model
+
+
+def expert_shard(moe, cfg: ModelConfig, rank: int, n_shards: int):
+    """One rank's share of an ``MoE`` layer for expert parallelism over
+    ``n_shards`` ranks: experts [rank·E/n, (rank+1)·E/n) of ``w_gate``,
+    ``w_up`` and ``w_out`` (copies), with the router and the shared / dense
+    MLPs as they are (every rank holds them whole, as ``repro``'s
+    ``shard_map`` specs replicate them)."""
+    from repro_torch.models import moe as moe_mod
+
+    E = cfg.moe.num_experts
+    if E % n_shards:
+        raise ValueError(f"{E} experts do not split over {n_shards} ranks")
+    e_loc = E // n_shards
+    part = moe_mod.MoE(cfg, moe.w_gate.dtype, "meta", num_experts=e_loc)
+    lo = rank * e_loc
+    for name in ("w_gate", "w_up", "w_out"):
+        setattr(part, name, torch.nn.Parameter(
+            getattr(moe, name)[lo:lo + e_loc].clone(), requires_grad=False))
+    part.router = moe.router
+    for name in ("shared", "dense"):
+        if hasattr(moe, name):
+            setattr(part, name, getattr(moe, name))
+    return part
 
 
 _STATE_TYPES = {"KVCache": KVCache, "MambaState": MambaState,

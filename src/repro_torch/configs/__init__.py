@@ -1,7 +1,9 @@
 """Config registry (port of ``repro.configs``): importing this package
-registers the archs the port serves: gemma-2b (attention), zamba2-2.7b
-(the Mamba2 hybrid) and rwkv6-1.6b (RWKV6). ``repro``'s MoE, frontend and
-other dense archs wait with their families (ROADMAP queue 1 item 11)."""
+registers every arch ``repro`` registers: the dense attention stacks
+(gemma-2b, granite-20b, internlm2-20b, deepseek-67b), the frontend
+configs (llava-next-mistral-7b, musicgen-medium), the MoE stacks
+(arctic-480b, kimi-k2-1t-a32b), the Mamba2 hybrid (zamba2-2.7b) and
+RWKV6 (rwkv6-1.6b)."""
 from repro_torch.configs.base import (BlockKind, ModelConfig, MoEConfig,
                                       RetrievalConfig, RWKVConfig,
                                       ShapeConfig, SSMConfig, StepKind,
@@ -11,8 +13,10 @@ from repro_torch.configs.shapes import (SHAPES, get_shape, runnable_cells,
                                         shape_applicable)
 
 # arch registrations (import side effects)
-from repro_torch.configs import (gemma_2b, rwkv6_1p6b,  # noqa: F401
-                                 zamba2_2p7b)
+from repro_torch.configs import (arctic_480b, deepseek_67b,  # noqa: F401
+                                 gemma_2b, granite_20b, internlm2_20b,
+                                 kimi_k2, llava_next_mistral_7b,
+                                 musicgen_medium, rwkv6_1p6b, zamba2_2p7b)
 
 ALL_ARCHS = list_archs()
 

@@ -47,15 +47,16 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
     and accumulates the gradients in the param dtype, then divides them
     by M; loss and aux are averaged in f32. Attention takes the blockwise
     path (``attn_impl="xla"``): K4 is forward-only. Only the attention
-    families train yet: the Mamba2 hybrid and RWKV6 raise (their forward
-    and ``lm.loss_fn`` run under autograd, but the optimizer's
-    per-leaf rules over ``repro``'s (groups, per_group) leaves are not
-    ported; ROADMAP queue 1 item 11)."""
-    lm._check_supported(cfg)
+    family trains yet, the frontend configs included (``prefix_emb`` in
+    the batch): the Mamba2 hybrid, RWKV6 and MoE raise (their forward and
+    ``lm.loss_fn`` run under autograd, but the optimizer's per-leaf rules
+    over ``repro``'s (groups, per_group) leaves, and ``repro``'s
+    ``pure_dp`` and ``moe_a2a_int8`` step options, are not ported; ROADMAP
+    queue 1 item 11b)."""
     if cfg.shared_attn_every or cfg.block_pattern[0] != BlockKind.ATTENTION:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.block_pattern[0].value} family "
-            f"is not ported yet: ROADMAP queue 1 item 11")
+            f"is not ported yet: ROADMAP queue 1 item 11b")
     dev = device_mod.resolve(device)
     ctx = lm.RunCtx(causal_skip=causal_skip, attn_p_bf16=attn_p_bf16,
                     remat=tc.remat)
@@ -101,8 +102,9 @@ def make_prefill_step(cfg: ModelConfig, seq_len: int, *,
                       attn_chunk: int = 1024, attn_impl: str = "xla",
                       device=None):
     """Returns ``prefill_fn(model, batch) -> (logits, decode_state)`` over
-    the full prompt, with ``batch["tokens"]`` (B, S) moved to ``device`` —
-    CUDA unless ``device="cpu"``. ``seq_len`` is ``repro``'s argument; as
+    the full prompt, with ``batch["tokens"]`` (B, S) (and a frontend
+    config's ``batch["prefix_emb"]``) moved to ``device`` — CUDA unless
+    ``device="cpu"``. ``seq_len`` is ``repro``'s argument; as
     there, the prompts' own length is what runs."""
     dev = device_mod.resolve(device)
     ctx = lm.RunCtx(causal_skip=causal_skip, attn_p_bf16=attn_p_bf16,

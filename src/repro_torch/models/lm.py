@@ -1,14 +1,20 @@
-"""Causal LM over the attention, Mamba2-hybrid and RWKV6 families (port of
+"""Causal LM over every family ``repro`` registers: attention (with the
+modality frontends), MoE, the Mamba2 hybrid and RWKV6 (port of
 ``repro.models.lm``).
 
 The model is an ``nn.Module`` tree with ``repro``'s leaf names and (in,
 out) weight layout: ``embed`` (the table), ``blocks``, ``final_norm`` and,
-untied, ``unembed``. ``blocks`` holds one ``Block`` (ln1, attn, ln2, mlp)
-per layer for attention archs, one ``RWKVBlock`` (ln1, tm, ln2) per layer
-for RWKV6, one ``MambaBlock`` (ln, mamba) per layer for a pure Mamba2
-stack, and for the hybrid (zamba2) ``num_layers // shared_attn_every``
-groups of ``shared_attn_every`` ``MambaBlock``s, each group followed by the
-ONE weight-shared attention + MLP block ``shared_attn`` (a single module
+untied, ``unembed``, and for a frontend config ``frontend.proj``
+(frontend_dim, d_model), which projects the precomputed prefix embeddings
+that ``forward``, ``loss_fn`` and ``prefill`` prepend to the tokens
+(``loss_fn`` drops those P positions; the decode state's ``pos`` counts
+them). ``blocks`` holds one ``Block`` (ln1, attn, ln2, mlp) per layer for
+attention archs, one ``MoEBlock`` (ln1, attn, ln2, moe) per layer for MoE,
+one ``RWKVBlock`` (ln1, tm, ln2) per layer for RWKV6, one ``MambaBlock``
+(ln, mamba) per layer for a pure Mamba2 stack, and for the hybrid
+(zamba2) ``num_layers // shared_attn_every`` groups of
+``shared_attn_every`` ``MambaBlock``s, each group followed by the ONE
+weight-shared attention + MLP block ``shared_attn`` (a single module
 applied once per group, as ``repro`` applies one param tree). The
 module-level functions keep ``repro``'s names and signatures, with the
 module where ``repro`` takes the param pytree:
@@ -26,17 +32,23 @@ activation per block and recomputes the rest. The decode state keeps
 ``repro``'s shapes, every leaf stacked on a leading layer axis:
 
   attention  {"pos": (B,) int32, "cache": KVCache}, k, v (L, B, S_max, KV, hd)
+             (MoE too)
   hybrid     {"pos", "cache": {"kv": KVCache (G, B, S_max, KV, hd),
                                "mamba": MambaState (G, per_group, B, ...)}}
   RWKV6      {"pos", "cache": RWKVState (L, B, ...)}
 
-As in ``repro``, a pure Mamba2 stack has no decode step. MoE and the
-modality frontends raise ``NotImplementedError`` (ROADMAP queue 1 item 11).
+As in ``repro``, a pure Mamba2 stack has no decode step, and a frontend
+config's forward, loss and prefill need the prefix (its decode steps take
+tokens alone). MoE blocks route through ``models/moe.moe_forward``: the
+reference expert loop without a mesh; with ``RunCtx.mesh`` each rank holds
+its own experts (``carry.expert_shard``) and its data-parallel slice of
+the batch, replicated over ``ep_axis``, and ``a2a`` runs on this rank's
+sequence chunk, the chunks gathered back over the expert axis.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,11 +56,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import BlockKind, ModelConfig
+from repro_torch.kernels.ops import _all_gather
+from repro_torch.models import frontends
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (Attention, KVCache,
                                           attention_decode, attention_init,
                                           attention_prefill)
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm, _dtype,
-                                       cross_entropy, embed, embedding_init,
+                                       _empty, cross_entropy,
+                                       dense_init, embed, embedding_init,
                                        mlp, mlp_init, rmsnorm, unembed)
 from repro_torch.models.mamba2 import (Mamba2, MambaState, init_mamba_state,
                                        mamba2_forward, mamba2_init,
@@ -57,34 +73,27 @@ from repro_torch.models.rwkv6 import (RWKV6, RWKVState, init_rwkv_state,
                                       rwkv6_channel_mix, rwkv6_init,
                                       rwkv6_time_mix)
 
-_QUEUE_11 = "ROADMAP queue 1 item 11"
-
-
 @dataclasses.dataclass
 class RunCtx:
-    """Execution-context knobs threaded through the model. ``repro``'s
-    mesh, sharding and MoE fields wait with the sharded and MoE paths."""
+    """Execution-context knobs threaded through the model. ``mesh`` is a
+    ``DeviceMesh`` with ``mesh_dim_names``; only the MoE blocks read it
+    (expert parallelism over ``ep_axis``). ``repro``'s ``tp_axis`` and
+    activation sharder have no counterpart: the port's activations are
+    not sharded."""
 
+    mesh: Any = None
+    dp_axes: Tuple[str, ...] = ("data",)
+    ep_axis: str = "model"
     causal_skip: bool = False          # triangular attention schedule
     attn_p_bf16: bool = False          # bf16 probability tensor
+    moe_a2a_int8: bool = False         # quantized MoE dispatch
     attn_impl: str = "xla"             # 'xla' (blockwise) | 'flash' (K4)
     remat: bool = True                 # checkpoint each block (with grads)
     attn_chunk: int = 1024
+    moe_strategy: str = "auto"
 
 
 DEFAULT_CTX = RunCtx()
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    kind = cfg.block_pattern[0]
-    if kind == BlockKind.MOE or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {BlockKind.MOE.value} blocks are not ported yet: "
-            f"{_QUEUE_11}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet: "
-            f"{_QUEUE_11}")
 
 
 def _groups(cfg: ModelConfig):
@@ -99,6 +108,24 @@ class Block(nn.Module):
                  mlp: MLP):
         super().__init__()
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+
+class MoEBlock(nn.Module):
+    """Attention + MoE residual block."""
+
+    def __init__(self, ln1: RMSNorm, attn: Attention, ln2: RMSNorm,
+                 moe: moe_mod.MoE):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.moe = ln1, attn, ln2, moe
+
+
+class Frontend(nn.Module):
+    """The projection of the frontend's prefix embeddings."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.proj = _empty((frontends.frontend_dim(cfg), cfg.d_model),
+                           _dtype(cfg), device)
 
 
 class MambaBlock(nn.Module):
@@ -120,7 +147,8 @@ class RWKVBlock(nn.Module):
 class LM(nn.Module):
     def __init__(self, embed: Embedding, blocks, final_norm: RMSNorm,
                  unembed: Optional[Embedding] = None,
-                 shared_attn: Optional[Block] = None):
+                 shared_attn: Optional[Block] = None,
+                 frontend: Optional[Frontend] = None):
         super().__init__()
         self.embed = embed
         self.blocks = nn.ModuleList(blocks)
@@ -129,6 +157,8 @@ class LM(nn.Module):
             self.unembed = unembed
         if shared_attn is not None:
             self.shared_attn = shared_attn
+        if frontend is not None:
+            self.frontend = frontend
 
     @property
     def device(self) -> torch.device:
@@ -139,7 +169,6 @@ def _build(cfg: ModelConfig, device, gen: Optional[torch.Generator] = None
            ) -> LM:
     """The module tree of ``cfg`` on ``device``: weights drawn from ``gen``,
     or left uninitialized when ``gen`` is None."""
-    _check_supported(cfg)
     dt, d, hd = _dtype(cfg), cfg.d_model, cfg.resolved_head_dim
 
     def table():
@@ -147,16 +176,24 @@ def _build(cfg: ModelConfig, device, gen: Optional[torch.Generator] = None
             return Embedding(cfg.vocab_size, d, dt, device)
         return embedding_init(gen, cfg.vocab_size, d, dt, device)
 
-    def block():
+    def attention():
         if gen is None:
-            attn = Attention(d, cfg.num_heads, cfg.num_kv_heads, hd, dt,
+            return Attention(d, cfg.num_heads, cfg.num_kv_heads, hd, dt,
                              device)
-            ff = MLP(d, cfg.d_ff, cfg.mlp_activation, dt, device)
-        else:
-            attn = attention_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
-                                  hd, dt, device)
-            ff = mlp_init(gen, d, cfg.d_ff, cfg.mlp_activation, dt, device)
+        return attention_init(gen, d, cfg.num_heads, cfg.num_kv_heads, hd,
+                              dt, device)
+
+    def block():
+        attn = attention()
+        ff = (MLP(d, cfg.d_ff, cfg.mlp_activation, dt, device) if gen is None
+              else mlp_init(gen, d, cfg.d_ff, cfg.mlp_activation, dt, device))
         return Block(RMSNorm(d, device), attn, RMSNorm(d, device), ff)
+
+    def moe_block():
+        attn = attention()
+        experts = (moe_mod.MoE(cfg, dt, device) if gen is None
+                   else moe_mod.moe_init(gen, cfg, dt, device))
+        return MoEBlock(RMSNorm(d, device), attn, RMSNorm(d, device), experts)
 
     def mamba_block():
         mix = (Mamba2(cfg, dt, device) if gen is None
@@ -178,14 +215,22 @@ def _build(cfg: ModelConfig, device, gen: Optional[torch.Generator] = None
         shared = block()
     elif kind == BlockKind.ATTENTION:
         blocks = [block() for _ in range(cfg.num_layers)]
+    elif kind == BlockKind.MOE:
+        blocks = [moe_block() for _ in range(cfg.num_layers)]
     elif kind == BlockKind.MAMBA2:
         blocks = [mamba_block() for _ in range(cfg.num_layers)]
     elif kind == BlockKind.RWKV6:
         blocks = [rwkv_block() for _ in range(cfg.num_layers)]
     else:
         raise ValueError(kind)
-    return LM(emb, blocks, RMSNorm(d, device),
-              None if cfg.tie_embeddings else table(), shared)
+    unemb = None if cfg.tie_embeddings else table()
+    front = None
+    if cfg.frontend != "none":
+        front = Frontend(cfg, device)
+        if gen is not None:
+            front.proj.copy_(dense_init(gen, *front.proj.shape, dt,
+                                        device=device))
+    return LM(emb, blocks, RMSNorm(d, device), unemb, shared, front)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> LM:
@@ -195,9 +240,19 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> LM:
 
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Parameters of the constructed module (no MoE here, so
-    ``active_only`` changes nothing)."""
-    return sum(p.numel() for p in _build(cfg, "meta").parameters())
+    """Parameters of the constructed module; with ``active_only`` an MoE
+    model counts its experts (``w_gate``, ``w_up``, ``w_out``) at the
+    routed fraction K/E, as ``repro`` does."""
+    named = dict(_build(cfg, "meta").named_parameters())
+    total = sum(p.numel() for p in named.values())
+    if active_only and cfg.moe is not None:
+        expert_total = sum(p.numel() for n, p in named.items()
+                           if n.split(".")[2:] in (["moe", "w_gate"],
+                                                   ["moe", "w_up"],
+                                                   ["moe", "w_out"]))
+        active_frac = cfg.moe.experts_per_token / cfg.moe.num_experts
+        total = total - expert_total + int(expert_total * active_frac)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -214,27 +269,70 @@ def _embed_scale(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_inputs(model: LM, cfg: ModelConfig, tokens, prefix_emb):
-    if prefix_emb is not None:
-        raise NotImplementedError(f"prefix embeddings (frontends) are not "
-                                  f"ported yet: {_QUEUE_11}")
+    """Token embeddings (gemma-scaled), with a frontend config's projected
+    prefix (B, P, frontend_dim) prepended; positions over S + P."""
     x = _embed_scale(cfg, embed(model.embed, tokens))
+    if cfg.frontend != "none":
+        if prefix_emb is None:
+            raise ValueError(f"{cfg.name} requires frontend embeddings "
+                             f"(prefix_emb)")
+        pre = torch.as_tensor(prefix_emb, device=x.device).to(x.dtype)
+        x = torch.cat([pre @ model.frontend.proj, x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     return x, positions
 
 
-def _apply_attn_mlp(p: Block, cfg: ModelConfig, ctx: RunCtx, x, positions,
-                    want_cache: bool):
+def _attn_prefill(p, cfg: ModelConfig, ctx: RunCtx, x, positions,
+                  want_cache: bool):
+    """x + the block's attention over the full sequence, and its cache."""
     h = rmsnorm(p.ln1, x, cfg.norm_eps)
     out = attention_prefill(p.attn, h, positions, cfg.rope_theta,
                             chunk=ctx.attn_chunk, causal_skip=ctx.causal_skip,
                             p_bf16=ctx.attn_p_bf16, impl=ctx.attn_impl,
                             return_cache=want_cache)
     a, cache = out if want_cache else (out, None)
-    x = x + a
+    return x + a, cache
+
+
+def _apply_attn_mlp(p: Block, cfg: ModelConfig, ctx: RunCtx, x, positions,
+                    want_cache: bool):
+    x, cache = _attn_prefill(p, cfg, ctx, x, positions, want_cache)
     x = x + mlp(p.mlp, rmsnorm(p.ln2, x, cfg.norm_eps), cfg.mlp_activation)
     return x, cache
+
+
+def _moe(p: moe_mod.MoE, cfg: ModelConfig, ctx: RunCtx, h, strategy: str,
+         a2a_int8: bool):
+    """``moe_forward`` on the block's normed (B, S, d) input. On a mesh
+    ``h`` is this rank's batch slice, replicated over ``ctx.ep_axis``:
+    ``a2a`` runs on this rank's S / n chunk and the chunks are gathered
+    back over the expert axis (one ``all_reduce`` of a zeroed buffer in
+    which each rank wrote its own chunk)."""
+    n = moe_mod.ep_size(ctx.mesh, ctx.ep_axis)
+    kw = dict(mesh=ctx.mesh, dp_axes=ctx.dp_axes, ep_axis=ctx.ep_axis,
+              a2a_int8=a2a_int8)
+    if n == 1:
+        return moe_mod.moe_forward(p, cfg, h, **kw)
+    B, S, d = h.shape
+    strategy = moe_mod.resolve_strategy(strategy, S, n)
+    if strategy != "a2a":
+        return moe_mod.moe_forward(p, cfg, h, strategy=strategy, **kw)
+    r, s_loc = int(ctx.mesh.get_local_rank(ctx.ep_axis)), S // n
+    y, aux = moe_mod.moe_forward(p, cfg, h[:, r * s_loc:(r + 1) * s_loc],
+                                 strategy="a2a", **kw)
+    chunks = _all_gather(y, ctx.mesh, (ctx.ep_axis,), n, r)
+    return chunks.permute(1, 0, 2, 3).reshape(B, S, d), aux
+
+
+def _apply_moe_block(p: MoEBlock, cfg: ModelConfig, ctx: RunCtx, x,
+                     positions, want_cache: bool):
+    """Returns (x, aux, cache)."""
+    x, cache = _attn_prefill(p, cfg, ctx, x, positions, want_cache)
+    y, aux = _moe(p.moe, cfg, ctx, rmsnorm(p.ln2, x, cfg.norm_eps),
+                  ctx.moe_strategy, ctx.moe_a2a_int8)
+    return x + y, aux, cache
 
 
 def _apply_mamba_block(p: MambaBlock, cfg: ModelConfig, x,
@@ -273,9 +371,10 @@ def _at(state, *idx):
 
 def _stack_units(model: LM, cfg: ModelConfig, ctx: RunCtx, positions,
                  want_cache: bool):
-    """The stack as (unit, fn) pairs with ``fn(unit, x) -> (x, cache)``:
-    one per block, one per group in the hybrid, and the function that
-    stacks the units' caches into the decode state's ``cache``."""
+    """The stack as (unit, fn) pairs with ``fn(unit, x) -> (x, aux,
+    cache)`` (aux None but for MoE blocks): one per block, one per group
+    in the hybrid, and the function that stacks the units' caches into the
+    decode state's ``cache``."""
     kind = cfg.block_pattern[0]
     if cfg.shared_attn_every:
         def group(blocks, x):
@@ -285,18 +384,30 @@ def _stack_units(model: LM, cfg: ModelConfig, ctx: RunCtx, positions,
                 sts.append(st)
             x, kv = _apply_attn_mlp(model.shared_attn, cfg, ctx, x,
                                     positions, want_cache)
-            return x, (_stack(sts) if want_cache else None, kv)
+            return x, None, (_stack(sts) if want_cache else None, kv)
 
         finish = lambda cs: {"kv": _stack([c[1] for c in cs]),
                              "mamba": _stack([c[0] for c in cs])}
         return [(g, group) for g in model.blocks], finish
+
+    def no_aux(f):
+        def unit(blk, x):
+            y, cache = f(blk, x)
+            return y, None, cache
+        return unit
+
     if kind == BlockKind.ATTENTION:
-        fn = lambda blk, x: _apply_attn_mlp(blk, cfg, ctx, x, positions,
-                                            want_cache)
+        fn = no_aux(lambda blk, x: _apply_attn_mlp(blk, cfg, ctx, x,
+                                                   positions, want_cache))
+    elif kind == BlockKind.MOE:
+        fn = lambda blk, x: _apply_moe_block(blk, cfg, ctx, x, positions,
+                                             want_cache)
     elif kind == BlockKind.MAMBA2:
-        fn = lambda blk, x: _apply_mamba_block(blk, cfg, x, want_cache)
+        fn = no_aux(lambda blk, x: _apply_mamba_block(blk, cfg, x,
+                                                      want_cache))
     elif kind == BlockKind.RWKV6:
-        fn = lambda blk, x: _apply_rwkv_block(blk, cfg, x, want_cache)
+        fn = no_aux(lambda blk, x: _apply_rwkv_block(blk, cfg, x,
+                                                     want_cache))
     else:
         raise ValueError(kind)
     return [(blk, fn) for blk in model.blocks], _stack
@@ -304,19 +415,21 @@ def _stack_units(model: LM, cfg: ModelConfig, ctx: RunCtx, positions,
 
 def _run_stack(model: LM, cfg: ModelConfig, ctx: RunCtx, x, positions,
                want_cache: bool = False):
-    """Returns (hidden, aux_loss, the decode state's cache or None)."""
-    _check_supported(cfg)
+    """Returns (hidden, aux_loss, the decode state's cache or None); the
+    aux loss is the sum of the MoE blocks' (0 without them)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     units, finish = _stack_units(model, cfg, ctx, positions, want_cache)
-    if not want_cache and ctx.remat and torch.is_grad_enabled():
-        for unit, fn in units:
-            x = checkpoint(lambda u, h, f=fn: f(u, h)[0], unit, x,
-                           use_reentrant=False)
-        return x, aux, None
+    remat = not want_cache and ctx.remat and torch.is_grad_enabled()
     caches = []
     for unit, fn in units:
-        x, cache = fn(unit, x)
-        caches.append(cache)
+        if remat:
+            x, aux_l = checkpoint(lambda u, h, f=fn: f(u, h)[:2], unit, x,
+                                  use_reentrant=False)
+        else:
+            x, aux_l, cache = fn(unit, x)
+            caches.append(cache)
+        if aux_l is not None:
+            aux = aux + aux_l
     return x, aux, finish(caches) if want_cache else None
 
 
@@ -328,7 +441,8 @@ def _logits(model: LM, cfg: ModelConfig, x):
 
 def forward(model: LM, cfg: ModelConfig, tokens, prefix_emb=None,
             ctx: RunCtx = DEFAULT_CTX, return_hidden: bool = False):
-    """tokens: (B, S) -> (logits (B, S, V), aux[, final-norm hidden])."""
+    """tokens: (B, S) -> (logits (B, S(+P), V), aux[, final-norm
+    hidden])."""
     x, positions = _embed_inputs(model, cfg, tokens, prefix_emb)
     x, aux, _ = _run_stack(model, cfg, ctx, x, positions, want_cache=False)
     logits, h = _logits(model, cfg, x)
@@ -338,10 +452,15 @@ def forward(model: LM, cfg: ModelConfig, tokens, prefix_emb=None,
 
 
 def loss_fn(model: LM, cfg: ModelConfig, batch, ctx: RunCtx = DEFAULT_CTX):
-    """batch: {'tokens': (B,S), 'labels': (B,S), optional 'mask'} ->
-    (loss, {'ce', 'aux'}); the aux weight is the MoE router's, 0 here."""
+    """batch: {'tokens': (B,S), 'labels': (B,S), optional 'mask' and
+    'prefix_emb'} -> (loss, {'ce', 'aux'}). The frontend's P prefix
+    positions are dropped from the loss; the aux weight is the MoE
+    router's (0 without MoE)."""
     logits, aux = forward(model, cfg, batch["tokens"],
                           batch.get("prefix_emb"), ctx)
+    P = logits.shape[1] - batch["labels"].shape[1]
+    if P:
+        logits = logits[:, P:]
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
     aux_w = cfg.moe.router_aux_loss if cfg.moe is not None else 0.0
     return ce + aux_w * aux, {"ce": ce, "aux": aux}
@@ -354,7 +473,8 @@ def loss_fn(model: LM, cfg: ModelConfig, batch, ctx: RunCtx = DEFAULT_CTX):
 def prefill(model: LM, cfg: ModelConfig, tokens, prefix_emb=None,
             ctx: RunCtx = DEFAULT_CTX):
     """Full-sequence forward that also returns the decode state (KV
-    caches, Mamba2 states or RWKV states, as the family has)."""
+    caches, Mamba2 states or RWKV states, as the family has); its ``pos``
+    counts the prefix positions too."""
     x, positions = _embed_inputs(model, cfg, tokens, prefix_emb)
     x, _, caches = _run_stack(model, cfg, ctx, x, positions, want_cache=True)
     logits, _ = _logits(model, cfg, x)
@@ -385,6 +505,18 @@ def _decode_attn_mlp(p: Block, cfg: ModelConfig, ctx: RunCtx, x,
     return x, new_cache
 
 
+def _decode_moe_block(p: MoEBlock, cfg: ModelConfig, ctx: RunCtx, x,
+                      cache: KVCache, pos, active):
+    h = rmsnorm(p.ln1, x, cfg.norm_eps)
+    y, new_cache = attention_decode(p.attn, h, cache, pos, cfg.rope_theta,
+                                    active=active)
+    x = x + y
+    # repro's decode passes no a2a_int8, and allgather on a mesh
+    y2, _ = _moe(p.moe, cfg, ctx, rmsnorm(p.ln2, x, cfg.norm_eps),
+                 "allgather" if ctx.mesh is not None else "auto", False)
+    return x + y2, new_cache
+
+
 def _decode_mamba(blk: MambaBlock, cfg: ModelConfig, x, st: MambaState,
                   active):
     y, new_st = mamba2_step(blk.mamba, cfg, rmsnorm(blk.ln, x, cfg.norm_eps),
@@ -401,7 +533,6 @@ def decode_step(model: LM, cfg: ModelConfig, token, state,
 
     Returns (logits (B,1,V), new_state[, hidden]); ``state`` itself is not
     modified."""
-    _check_supported(cfg)
     kind = cfg.block_pattern[0]
     B = token.shape[0]
     pos = torch.as_tensor(state["pos"], dtype=torch.int32,
@@ -422,11 +553,12 @@ def decode_step(model: LM, cfg: ModelConfig, token, state,
             kvs.append(kv)
             ms.append(_stack(sts))
         new_cache = {"kv": _stack(kvs), "mamba": _stack(ms)}
-    elif kind == BlockKind.ATTENTION:
+    elif kind in (BlockKind.ATTENTION, BlockKind.MOE):
+        layer = (_decode_attn_mlp if kind == BlockKind.ATTENTION
+                 else _decode_moe_block)
         kvs = []
         for i, blk in enumerate(model.blocks):
-            x, kv = _decode_attn_mlp(blk, cfg, ctx, x, _at(cache, i), pos,
-                                     active)
+            x, kv = layer(blk, cfg, ctx, x, _at(cache, i), pos, active)
             kvs.append(kv)
         new_cache = _stack(kvs)
     elif kind == BlockKind.RWKV6:
@@ -450,7 +582,6 @@ def decode_step(model: LM, cfg: ModelConfig, token, state,
 def pad_decode_state(cfg: ModelConfig, state, max_len: int):
     """Grow the KV-cache capacity of a prefill state to ``max_len``; the
     recurrent states have no length and stay as they are."""
-    _check_supported(cfg)
 
     def pad(a):
         extra = max_len - a.shape[2]
@@ -487,7 +618,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None):
     """Zero decode state with capacity ``max_len``, on ``device`` — CUDA
     unless ``device="cpu"``."""
-    _check_supported(cfg)
     dev = device_mod.resolve(device)
 
     def kv(n_stack):
@@ -506,7 +636,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
         ms = stacked(init_mamba_state(cfg, batch, "meta"), *_groups(cfg))
         return {"pos": pos0, "cache": {"kv": kv(_groups(cfg)[0]),
                                        "mamba": ms}}
-    if kind == BlockKind.ATTENTION:
+    if kind in (BlockKind.ATTENTION, BlockKind.MOE):
         return {"pos": pos0, "cache": kv(cfg.num_layers)}
     if kind == BlockKind.RWKV6:
         return {"pos": pos0, "cache": stacked(

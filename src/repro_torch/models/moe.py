@@ -1,0 +1,394 @@
+"""Mixture-of-Experts FFN with expert parallelism on ``torch.distributed``
+(port of ``repro.models.moe``).
+
+Three execution strategies, as in ``repro``:
+
+* ``reference`` — loop over experts with masking; exact, used on a single
+  device (and the numerics oracle). Every expert runs on every token, E/K
+  times the routed work: ``repro``'s single-device design, kept.
+* ``a2a`` — production EP: tokens are sequence-sharded over the expert
+  axis, routed entries are exchanged with an all-to-all (dispatch), expert
+  FFNs run on their owning rank, and a reverse all-to-all returns outputs
+  (drop policy at static capacity).
+* ``allgather`` — decode-friendly: tokens are replicated over the expert
+  axis, every rank computes only its local experts' assignments, and an
+  ``all_reduce`` (``repro``'s psum) combines partial outputs.
+
+The weights live in an ``MoE`` module under ``repro``'s leaf names:
+``router`` (d, E) in **f32 whatever the model dtype**, ``w_gate`` and
+``w_up`` (E, d, ff), ``w_out`` (E, ff, d), and the optional ``shared``
+(a swiglu MLP of width ``expert_d_ff * num_shared_experts``) and ``dense``
+(the dense residual, ``cfg.mlp_activation``) MLPs.
+
+**Expert parallelism.** Where ``repro`` runs under ``shard_map`` on the
+global arrays, a rank here passes its own slice and its own experts, as
+the sharded search does: ``x`` is (B_loc, S / n, d) for ``a2a`` (sharded
+over the batch on the data axes and over the sequence on ``ep_axis``) and
+(B_loc, S, d) for ``allgather`` (replicated over ``ep_axis``); the module
+holds experts [r·E/n, (r+1)·E/n) of rank r of ``ep_axis``
+(``carry.expert_shard`` slices them). The all-to-all group is the
+``DeviceMesh``'s subgroup of ``ep_axis`` at this rank's data coordinates,
+which every rank creates in the same order when the mesh is built. How
+an all-to-all travels is ``a2a_transport``'s choice.
+
+Dropped entries (past a capacity) are masked out, never clamped into a
+slot: ``repro``'s ``.at[...].set(mode="drop")`` writes nothing for them.
+Routes take ties to the lower expert id, as ``lax.top_k`` does.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import _psum, axis_size, n_shards_of
+from repro_torch.models.layers import (MLP, _empty, _normal, _param, mlp,
+                                       mlp_init)
+
+# the f32 reciprocal XLA multiplies by where the reference divides by 127
+_INV127 = 1.0 / 127.0
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class MoE(nn.Module):
+    """The experts, the f32 router and the optional shared / dense MLPs.
+    ``num_experts`` is the count this module holds: E, or E/n for one
+    rank's shard."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device=None,
+                 num_experts: Optional[int] = None):
+        super().__init__()
+        moe = cfg.moe
+        d, ff = cfg.d_model, moe.expert_d_ff
+        E = moe.num_experts if num_experts is None else num_experts
+        self.router = _param(torch.empty((d, moe.num_experts),
+                                         dtype=torch.float32, device=device))
+        self.w_gate = _empty((E, d, ff), dtype, device)
+        self.w_up = _empty((E, d, ff), dtype, device)
+        self.w_out = _empty((E, ff, d), dtype, device)
+        if moe.num_shared_experts:
+            self.shared = MLP(d, ff * moe.num_shared_experts, "swiglu", dtype,
+                              device)
+        if moe.dense_residual_d_ff:
+            self.dense = MLP(d, moe.dense_residual_d_ff, cfg.mlp_activation,
+                             dtype, device)
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype,
+             device=None) -> MoE:
+    """The layer with weights drawn from ``gen`` at ``repro``'s scales:
+    router and ``w_gate`` / ``w_up`` d^-1/2, ``w_out`` ff^-1/2. Each
+    expert's matrix is drawn on its own, so the f32 draw never holds more
+    than one expert."""
+    d, ff = cfg.d_model, cfg.moe.expert_d_ff
+    dev = device if device is not None else gen.device
+    m = MoE(cfg, dtype, dev)
+    m.router.copy_(_normal(gen, m.router.shape, d ** -0.5, torch.float32,
+                           dev))
+    for w, scale in ((m.w_gate, d ** -0.5), (m.w_up, d ** -0.5),
+                     (m.w_out, ff ** -0.5)):
+        for e in range(w.shape[0]):
+            w[e].copy_(_normal(gen, w.shape[1:], scale, dtype, dev))
+    moe = cfg.moe
+    if moe.num_shared_experts:
+        m.shared = mlp_init(gen, d, ff * moe.num_shared_experts, "swiglu",
+                            dtype, dev)
+    if moe.dense_residual_d_ff:
+        m.dense = mlp_init(gen, d, moe.dense_residual_d_ff,
+                           cfg.mlp_activation, dtype, dev)
+    return m
+
+
+def _route(router_w: torch.Tensor, x_tok: torch.Tensor, k: int):
+    """x_tok: (T, d) -> (weights (T,K) f32, idx (T,K) int64, probs (T,E)
+    f32). The top k by a stable descending sort, so equal probabilities
+    go to the lower expert id (``lax.top_k``'s order; ``torch.topk``
+    leaves ties unordered)."""
+    logits = x_tok.float() @ router_w
+    probs = torch.softmax(logits, dim=-1)
+    weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, idx = weights[:, :k], idx[:, :k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    return weights, idx, probs
+
+
+def _aux_loss(probs: torch.Tensor, idx: torch.Tensor,
+              num_experts: int) -> torch.Tensor:
+    """Switch-style load-balancing loss (local shard statistics)."""
+    T, K = idx.shape
+    f = torch.zeros((num_experts,), dtype=torch.float32, device=idx.device)
+    f = f.index_add(0, idx.reshape(-1),
+                    torch.ones((T * K,), dtype=torch.float32,
+                               device=idx.device))
+    f = f / (T * K)
+    p_mean = probs.mean(0)
+    return num_experts * torch.sum(f * p_mean)
+
+
+def _expert_ffn(w_gate, w_up, w_out, xbuf: torch.Tensor) -> torch.Tensor:
+    """xbuf: (E_loc, C, d) -> (E_loc, C, d)."""
+    g = torch.einsum("ecd,edf->ecf", xbuf, w_gate)
+    u = torch.einsum("ecd,edf->ecf", xbuf, w_up)
+    h = (F.silu(g.float()) * u.float()).to(xbuf.dtype)
+    return torch.einsum("ecf,efd->ecd", h, w_out)
+
+
+def _rank_in_group(group: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Stable rank of each element within its group. group: (N,) int in
+    [0, G)."""
+    oh = F.one_hot(group.long(), num_groups).to(torch.int32)      # (N, G)
+    ranks = torch.cumsum(oh, dim=0, dtype=torch.int32) - oh
+    return ranks[torch.arange(group.shape[0], device=group.device),
+                 group.long()]
+
+
+def _combine(flat_w: torch.Tensor, y_slot: torch.Tensor, T: int,
+             K: int) -> torch.Tensor:
+    """(T, d) f32: each token's K weighted outputs added in top-k order
+    to a zero row — the order of ``repro``'s ``out.at[flat_tok].add``."""
+    terms = (flat_w[:, None] * y_slot.float()).reshape(T, K, -1)
+    out = torch.zeros_like(terms[:, 0])
+    for j in range(K):
+        out = out + terms[:, j]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# reference path
+# ---------------------------------------------------------------------------
+
+def moe_reference(params: MoE, cfg: ModelConfig, x_tok: torch.Tensor):
+    """Exact capacity-free MoE on one device. x_tok: (T, d). y is
+    accumulated in f32 in expert order 0..E-1, as ``repro``'s scan."""
+    moe = cfg.moe
+    weights, idx, probs = _route(params.router, x_tok, moe.experts_per_token)
+    y = torch.zeros(x_tok.shape, dtype=torch.float32, device=x_tok.device)
+    for e in range(moe.num_experts):
+        w_e = torch.where(idx == e, weights, 0.0).sum(-1)          # (T,)
+        g = F.silu((x_tok @ params.w_gate[e]).float())
+        u = (x_tok @ params.w_up[e]).float()
+        out = (g * u).to(x_tok.dtype) @ params.w_out[e]
+        y = y + w_e[:, None] * out.float()
+    return y.to(x_tok.dtype), _aux_loss(probs, idx, moe.num_experts)
+
+
+# ---------------------------------------------------------------------------
+# the all-to-all
+# ---------------------------------------------------------------------------
+
+def a2a_transport(x: torch.Tensor, group) -> str:
+    """How ``_all_to_all`` moves ``x`` over ``group``: ``"all_reduce"`` on
+    gloo with a CUDA tensor, ``"all_to_all_single"`` otherwise.
+
+    Gloo runs ``all_to_all_single`` on CPU tensors only; for CUDA tensors
+    it takes ``all_reduce`` alone. So with gloo on the card (several ranks
+    sharing it) each rank writes its n outgoing chunks into its own row of
+    a zeroed (n, n, ...) buffer, one ``all_reduce(SUM)`` adds the buffers,
+    and rank r reads column r: every slot has one writer, so the sum is
+    the payload's exact bits, at n times the bytes. NCCL and gloo on CPU
+    tensors exchange the chunks directly."""
+    if dist.get_backend(group) == "gloo" and x.is_cuda:
+        return "all_reduce"
+    return "all_to_all_single"
+
+
+def _all_to_all(x: torch.Tensor, group, transport: str) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, 0, 0, tiled=False)`` over ``group``:
+    chunk i of axis 0 (size n) goes to the group's rank i, and what
+    arrives is stacked by source rank."""
+    x = x.contiguous()
+    if transport == "all_to_all_single":
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+    if transport != "all_reduce":
+        raise ValueError(f"unknown transport {transport!r}")
+    n, me = x.shape[0], dist.get_rank(group)
+    buf = x.new_zeros((n,) + tuple(x.shape))
+    buf[me] = x
+    dist.all_reduce(buf, group=group)
+    return buf[:, me].contiguous()
+
+
+def _a2a_quantized(x: torch.Tensor, group, transport: str,
+                   int8: bool) -> torch.Tensor:
+    """all_to_all with optional int8 payload (per-slot scales) — halves the
+    dispatch bytes vs bf16. The scale is ``max|x| / 127`` through the f32
+    reciprocal (the reference's jitted division); ``torch.round`` rounds
+    half to even, as ``jnp.round``."""
+    if not int8:
+        return _all_to_all(x, group, transport)
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1e-12) * _INV127
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    rq = _all_to_all(q, group, transport)
+    rs = _all_to_all(scale, group, transport)
+    return (rq.float() * rs).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# EP via all-to-all (sequence-sharded tokens)
+# ---------------------------------------------------------------------------
+
+def _moe_a2a_local(params: MoE, cfg: ModelConfig, x_loc: torch.Tensor,
+                   group, n_shards: int, a2a_int8: bool = False):
+    """One rank's share. x_loc: (T_loc, d); ``params`` holds this rank's
+    E/n experts and the whole router."""
+    moe = cfg.moe
+    K, E = moe.experts_per_token, moe.num_experts
+    E_loc = E // n_shards
+    T_loc, d = x_loc.shape
+    transport = a2a_transport(x_loc, group)
+
+    weights, idx, probs = _route(params.router, x_loc, K)
+    aux = _aux_loss(probs, idx, E)
+
+    # --- dispatch: pack entries per destination shard -----------------------
+    flat_e = idx.reshape(-1)                                   # (T_loc*K,)
+    flat_w = weights.reshape(-1)
+    flat_tok = torch.arange(T_loc * K, device=x_loc.device) // K
+    dest = flat_e // E_loc
+    # int() truncates, as repro's Python arithmetic does
+    c_send = _round_up(max(1, int(moe.capacity_factor * T_loc * K
+                                  / n_shards)), 8)
+    rank = _rank_in_group(dest, n_shards)
+    keep = rank < c_send
+
+    send_x = x_loc.new_zeros((n_shards, c_send, d))
+    send_x[dest[keep], rank[keep]] = x_loc[flat_tok[keep]]
+    send_eid = torch.full((n_shards, c_send), -1, dtype=torch.int32,
+                          device=x_loc.device)
+    send_eid[dest[keep], rank[keep]] = flat_e[keep].to(torch.int32)
+
+    recv_x = _a2a_quantized(send_x, group, transport, a2a_int8)
+    recv_eid = _all_to_all(send_eid, group, transport)
+
+    # --- local expert compute ------------------------------------------------
+    rx = recv_x.reshape(-1, d)                             # (n*c_send, d)
+    re = recv_eid.reshape(-1).long()
+    valid = re >= 0
+    eloc = torch.where(valid, re % E_loc, 0)
+    c_exp = _round_up(max(1, int(moe.capacity_factor * rx.shape[0]
+                                 / E_loc)), 8)
+    erank = _rank_in_group(torch.where(valid, eloc, E_loc), E_loc + 1)
+    ekeep = valid & (erank < c_exp)
+    xbuf = x_loc.new_zeros((E_loc, c_exp, d))
+    xbuf[eloc[ekeep], erank[ekeep]] = rx[ekeep]
+    ybuf = _expert_ffn(params.w_gate, params.w_up, params.w_out, xbuf)
+    ry = x_loc.new_zeros((rx.shape[0], d))
+    ry[ekeep] = ybuf[eloc[ekeep], erank[ekeep]]
+
+    # --- return + combine ----------------------------------------------------
+    back = _a2a_quantized(ry.reshape(n_shards, c_send, d), group, transport,
+                          a2a_int8)
+    y_slot = x_loc.new_zeros((T_loc * K, d))
+    y_slot[keep] = back[dest[keep], rank[keep]]
+    out = _combine(flat_w, y_slot, T_loc, K)
+    return out.to(x_loc.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# EP via token replication + all_reduce (decode)
+# ---------------------------------------------------------------------------
+
+def _moe_allgather_local(params: MoE, cfg: ModelConfig, x_loc: torch.Tensor,
+                         group, n_shards: int, shard: int):
+    """Tokens replicated over the expert axis; each rank computes its local
+    experts and partial outputs are summed over ``group``. x_loc: (T, d)."""
+    moe = cfg.moe
+    K, E = moe.experts_per_token, moe.num_experts
+    E_loc = E // n_shards
+    T, d = x_loc.shape
+
+    weights, idx, probs = _route(params.router, x_loc, K)
+    aux = _aux_loss(probs, idx, E)
+
+    flat_e = idx.reshape(-1)
+    flat_w = weights.reshape(-1)
+    flat_tok = torch.arange(T * K, device=x_loc.device) // K
+    mine = (flat_e // E_loc) == shard
+    eloc = torch.where(mine, flat_e % E_loc, E_loc)
+    c_exp = _round_up(max(1, int(moe.capacity_factor * T * K / E)), 8)
+    rank = _rank_in_group(eloc, E_loc + 1)
+    keep = mine & (rank < c_exp)
+    xbuf = x_loc.new_zeros((E_loc, c_exp, d))
+    xbuf[eloc[keep], rank[keep]] = x_loc[flat_tok[keep]]
+    ybuf = _expert_ffn(params.w_gate, params.w_up, params.w_out, xbuf)
+    y_slot = x_loc.new_zeros((T * K, d))
+    y_slot[keep] = ybuf[eloc[keep], rank[keep]]
+    out = _combine(flat_w, y_slot, T, K)
+    dist.all_reduce(out, group=group)
+    return out.to(x_loc.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# public entry point
+# ---------------------------------------------------------------------------
+
+def ep_size(mesh, ep_axis: str) -> int:
+    """The expert-parallel degree: the size of ``ep_axis``, or 1 without a
+    mesh or without that axis (then ``moe_forward`` runs the reference)."""
+    if mesh is None or ep_axis not in mesh.mesh_dim_names:
+        return 1
+    return axis_size(mesh, ep_axis)
+
+
+def resolve_strategy(strategy: str, seq_len: int, n_shards: int) -> str:
+    """``"auto"`` -> ``"a2a"`` when the GLOBAL sequence length splits
+    evenly over the expert axis (``S % n == 0 and S >= n``), else
+    ``"allgather"``; a named strategy is returned as it is."""
+    if strategy != "auto":
+        return strategy
+    even = seq_len % n_shards == 0 and seq_len >= n_shards
+    return "a2a" if even else "allgather"
+
+
+def moe_forward(params: MoE, cfg: ModelConfig, x: torch.Tensor, mesh=None,
+                dp_axes: Sequence[str] = ("data",), ep_axis: str = "model",
+                strategy: str = "auto", a2a_int8: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y, aux_loss). Adds shared-expert and dense-residual
+    branches per config (plain MLPs outside the EP path).
+
+    Without a mesh (or with ``ep_axis`` of size 1) this is
+    ``moe_reference`` over all tokens. On a mesh, ``x`` and ``params`` are
+    this rank's slice and experts (module docstring) and the result is
+    this rank's slice; ``aux`` is averaged over every axis. There the
+    strategy must be named: ``"auto"`` depends on the global sequence
+    length, which ``repro`` reads from the unsharded x and a rank's slice
+    does not show (``resolve_strategy`` resolves it from that length)."""
+    moe = cfg.moe
+    B, S, d = x.shape
+    n_shards = ep_size(mesh, ep_axis)
+    if n_shards == 1:
+        y_tok, aux = moe_reference(params, cfg, x.reshape(-1, d))
+        y = y_tok.reshape(B, S, d)
+    else:
+        group = mesh.get_group(ep_axis)
+        x_tok = x.reshape(-1, d)
+        if strategy == "a2a":
+            y_tok, aux = _moe_a2a_local(params, cfg, x_tok, group, n_shards,
+                                        a2a_int8)
+        elif strategy == "allgather":
+            y_tok, aux = _moe_allgather_local(
+                params, cfg, x_tok, group, n_shards,
+                int(mesh.get_local_rank(ep_axis)))
+        else:
+            raise ValueError(f"MoE strategy {strategy!r} on a mesh: name "
+                             f"'a2a' or 'allgather' (resolve_strategy)")
+        y = y_tok.reshape(B, S, d)
+        axes = tuple(dp_axes) + (ep_axis,)
+        aux = _psum(aux, mesh, axes) / n_shards_of(mesh, axes)
+
+    if moe.num_shared_experts:
+        y = y + mlp(params.shared, x, "swiglu")
+    if moe.dense_residual_d_ff:
+        y = y + mlp(params.dense, x, cfg.mlp_activation)
+    return y, aux

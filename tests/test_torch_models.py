@@ -20,6 +20,7 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.configs import scaled_down as jscaled_down
 from repro.models import attention as jattn
+from repro.models import frontends as jfrontends
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro_torch import carry
@@ -30,6 +31,7 @@ from repro_torch.dist import steps
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from repro_torch.optim import optimizer as topt
 
 F32 = dict(atol=2e-5, rtol=1e-5)
 
@@ -283,6 +285,117 @@ def test_decode_from_zero_state_matches_forward(f32_model):
     _close(full, jlm.forward(params, jc, jnp.asarray(tok))[0])
 
 
+# ---------------------------------------------------------------------------
+# every registered arch of the dense, frontend and MoE families
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ("granite-20b", "internlm2-20b", "deepseek-67b",
+             "llava-next-mistral-7b", "musicgen-medium", "arctic-480b",
+             "kimi-k2-1t-a32b")
+LOGITS = dict(atol=1e-4, rtol=1e-4)
+_ARCH_ENVS = {}
+
+
+def _arch_env(arch):
+    """(repro cfg, port cfg, repro params, the port's model, the prefix
+    as numpy or None) of the scaled f32 config."""
+    if arch not in _ARCH_ENVS:
+        jc = jscaled_down(jget_config(arch), dtype="float32")
+        tc = scaled_down(get_config(arch), dtype="float32")
+        params = jlm.init_params(jax.random.PRNGKey(2), jc)
+        pre = jfrontends.synthetic_prefix(jc, 2)
+        _ARCH_ENVS[arch] = (jc, tc, params,
+                            carry.lm_params(_np(params), tc, device="cpu"),
+                            None if pre is None else np.array(pre))
+    return _ARCH_ENVS[arch]
+
+
+def test_registry_matches_reference():
+    """The port registers repro's ten archs with the same fields."""
+    from repro.configs import ALL_ARCHS as JALL
+    from repro_torch.configs import ALL_ARCHS
+
+    def plain(cfg):
+        d = dataclasses.asdict(cfg)
+        d["block_pattern"] = [k.value for k in cfg.block_pattern]
+        return d
+
+    assert ALL_ARCHS == JALL and len(ALL_ARCHS) == 10
+    for arch in ALL_ARCHS:
+        assert plain(get_config(arch)) == plain(jget_config(arch)), arch
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_registered_arch_param_count(arch):
+    """Full and active counts at the registered width, and the scaled
+    config's, equal repro's."""
+    jc, tc = jget_config(arch), get_config(arch)
+    for active in (False, True):
+        assert (tlm.param_count(tc, active_only=active)
+                == jlm.param_count(jc, active_only=active))
+    assert (tlm.param_count(tc, active_only=True) < tlm.param_count(tc)) \
+        == (tc.moe is not None)
+    j_small, t_small = _arch_env(arch)[:2]
+    assert tlm.param_count(t_small, True) == jlm.param_count(j_small, True)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_registered_arch_forward_and_loss(arch):
+    """forward's logits and aux, and loss_fn (the router aux weighted in
+    for MoE; the prefix dropped from the loss for a frontend)."""
+    jc, tc, params, model, pre = _arch_env(arch)
+    tok = _tokens(2, 12, tc.vocab_size, seed=5)
+    jpre = None if pre is None else jnp.asarray(pre)
+    tpre = None if pre is None else torch.from_numpy(pre)
+    jl, jaux = jlm.forward(params, jc, jnp.asarray(tok), jpre)
+    tl, taux = tlm.forward(model, tc, torch.from_numpy(tok), tpre)
+    _close(tl, jl, **LOGITS)
+    _close(taux, jaux)
+    assert (float(taux) > 0) == (tc.moe is not None)
+    labels = _tokens(2, 12, tc.vocab_size, seed=6)
+    jloss, jm = jlm.loss_fn(params, jc, {"tokens": jnp.asarray(tok),
+                                         "labels": jnp.asarray(labels),
+                                         "prefix_emb": jpre})
+    tloss, tm = tlm.loss_fn(model, tc, {"tokens": torch.from_numpy(tok),
+                                        "labels": torch.from_numpy(labels),
+                                        "prefix_emb": tpre})
+    for t, j in ((tloss, jloss), (tm["ce"], jm["ce"]), (tm["aux"],
+                                                         jm["aux"])):
+        assert abs(float(t) - float(j)) < 1e-5
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_registered_arch_prefill_and_decode(arch):
+    """prefill (with the prefix where the config has one) -> pad -> decode
+    steps with per-row positions and an inactive row."""
+    jc, tc, params, model, pre = _arch_env(arch)
+    tok = _tokens(2, 9, tc.vocab_size, seed=7)
+    jl, js = jlm.prefill(params, jc, jnp.asarray(tok),
+                         None if pre is None else jnp.asarray(pre))
+    tl, ts = tlm.prefill(model, tc, torch.from_numpy(tok),
+                         None if pre is None else torch.from_numpy(pre))
+    _close(tl, jl, **LOGITS)
+    n = 9 + tc.frontend_positions
+    assert ts["pos"].tolist() == np.asarray(js["pos"]).tolist() == [n, n]
+    js, ts = jlm.pad_decode_state(jc, js, n + 4), tlm.pad_decode_state(
+        tc, ts, n + 4)
+    assert ts["cache"].k.shape == js["cache"].k.shape
+    active = np.array([True, False])
+    nxt = tok[:, -1:]
+    for _ in range(3):
+        jl, js = jlm.decode_step(params, jc, jnp.asarray(nxt), js,
+                                 active=jnp.asarray(active))
+        tl, ts = tlm.decode_step(model, tc, torch.from_numpy(nxt), ts,
+                                 active=torch.from_numpy(active))
+        _close(tl, jl, **LOGITS)
+        nxt = np.asarray(jl).argmax(-1).astype(np.int32)
+    assert ts["pos"].tolist() == np.asarray(js["pos"]).tolist() == [n + 3, n]
+    _close(ts["cache"].k, js["cache"].k)
+    empty = tlm.init_decode_state(tc, 2, 8, device="cpu")
+    assert empty["cache"].k.shape == jlm.init_decode_state(jc, 2, 8)[
+        "cache"].k.shape
+
+
 _SSM = SSMConfig(state_dim=16, head_dim=16, chunk_size=32)
 
 
@@ -296,34 +409,38 @@ _SSM = SSMConfig(state_dim=16, head_dim=16, chunk_size=32)
     dict(frontend="vision_patches", frontend_positions=4),
 ], ids=["moe", "mamba2", "rwkv6", "hybrid", "frontend"])
 def test_unported_families_raise(change):
-    """MoE and the frontends raise wherever a model would be built; the
-    recurrent families (Mamba2, RWKV6, the hybrid) build and serve, but
-    their train step raises (ROADMAP queue 1 item 11), and a pure Mamba2
-    stack has no decode step, as in ``repro``."""
+    """Every family builds and runs forward; what is not ported yet is
+    training the recurrent and MoE families: their train step raises
+    (ROADMAP queue 1 item 11b). MoE and the hybrid and RWKV6 decode; a
+    pure Mamba2 stack has no decode step, as in ``repro``. A frontend
+    config trains, and its forward raises without the prefix."""
     cfg = dataclasses.replace(scaled_down(get_config("gemma-2b")), **change)
-    calls = [lambda: steps.make_train_step(cfg, TrainConfig(),
-                                           device="cpu")]
-    recurrent = cfg.block_pattern[0] in (BlockKind.MAMBA2, BlockKind.RWKV6)
-    if not recurrent:
-        calls += [lambda: tlm.init_params(torch.Generator(), cfg, "cpu"),
-                  lambda: tlm.param_count(cfg),
-                  lambda: tlm.init_decode_state(cfg, 1, 4, device="cpu")]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            call()
-    if recurrent:
-        model = tlm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-        state = tlm.init_decode_state(cfg, 1, 4, device="cpu")
-        assert tlm.param_count(cfg) == sum(p.numel()
-                                           for p in model.parameters())
-        step = lambda: tlm.decode_step(model, cfg,
-                                       torch.zeros((1, 1), dtype=torch.int64),
-                                       state)
-        if change.get("shared_attn_every") or "rwkv" in change:
-            assert step()[0].shape == (1, 1, cfg.vocab_size)
-        else:
-            with pytest.raises(ValueError):
-                step()
+    model = tlm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    assert tlm.param_count(cfg) == sum(p.numel() for p in model.parameters())
+    tok = torch.zeros((1, 3), dtype=torch.int64)
+    if "frontend" in change:
+        with pytest.raises(ValueError, match="frontend embeddings"):
+            tlm.forward(model, cfg, tok)
+        step = steps.make_train_step(cfg, TrainConfig(), device="cpu")
+        opt = topt.init(dict(model.named_parameters()), TrainConfig())
+        pre = torch.randn((1, 4, 1024), generator=torch.Generator()
+                          .manual_seed(1)).to(torch.bfloat16)
+        _, _, m = step(model, opt, {"tokens": tok, "labels": tok,
+                                    "prefix_emb": pre}, 0)
+        assert np.isfinite(float(m["loss"]))
+        return
+    with pytest.raises(NotImplementedError, match="queue 1 item 11b"):
+        steps.make_train_step(cfg, TrainConfig(), device="cpu")
+    logits, aux = tlm.forward(model, cfg, tok)
+    assert logits.shape == (1, 3, cfg.vocab_size)
+    assert (float(aux) > 0) == ("moe" in change)
+    state = tlm.init_decode_state(cfg, 1, 4, device="cpu")
+    step = lambda: tlm.decode_step(model, cfg, tok[:, :1], state)
+    if cfg.block_pattern == (BlockKind.MAMBA2,) and not cfg.shared_attn_every:
+        with pytest.raises(ValueError):
+            step()
+    else:
+        assert step()[0].shape == (1, 1, cfg.vocab_size)
 
 
 def test_keep_active_selects_rows_as_the_reference():

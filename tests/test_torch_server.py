@@ -29,6 +29,7 @@ from repro.core import tenant as jten
 from repro.core import retrieval as jret
 from repro.dist import search as jsearch
 from repro.dist import steps as jsteps
+from repro.models import frontends as jfrontends
 from repro.models import lm as jlm
 from repro.runtime import faults as jfaults
 from repro.runtime import server as jserver
@@ -609,6 +610,66 @@ def test_reused_slot_starts_from_a_zero_recurrent_state(rec_env):
 
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_launcher_recurrent_archs_on_cpu(capsys, arch):
+    srv = tserve.main(["--arch", arch, "--scaled", "--device", "cpu",
+                       "--requests", "3", "--max-new", "4",
+                       "--max-batch", "2", "--max-len", "16"])
+    assert srv.stats()["done"] == 3 and srv.stats()["lost"] == 0
+    assert "served 3/3 requests" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the MoE and frontend families: kimi-k2 and llava-next-mistral-7b
+# ---------------------------------------------------------------------------
+
+NEW_SERVED = ["kimi-k2-1t-a32b", "llava-next-mistral-7b"]
+
+
+@pytest.fixture(scope="module", params=NEW_SERVED)
+def new_env(request):
+    """The gemma ``env`` for an MoE or a frontend arch: scaled f32 weights
+    and a datastore built by the reference from the model's hidden states
+    over the corpus (after a synthetic prefix for the frontend config,
+    whose positions the store leaves out). The servers take tokens
+    alone, in both packages."""
+    arch = request.param
+    jc = jscaled_down(jget_config(arch), dtype="float32")
+    tc = scaled_down(get_config(arch), dtype="float32")
+    params = jlm.init_params(jax.random.PRNGKey(0), jc)
+    model = carry.lm_params(jax.tree_util.tree_map(np.asarray, params), tc,
+                            device="cpu")
+    corpus = np.random.default_rng(3).integers(
+        0, jc.vocab_size, (8, 48)).astype(np.int32)
+    pre = jfrontends.synthetic_prefix(jc, 8)
+    _, _, hidden = jax.jit(lambda p, t, e: jlm.forward(
+        p, jc, t, e, return_hidden=True))(params, jnp.asarray(corpus), pre)
+    P = jc.frontend_positions
+    store = jret.build_datastore(
+        hidden[:, P:-1].reshape(-1, jc.d_model),
+        jnp.asarray(corpus[:, 1:].reshape(-1)), jc.retrieval.code_bits,
+        itq_iters=6)
+    tstore = carry.datastore(jax.tree_util.tree_map(np.asarray, store),
+                             device="cpu")
+    mesh = compat.make_mesh((1, 1), ("data", "model"))
+    return jc, tc, params, model, store, tstore, corpus, mesh
+
+
+def test_moe_and_frontend_servers_match_reference(new_env):
+    """Three requests on two slots (one reused): the same tokens, ticks
+    and ``stats()`` counters as the reference, with retrieval in every
+    decode step."""
+    js, ts = _servers(new_env, 2)
+    corpus = new_env[6]
+    assert _serve(jserver, js, corpus, [0, 1, 2]) == _serve(
+        tserver, ts, corpus, [0, 1, 2])
+    _assert_same(js, ts)
+    assert ts.stats()["done"] == 3
+
+
+@pytest.mark.parametrize("arch", ["granite-20b", "internlm2-20b",
+                                  "deepseek-67b", "llava-next-mistral-7b",
+                                  "musicgen-medium", "arctic-480b",
+                                  "kimi-k2-1t-a32b"])
+def test_launcher_new_archs_on_cpu(capsys, arch):
     srv = tserve.main(["--arch", arch, "--scaled", "--device", "cpu",
                        "--requests", "3", "--max-new", "4",
                        "--max-batch", "2", "--max-len", "16"])
