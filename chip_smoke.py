@@ -149,12 +149,27 @@ kernel launch counts set to 0 just before it and read just after:
   on the CPU from the same weights and batches, the losses and params
   within stated tolerances; and ``trainer.train`` preempted at step 3 and
   resumed from its checkpoint, equal to an uninterrupted run.
+* training the other families — zamba2-2.7b (2,396,172,448 params) and
+  rwkv6-1.6b (1,583,941,632) at registered width and depth through
+  ``trainer.train`` as gemma-2b is (4 steps of 8 x 2048, here in 2
+  microbatches; one microbatch profiled); the hybrid, RWKV6 and MoE
+  (``scaled_down`` f32) on the card against the CPU for two seeds, each
+  family with its limits and a TF32 control above them; kimi-k2's layer
+  at full width (d_model 7168, expert d_ff 2048, vocab 163840), DEPTH
+  CUT to one layer and its experts CUT to what fits ~60 GB with bf16
+  weights and grads and f32 moments, 2 steps through ``moe_reference``,
+  and an f32 copy cut further whose loss gradients on the card equal
+  the CPU's; and ``make_train_step`` over 2 gloo ranks on the card
+  (arctic's width, experts CUT to 8, f32, 2 x 512 tokens, 2 steps) under
+  a2a, allgather and the int8 dispatch, each rank's parameters held
+  against a one-device step on the same global batch. No K1-K4 launch.
 
 Output: progress lines; ``main_path``, ``board_scan``, ``index_path``,
 ``sharded_path``, ``shard_faults``, ``serving_path``, ``recurrent_path``,
 ``dense_path``, ``frontend_path``, ``moe_path``, ``moe_ep``,
 ``approx_path``,
-``mutable_path``, ``tenant_path`` and ``train_path`` JSON lines;
+``mutable_path``, ``tenant_path``, ``train_path`` and ``train_families``
+JSON lines;
 a ``kernels`` JSON line (launches on the paths, error against the plain
 version, kernel / plain / library ms, and the bound: the least time for
 the operations or the HBM bytes, whichever is larger); the card's name and
@@ -403,6 +418,102 @@ TRAIN_PROFILE_TOP = 12
 # kernels on the same inputs; atomics in CUDA's index backward may reorder
 # f32 sums, so the params are held within this bound (0 means bit-equal)
 TRAIN_RESUME_ATOL = 1e-6
+
+
+# training the other families: zamba2-2.7b and rwkv6-1.6b at registered
+# width and depth through trainer.train, cut from train_4k as gemma is
+# (TRAIN_SEQ x TRAIN_BATCH, TRAIN_STEPS steps), in TRAIN_REC_MICRO
+# microbatches: their chunk loops are host-bound, so a microbatch's time
+# hardly grows with its rows (zamba2 at 4 microbatches 14.6 s a step, at
+# 2 9.2 s, peak 59.47 GB; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6)
+TRAIN_REC_ARCHS = ("zamba2-2.7b", "rwkv6-1.6b")
+TRAIN_REC_MICRO = 2
+# card against CPU for each new family (scaled_down, f32, TF32 off, seeds
+# 0 and 1, the first seed with TF32 on as the control, which must read
+# above every limit): each limit lies between the seeds' largest reading
+# and the control's (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
+# Readings (seeds / control): zamba2 loss0 4.77e-7 / 4.77e-7, loss
+# 4.77e-7 / 8.30e-5, params 1.17e-4 / 1.06e-3; rwkv6
+# 4.77e-7 / 4.77e-6, 4.77e-7 / 1.06e-4, 3.10e-5 / 1.02e-3; kimi-k2
+# 4.77e-7 / 1.91e-6, 4.77e-7 / 2.08e-4, 7.47e-6 / 1.09e-3 (4.77e-7 is
+# one f32 ulp at 6.25). The hybrid's first loss reads one ulp under TF32
+# too, so no limit on it separates the two and it has none: its later
+# losses and params carry the gate
+TRAIN_FAMILY_LIMITS = {
+    "zamba2-2.7b": {"loss_max_abs_err": 6e-6, "param_max_abs_err": 3.5e-4},
+    "rwkv6-1.6b": {"loss0_abs_err": 1.5e-6, "loss_max_abs_err": 5e-6,
+                   "param_max_abs_err": 1.5e-4},
+    "kimi-k2-1t-a32b": {"loss0_abs_err": 1.2e-6, "loss_max_abs_err": 5e-6,
+                        "param_max_abs_err": 1e-4},
+}
+# one MoE layer trained at full width: kimi-k2 (d_model 7168, expert d_ff
+# 2048, vocab 163840), DEPTH CUT to 1 layer and the experts CUT to the
+# count whose bf16 weights and grads and f32 moments (12 bytes a
+# parameter; 16 for the f32 router's column), beside the rest of the
+# layer and the embeddings, leave MOE_TRAIN_ACT_GB of MOE_TRAIN_BUDGET_GB
+# for activations (40 experts peaked at 70.10 GB, 51.2 GB of them
+# states: 19 GB of activations and workspace at 4 x 512 tokens; NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md §6); MOE_TRAIN_STEPS steps
+# of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ through moe_reference. Then an f32
+# copy cut further (MOE_F32_TRAIN_EXPERTS experts, vocab
+# MOE_F32_TRAIN_VOCAB) takes the loss gradients of one batch on the card
+# and on the CPU: the loss within MOE_F32_LOSS_RTOL of itself, each
+# gradient within MOE_F32_GRAD_RTOL of its leaf's largest entry; the same
+# on the card with TF32 on is the control, above both limits
+MOE_TRAIN_ARCH = "kimi-k2-1t-a32b"
+MOE_TRAIN_BUDGET_GB, MOE_TRAIN_ACT_GB = 60.0, 19.0
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 512, 2
+MOE_F32_TRAIN_EXPERTS, MOE_F32_TRAIN_VOCAB = 8, 16384
+MOE_F32_TRAIN_B, MOE_F32_TRAIN_S = 2, 64
+# read (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): loss 8.63e-8, gradients
+# 2.00e-6; the control 1.12e-6 and 1.23e-3
+MOE_F32_LOSS_RTOL, MOE_F32_GRAD_RTOL = 3e-7, 5e-5
+# expert-parallel training on EP_RANKS gloo ranks on the one card, mesh
+# (1, EP_RANKS) ("data", "model"): arctic's width, one layer, the experts
+# CUT to EP_EXPERTS, f32 with TF32 off, EPT_STEPS steps of EPT_B x S
+# tokens through make_train_step's "auto" strategy (EPT_CASES): a2a and
+# a2a_int8 at S = EPT_S, allgather at the odd EPT_S_ODD, as ``repro``
+# picks them; capacity factor EPT_CF, at which no entry can drop
+# (checked); the aux loss's weight CUT to 0 (``_ept_cfg`` says why).
+# Each rank's parameters after the steps against a one-device step on the
+# same global batch (moe_reference, ``pure_dp``'s path): a2a and
+# allgather within EPT_PARAM_RTOL of the largest |param|. a2a_int8 trains
+# on ``repro``'s gradient of the int8 dispatch, which reaches the tokens
+# and the experts' outputs through the per-slot scales alone (held
+# against jax.vjp on the CPU), another gradient than the f32 step's: its
+# first loss (before any update) within EPT_INT8_LOSS_RTOL of the
+# one-device step's and the parameters the int8 codes do not reach
+# (EPT_INT8_HELD) within EPT_INT8_MAX, the reach of two Adam steps each
+# way at lr 3e-4, a coarse check. Then the card against the CPU, with the
+# aux loss weighted: each case at scaled_down arctic (f32) on the same
+# ranks, once on the card and once on CPU tensors with the card's
+# all_reduce transport forced, for TRAIN_CHECK_SEEDS seeds, the first
+# seed again on the card with TF32 on as the control, above every limit.
+# a2a and allgather: TRAIN_CHECK_STEPS steps of EPT_SMALL_B x S
+# (EPT_SMALL_S, or EPT_SMALL_S_ODD for allgather), each rank's
+# parameters and the losses within EPT_CPU_LIMITS; the first loss reads
+# within 2 f32 ulps under TF32 too, so it has no limit. a2a_int8: an int8
+# code at a rounding tie flips between the card and the CPU, and the
+# gradient's route through each slot's argmax then moves (and a flip
+# upstream of a second layer moves its routes), so it is held on one
+# layer, by the loss gradients of one batch: the loss within
+# EPT_INT8_CPU_LIMITS, and in each leaf at most that share of the
+# entries beyond EPT_INT8_GRAD_CUT of the leaf's largest
+# Readings (seeds / control; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6):
+# a2a losses 9.54e-7 / 5.47e-4, params 1.33e-5 / 1.02e-3; allgather
+# 4.77e-7 / 4.24e-5, 1.19e-5 / 1.02e-3; first losses 4.77e-7 / 9.54e-7;
+# a2a_int8's loss 1.91e-6 / 1.13e-4, share 1.53e-5 / 0.307
+EPT_B, EPT_S, EPT_S_ODD, EPT_STEPS, EPT_CF = 2, 512, 511, 2, 4.0
+EPT_CASES = (("a2a", EPT_S, False), ("allgather", EPT_S_ODD, False),
+             ("a2a_int8", EPT_S, True))
+EPT_PARAM_RTOL = 1e-4
+EPT_INT8_HELD = ("blocks.0.moe.router", "blocks.0.moe.dense.",
+                 "final_norm.", "embed.", "unembed.")
+EPT_INT8_MAX, EPT_INT8_LOSS_RTOL = 1.2e-3, 1e-3
+EPT_SMALL_B, EPT_SMALL_S, EPT_SMALL_S_ODD = 4, 64, 63
+EPT_CPU_LIMITS = {"loss_max_abs_err": 6e-6, "param_max_abs_err": 1.2e-4}
+EPT_INT8_GRAD_CUT = 1e-3
+EPT_INT8_CPU_LIMITS = {"loss_abs_err": 1.5e-5, "grad_share": 2e-3}
 
 
 def fail(msg: str) -> int:
@@ -2234,27 +2345,8 @@ def moe_ep(seed: int) -> dict:
     mcfg = _ep_cfg()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="moe_ep_") as tmp:
-        cfg = {"init": str(Path(tmp) / "init"), "dir": tmp, "seed": seed}
-        ctx = torch.multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=ep_rank, args=(r, cfg))
-                 for r in range(EP_RANKS)]
-        for p in procs:
-            p.start()
-        try:
-            while any(p.is_alive() for p in procs):
-                if any(p.exitcode not in (None, 0) for p in procs):
-                    break
-                if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
-                    break
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                p.join(timeout=30)
-        codes = [p.exitcode for p in procs]
-        if codes != [0] * EP_RANKS:
-            raise AssertionError(f"EP ranks exited with {codes}")
+        _run_ranks({"init": str(Path(tmp) / "init"), "dir": tmp,
+                    "seed": seed, "world": EP_RANKS}, ep_rank)
         summaries = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                      for r in range(EP_RANKS)]
         ys = {name: [torch.from_numpy(np.load(Path(tmp) / f"{name}_{r}.npy"))
@@ -3030,11 +3122,12 @@ def _uneven_store(codes_np):
     return padded
 
 
-def _run_ranks(cfg) -> float:
-    """Spawn the ranks and wait; the first rank to fail, or the phase
-    outliving SHARD_TIMEOUT_S, ends every rank and fails the phase."""
+def _run_ranks(cfg, target=None) -> float:
+    """Spawn ``cfg["world"]`` ranks of ``target`` (``shard_rank`` unless
+    given) and wait; the first rank to fail, or the phase outliving
+    SHARD_TIMEOUT_S, ends every rank and fails the phase."""
     ctx = torch.multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=shard_rank, args=(r, cfg))
+    procs = [ctx.Process(target=target or shard_rank, args=(r, cfg))
              for r in range(cfg["world"])]
     t0 = time.perf_counter()
     for p in procs:
@@ -3053,7 +3146,8 @@ def _run_ranks(cfg) -> float:
             p.join(timeout=30)
     codes = [p.exitcode for p in procs]
     if codes != [0] * len(procs):
-        raise AssertionError(f"sharded ranks exited with {codes}")
+        raise AssertionError(f"ranks of {(target or shard_rank).__name__} "
+                             f"exited with {codes}")
     return time.perf_counter() - t0
 
 
@@ -3319,11 +3413,13 @@ def _profile(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
     n_events = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    # the raw trace: ``prof.events()`` would first build Python objects
+    # for every CPU op, ~80 s for a recurrent training step's ~10^5 ops
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
             n_events += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
+            by_name[e.name()] = (by_name.get(e.name(), 0.0)
+                                 + e.duration_ns() / 1e6)
     device_ms = sum(by_name.values())
     by_kind: dict = {}
     for n, ms in by_name.items():
@@ -3336,12 +3432,14 @@ def _profile(fn) -> dict:
             "top": [[n[:90], ms] for n, ms in top]}
 
 
-def train_full_width(seed: int) -> dict:
-    """gemma-2b at its registered width and depth through trainer.train."""
-    cfg = get_config(ARCH)
+def train_full_width(seed: int, arch: str = ARCH, micro: int = TRAIN_MICRO,
+                     profile_one_micro: bool = False) -> dict:
+    """``arch`` at its registered width and depth through trainer.train,
+    in ``micro`` microbatches."""
+    cfg = get_config(arch)
     n_params = lm.param_count(cfg)
     tc = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=1,
-                     microbatches=TRAIN_MICRO, seed=seed)
+                     microbatches=micro, seed=seed)
     # the initial weights, as the trainer draws them, kept on the host
     init = lm.init_params(torch.Generator(device=DEV).manual_seed(seed),
                           cfg, device=DEV)
@@ -3350,13 +3448,13 @@ def train_full_width(seed: int) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tokens = TRAIN_SEQ * TRAIN_BATCH
-    print(f"  model: {ARCH}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    print(f"  model: {arch}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.num_heads} x {cfg.num_kv_heads} heads of "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.dtype}; {n_params:,} parameters; AdamW f32 moments, remat "
           f"{tc.remat}", flush=True)
     print(f"  cut: train_4k takes 256 x 4096 tokens a step; this run takes "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} in {TRAIN_MICRO} "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} in {micro} "
           f"microbatches, {TRAIN_STEPS} steps (one card's memory, the time "
           f"limit)", flush=True)
     steps_out = []
@@ -3396,21 +3494,29 @@ def train_full_width(seed: int) -> dict:
     if sum(p.numel() for p in rep.model.parameters()) != n_params:
         raise AssertionError("the model's parameters != param_count")
     step_s = statistics.median(rep.step_times[1:])
-    # one more step under the profiler: where the step's time goes
-    dc = pipeline.data_config_for(cfg, TRAIN_SEQ, TRAIN_BATCH, tc.seed)
-    prof = _profile_step(steps.make_train_step(cfg, tc, device=DEV),
+    # one more step under the profiler: where the step's time goes (with
+    # ``profile_one_micro``, a step of one microbatch's tokens: the
+    # recurrent stacks' chunk loops take the profiler's time per launch)
+    p_micro = 1 if profile_one_micro else micro
+    ptc = dataclasses.replace(tc, microbatches=p_micro)
+    dc = pipeline.data_config_for(cfg, TRAIN_SEQ, TRAIN_BATCH * p_micro
+                                  // micro, tc.seed)
+    prof = _profile_step(steps.make_train_step(cfg, ptc, device=DEV),
                          rep.model, rep.opt_state,
                          pipeline.make_batch(dc, TRAIN_STEPS), TRAIN_STEPS)
-    print(f"  profiled step: wall {prof['wall_ms']:.1f} ms, device "
-          f"{prof['device_ms']} ms over {prof['kernels']} kernel names; by "
+    prof["tokens"] = dc.global_batch * TRAIN_SEQ
+    print(f"  profiled step of {dc.global_batch} x {TRAIN_SEQ} tokens: wall "
+          f"{prof['wall_ms']:.1f} ms, device "
+          f"{prof['device_ms']} ms (busy share {prof['busy_share']}) over "
+          f"{prof['kernels']} kernel names; by "
           f"kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
               prof["by_kind"].items(), key=lambda kv: -kv[1])) + "; top:",
           flush=True)
     for name, ms in prof["top"]:
         print(f"    {ms:9.2f} ms  {name}", flush=True)
-    out = {"arch": ARCH, "n_params": n_params, "dtype": cfg.dtype,
+    out = {"arch": arch, "n_params": n_params, "dtype": cfg.dtype,
            "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
-           "microbatches": TRAIN_MICRO, "steps": steps_out,
+           "microbatches": micro, "steps": steps_out,
            "cut": f"train_4k 256 x 4096 -> {TRAIN_BATCH} x {TRAIN_SEQ}, "
                   f"{TRAIN_STEPS} steps",
            "median_step_ms": step_s * 1e3,
@@ -3454,15 +3560,17 @@ def _against_cpu(card, cpu) -> dict:
             "param_max_abs_err": _max_param_diff(gm, cm)}
 
 
-def train_card_vs_cpu(seed: int) -> dict:
+def train_card_vs_cpu(seed: int, arch: str = ARCH, limits=None) -> dict:
     """The same initial weights and batches through make_train_step on the
     card and on the CPU, f32 with TF32 off, for TRAIN_CHECK_SEEDS seeds;
-    then the first seed on the card with TF32 on, as the control."""
-    cfg = scaled_down(get_config(ARCH), dtype="float32")
-    limits = {"loss0_abs_err": TRAIN_LOSS0_ATOL,
-              "loss_max_abs_err": TRAIN_LOSS_ATOL,
-              "param_max_abs_err": TRAIN_PARAM_ATOL}
-    out = {"steps": TRAIN_CHECK_STEPS, "tol": limits, "seeds": {}}
+    then the first seed on the card with TF32 on, as the control (above
+    every one of ``limits``: gemma's unless given)."""
+    cfg = scaled_down(get_config(arch), dtype="float32")
+    limits = limits or {"loss0_abs_err": TRAIN_LOSS0_ATOL,
+                        "loss_max_abs_err": TRAIN_LOSS_ATOL,
+                        "param_max_abs_err": TRAIN_PARAM_ATOL}
+    out = {"arch": arch, "steps": TRAIN_CHECK_STEPS, "tol": limits,
+           "seeds": {}}
     for sd in range(seed, seed + TRAIN_CHECK_SEEDS):
         tc = TrainConfig(total_steps=TRAIN_CHECK_STEPS, warmup_steps=0,
                          seed=sd)
@@ -3550,6 +3658,498 @@ def train_path(seed: int) -> dict:
                              f"{out['kernel_launches']}")
     out["wall_s"] = time.perf_counter() - t0
     print(f"  train phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def moe_train_cut(full):
+    """(config cut to one layer and the experts that fit, the reckoning)."""
+    one = dataclasses.replace(full, num_layers=1)
+    d, ff, k = full.d_model, full.moe.expert_d_ff, full.moe.experts_per_token
+    per_expert = 12 * 3 * d * ff + 16 * d
+    with_k = dataclasses.replace(one, moe=dataclasses.replace(
+        full.moe, num_experts=k))
+    fixed_params = lm.param_count(with_k) - k * (3 * d * ff + d)
+    fixed = 12 * fixed_params + 4 * d * k   # the router is f32: 16 B a param
+    room = (MOE_TRAIN_BUDGET_GB - MOE_TRAIN_ACT_GB) * 1e9 - fixed
+    n = int(room // per_expert)
+    if n < k:
+        raise AssertionError(f"{full.name}: {n} experts fit, top-{k} needs "
+                             f"{k}")
+    cfg = dataclasses.replace(one, moe=dataclasses.replace(full.moe,
+                                                           num_experts=n))
+    return cfg, {"fixed_gb": fixed / 1e9, "per_expert_gb": per_expert / 1e9,
+                 "budget_gb": MOE_TRAIN_BUDGET_GB,
+                 "activations_gb": MOE_TRAIN_ACT_GB, "experts": n,
+                 "registered_experts": full.moe.num_experts,
+                 "registered_layers": full.num_layers}
+
+
+def _grads_on(cfg, dev, batch, seed, tf32=False):
+    """make_grad_fn on ``dev`` from weights drawn on the CPU: (loss, {name:
+    grad on the CPU})."""
+    model = lm.init_params(torch.Generator().manual_seed(seed), cfg,
+                           device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        grads, met = steps.make_grad_fn(cfg, TrainConfig(), device=dev)(
+            model, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return float(met["loss"]), {n: g.detach().cpu() for n, g in
+                                grads.items()}
+
+
+def _grads_against(card, cpu) -> tuple:
+    """(the loss's relative error, (the largest gradient error as a share
+    of its leaf's largest entry, that leaf))."""
+    (l_card, g_card), (l_cpu, g_cpu) = card, cpu
+    worst = max((float((g_card[n] - g).abs().max())
+                 / max(float(g.abs().max()), 1e-30), n)
+                for n, g in g_cpu.items())
+    return abs(l_card - l_cpu) / abs(l_cpu), worst
+
+
+def train_moe_layer(seed: int) -> dict:
+    """kimi-k2's layer at full width, trained through trainer.train
+    (moe_reference), then an f32 copy's gradients on the card against the
+    CPU."""
+    full = get_config(MOE_TRAIN_ARCH)
+    cfg, cut = moe_train_cut(full)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_params = lm.param_count(cfg)
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    print(f"  model: {MOE_TRAIN_ARCH} DEPTH CUT from {full.num_layers} "
+          f"layers to 1, experts CUT from {full.moe.num_experts} to "
+          f"{cut['experts']} (top {full.moe.experts_per_token}, one shared): "
+          f"{cut['fixed_gb']:.2f} GB for the embeddings, attention, shared "
+          f"expert and router at 12 B a parameter, {cut['per_expert_gb']:.3f}"
+          f" GB an expert, {cut['budget_gb']:.0f} GB less "
+          f"{cut['activations_gb']:.0f} GB for activations; d_model "
+          f"{cfg.d_model}, expert d_ff {cfg.moe.expert_d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}; {n_params:,} parameters; "
+          f"{MOE_TRAIN_STEPS} steps of {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}",
+          flush=True)
+    losses = []
+    tc = TrainConfig(total_steps=MOE_TRAIN_STEPS, warmup_steps=0, seed=seed)
+    rep = trainer.train(cfg, tc, seq_len=MOE_TRAIN_SEQ,
+                        global_batch=MOE_TRAIN_BATCH, device=DEV,
+                        log_every=0, on_metrics=lambda st, m: losses.append(
+                            (float(m["loss"]), float(m["aux"]),
+                             float(m["grad_norm"]))))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if rep.steps_done != MOE_TRAIN_STEPS or not all(
+            np.isfinite(v) for row in losses for v in row):
+        raise AssertionError(f"{MOE_TRAIN_ARCH} layer: {rep.steps_done} "
+                             f"steps, losses {losses}")
+    step_s = statistics.median(rep.step_times[1:] or rep.step_times)
+    out = {"arch": MOE_TRAIN_ARCH, "cut": cut, "n_params": n_params,
+           "tokens": tokens, "loss_aux_gnorm": losses,
+           "step_ms": [t * 1e3 for t in rep.step_times],
+           "tokens_per_s": tokens / step_s,
+           "train_mfu": 6 * lm.param_count(cfg, active_only=True) * tokens
+           / (step_s * BF16_FLOPS_PER_S), "peak_mem_gb": peak}
+    print(f"  steps: (loss, aux, grad_norm) {losses}; ms "
+          f"{[round(t * 1e3, 1) for t in rep.step_times]}; "
+          f"{out['tokens_per_s']:.0f} tokens/s, train_mfu (active params) "
+          f"{out['train_mfu']:.4f}; peak memory {peak:.2f} GB", flush=True)
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the f32 copy cut further: its gradients on the card and on the CPU
+    c32 = dataclasses.replace(
+        cfg, dtype="float32", vocab_size=MOE_F32_TRAIN_VOCAB,
+        moe=dataclasses.replace(cfg.moe, num_experts=MOE_F32_TRAIN_EXPERTS))
+    dc = pipeline.data_config_for(c32, MOE_F32_TRAIN_S, MOE_F32_TRAIN_B, seed)
+    batch = pipeline.make_batch(dc, 0)
+    cpu = _grads_on(c32, "cpu", batch, seed + 3)
+    card = _grads_on(c32, DEV, batch, seed + 3)
+    loss_err, worst = _grads_against(card, cpu)
+    ctl_loss, ctl = _grads_against(
+        _grads_on(c32, DEV, batch, seed + 3, tf32=True), cpu)
+    out["f32_vs_cpu"] = {"experts": MOE_F32_TRAIN_EXPERTS,
+                         "vocab": MOE_F32_TRAIN_VOCAB,
+                         "tokens": MOE_F32_TRAIN_B * MOE_F32_TRAIN_S,
+                         "loss_card": card[0], "loss_cpu": cpu[0],
+                         "loss_rel_err": loss_err,
+                         "grad_rel_err": worst[0], "worst_leaf": worst[1],
+                         "control_tf32": {"loss_rel_err": ctl_loss,
+                                          "grad_rel_err": ctl[0],
+                                          "worst_leaf": ctl[1]},
+                         "tol": {"loss": MOE_F32_LOSS_RTOL,
+                                 "grad": MOE_F32_GRAD_RTOL}}
+    print(f"  f32 copy ({MOE_F32_TRAIN_EXPERTS} experts, vocab "
+          f"{MOE_F32_TRAIN_VOCAB}) card vs CPU: loss {card[0]:.6f} vs "
+          f"{cpu[0]:.6f} (rel {loss_err:.2e}, limit {MOE_F32_LOSS_RTOL}); "
+          f"gradients within {worst[0]:.2e} of their leaf's largest "
+          f"(limit {MOE_F32_GRAD_RTOL}; worst {worst[1]}); control, TF32 "
+          f"on: loss rel {ctl_loss:.2e}, gradients {ctl[0]:.2e} (worst "
+          f"{ctl[1]})", flush=True)
+    if loss_err > MOE_F32_LOSS_RTOL or worst[0] > MOE_F32_GRAD_RTOL:
+        raise AssertionError(f"{MOE_TRAIN_ARCH} f32 layer: card and CPU "
+                             f"gradients disagree: {out['f32_vs_cpu']}")
+    if ctl_loss <= MOE_F32_LOSS_RTOL or ctl[0] <= MOE_F32_GRAD_RTOL:
+        raise AssertionError(f"{MOE_TRAIN_ARCH} f32 layer: the TF32 control "
+                             f"passes a limit: {out['f32_vs_cpu']}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _ept_cfg():
+    """arctic-480b's width for the EP training check: one layer, f32, the
+    experts cut to EP_EXPERTS at capacity factor EPT_CF, and the aux
+    loss's weight 0 (a2a's aux is the mean of the ranks' sequence-chunk
+    auxes, ``repro``'s definition, and not the global batch's that the
+    one-device step takes; its gradient is held against ``repro`` on the
+    CPU, tests/test_torch_train_ep.py, and the card against the CPU at
+    scaled_down arctic, ``_ept_small_run``)."""
+    cfg = get_config(MOE_ARCHS[0])
+    return dataclasses.replace(
+        cfg, num_layers=1, dtype="float32",
+        moe=dataclasses.replace(cfg.moe, num_experts=EP_EXPERTS,
+                                capacity_factor=EPT_CF, router_aux_loss=0.0))
+
+
+def _ept_no_drops(cfg) -> dict:
+    """The capacities of each case (``moe``'s formulas), and that none can
+    drop an entry: a2a's send slots hold all of a rank's entries and each
+    expert's slots every token of the global batch; allgather's
+    likewise."""
+    moe_cfg, n = cfg.moe, EP_RANKS
+    K, E, cf = (moe_cfg.experts_per_token, moe_cfg.num_experts,
+                moe_cfg.capacity_factor)
+    caps = {}
+    for name, seq, _ in EPT_CASES:
+        tokens = EPT_B * seq
+        if moe.resolve_strategy("auto", seq, n) == "a2a":
+            t_loc = tokens // n
+            c_send = moe._round_up(max(1, int(cf * t_loc * K / n)), 8)
+            c_exp = moe._round_up(max(1, int(cf * n * c_send / (E // n))),
+                                  8)
+            caps[name] = {"c_send": c_send, "c_exp": c_exp}
+            ok = c_send >= t_loc * K and c_exp >= tokens
+        else:
+            c_exp = moe._round_up(max(1, int(cf * tokens * K / E)), 8)
+            caps[name] = {"c_exp": c_exp}
+            ok = c_exp >= tokens
+        if not ok:
+            raise AssertionError(f"EP training may drop entries: {caps}")
+    return caps
+
+
+@contextlib.contextmanager
+def _card_transport(tf32: bool = False):
+    """The all_reduce transport (the card's, forced on CPU tensors) and
+    TF32 as asked, for the ``with`` block."""
+    real = moe.a2a_transport
+    moe.a2a_transport = lambda x, group: "all_reduce"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        moe.a2a_transport = real
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _ept_small_model(cfg, rank: int, sd: int, dev):
+    """scaled arctic's weights drawn on the CPU, this rank's experts."""
+    return carry.expert_shard(
+        lm.init_params(torch.Generator().manual_seed(sd + 11), cfg,
+                       device=dev), cfg, rank, EP_RANKS)
+
+
+def _ept_small_run(mesh, rank: int, sd: int, seq: int, dev,
+                   tf32: bool = False):
+    """TRAIN_CHECK_STEPS mesh train steps of scaled_down arctic (f32, the
+    aux loss weighted) on ``dev``, over the all_reduce transport: (this
+    rank's model, per-step losses)."""
+    cfg = scaled_down(get_config(MOE_ARCHS[0]), dtype="float32")
+    tc = TrainConfig(total_steps=TRAIN_CHECK_STEPS, warmup_steps=0, seed=sd)
+    dc = pipeline.data_config_for(cfg, seq, EPT_SMALL_B, sd)
+    model = _ept_small_model(cfg, rank, sd, dev)
+    opt = optimizer.init(dict(model.named_parameters()), tc)
+    step = steps.make_train_step(cfg, tc, mesh=mesh, device=dev)
+    losses = []
+    with _card_transport(tf32):
+        for s in range(TRAIN_CHECK_STEPS):
+            b = steps.shard_batch(pipeline.make_batch(dc, s), cfg, tc, mesh)
+            model, opt, m = step(model, opt, b, s)
+            losses.append(float(m["loss"]))
+    return model, losses
+
+
+def _ept_int8_grads(mesh, rank: int, sd: int, dev, tf32: bool = False):
+    """The loss gradients of one batch of scaled_down arctic cut to one
+    layer (f32, the aux loss weighted) under the int8 dispatch on
+    ``dev``, over the all_reduce transport: (loss, {name: this rank's
+    grad on the CPU})."""
+    cfg = dataclasses.replace(
+        scaled_down(get_config(MOE_ARCHS[0]), dtype="float32"), num_layers=1)
+    tc = TrainConfig(seed=sd)
+    dc = pipeline.data_config_for(cfg, EPT_SMALL_S, EPT_SMALL_B, sd)
+    model = _ept_small_model(cfg, rank, sd, dev)
+    grad_fn = steps.make_grad_fn(cfg, tc, mesh=mesh, moe_a2a_int8=True,
+                                 device=dev)
+    with _card_transport(tf32):
+        grads, met = grad_fn(model, steps.shard_batch(
+            pipeline.make_batch(dc, 0), cfg, tc, mesh))
+    return float(met["loss"]), {n: g.detach().cpu() for n, g in
+                                grads.items()}
+
+
+def _int8_against_cpu(card, cpu) -> dict:
+    (l_card, g_card), (l_cpu, g_cpu) = card, cpu
+    share = max((float(((g_card[n] - g).abs()
+                        > EPT_INT8_GRAD_CUT * g.abs().max()).float().mean()),
+                 n) for n, g in g_cpu.items())
+    return {"loss_abs_err": abs(l_card - l_cpu), "grad_share": share[0],
+            "worst_leaf": share[1]}
+
+
+def ep_train_rank(rank: int, cfg: dict) -> None:
+    """One rank of the EP training check, in a process of its own: for each
+    sequence length the one-device reference steps first (every rank runs
+    them; its share is kept on the card), then each case's steps on this
+    rank's experts and its slice of each global batch, held against the
+    reference; then the scaled cases on the card and on the CPU. A JSON
+    summary into ``cfg["dir"]``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{cfg['init']}", world_size=EP_RANKS,
+        rank=rank, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(DEV, (1, EP_RANKS),
+                                mesh_dim_names=("data", "model"))
+        mcfg = _ept_cfg()
+        tc = TrainConfig(total_steps=EPT_STEPS, warmup_steps=0,
+                         seed=cfg["seed"])
+        gen = lambda: torch.Generator(device=DEV).manual_seed(cfg["seed"])
+
+        def run(step, model, batches, shard):
+            opt = optimizer.init(dict(model.named_parameters()), tc)
+            ms, mets = [], []
+            for s, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model, opt, m = step(model, opt, shard(b), s)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                mets.append({k: float(v) for k, v in m.items()})
+            return model, ms, mets
+
+        summary = {"reference": {}}
+        for seq in sorted({seq for _, seq, _ in EPT_CASES}, reverse=True):
+            dc = pipeline.data_config_for(mcfg, seq, EPT_B, cfg["seed"])
+            batches = [pipeline.make_batch(dc, s) for s in range(EPT_STEPS)]
+            ref, ref_ms, ref_mets = run(
+                steps.make_train_step(mcfg, tc, device=DEV),
+                lm.init_params(gen(), mcfg, device=DEV), batches,
+                lambda b: b)
+            scale = max(float(p.detach().abs().max())
+                        for p in ref.parameters())
+            want = carry.expert_shard(
+                {n: p.detach() for n, p in ref.named_parameters()}, mcfg,
+                rank, EP_RANKS)
+            del ref
+            torch.cuda.empty_cache()
+            summary["reference"][str(seq)] = {
+                "ms": ref_ms, "metrics": ref_mets, "max_abs_param": scale}
+            for name, s_case, int8 in EPT_CASES:
+                if s_case != seq:
+                    continue
+                model = carry.expert_shard(
+                    lm.init_params(gen(), mcfg, device=DEV), mcfg, rank,
+                    EP_RANKS)
+                step = steps.make_train_step(mcfg, tc, mesh=mesh,
+                                             moe_a2a_int8=int8, device=DEV)
+                model, ms, mets = run(step, model, batches,
+                                      lambda b: steps.shard_batch(
+                                          b, mcfg, tc, mesh))
+                finite = all(bool(torch.isfinite(p).all())
+                             for p in model.parameters())
+                worst = max(float((p.detach() - want[n]).abs().max())
+                            for n, p in model.named_parameters()
+                            if not int8 or n.startswith(EPT_INT8_HELD))
+                summary[name] = {
+                    "ms": ms, "metrics": mets, "param_max_abs_err": worst,
+                    "finite": finite, "seq": seq,
+                    "transport": moe.a2a_transport(
+                        next(model.parameters()), mesh.get_group("model"))}
+                del model, step
+                torch.cuda.empty_cache()
+            del want
+            torch.cuda.empty_cache()
+        small = {}
+        for name, _, int8 in EPT_CASES:
+            seq = EPT_SMALL_S_ODD if name == "allgather" else EPT_SMALL_S
+            if int8:
+                run_on, against = (lambda dev, tf32=False: _ept_int8_grads(
+                    mesh, rank, sd, dev, tf32)), _int8_against_cpu
+            else:
+                run_on, against = (lambda dev, tf32=False: _ept_small_run(
+                    mesh, rank, sd, seq, dev, tf32)), _against_cpu
+            small[name] = {}
+            for sd in range(cfg["seed"], cfg["seed"] + TRAIN_CHECK_SEEDS):
+                cpu = run_on("cpu")
+                small[name][f"seed {sd}"] = against(run_on(DEV), cpu)
+                if sd == cfg["seed"]:
+                    small[name]["control_tf32"] = against(
+                        run_on(DEV, tf32=True), cpu)
+        summary["card_vs_cpu"] = small
+        (Path(cfg["dir"]) / f"rank{rank}.json").write_text(
+            json.dumps(summary))
+    finally:
+        dist.destroy_process_group()
+
+
+def _ept_card_vs_cpu(sums) -> list:
+    """Print the scaled cases' card-vs-CPU readings (the largest over the
+    ranks) and return the failed gates."""
+    bad = []
+    for name, _, int8 in EPT_CASES:
+        limits = EPT_INT8_CPU_LIMITS if int8 else EPT_CPU_LIMITS
+        runs = {k: {key: max(sm["card_vs_cpu"][name][k][key] for sm in sums)
+                    for key in limits}
+                for k in sums[0]["card_vs_cpu"][name]}
+        print(f"  EP train {name}, scaled"
+              + (" (one layer, one batch's gradients)" if int8 else "")
+              + ", card vs CPU: " + "; ".join(
+                  f"{k}: " + ", ".join(f"{key} {v:.2e}"
+                                       for key, v in r.items())
+                  for k, r in runs.items()) + f" (limits {limits})",
+              flush=True)
+        for key, lim in limits.items():
+            if max(r[key] for k, r in runs.items()
+                   if k != "control_tf32") > lim:
+                bad.append(f"{name} card vs CPU {key}")
+            if runs["control_tf32"][key] <= lim:
+                bad.append(f"{name}: the TF32 control passes {key}")
+        sums[0]["card_vs_cpu"][name] = runs
+    return bad
+
+
+def train_ep(seed: int) -> dict:
+    """make_train_step over EP_RANKS gloo ranks on the one card in each
+    case against the one-device step on the same global batches, and the
+    scaled cases on the card against the CPU."""
+    mcfg = _ept_cfg()
+    caps = _ept_no_drops(mcfg)
+    t0 = time.perf_counter()
+    print(f"  arctic-480b's width (d_model {mcfg.d_model}, expert d_ff "
+          f"{mcfg.moe.expert_d_ff}, dense residual "
+          f"{mcfg.moe.dense_residual_d_ff}, vocab {mcfg.vocab_size}), 1 layer "
+          f"(DEPTH CUT from 35), experts CUT from 128 to {EP_EXPERTS}, aux "
+          f"weight CUT to 0, f32, {EPT_STEPS} steps of {EPT_B} x "
+          f"{EPT_S} (a2a, a2a_int8) or {EPT_B} x {EPT_S_ODD} (allgather); "
+          f"capacity factor {EPT_CF}: {caps} (no entry drops)", flush=True)
+    with tempfile.TemporaryDirectory(prefix="ep_train_") as tmp:
+        _run_ranks({"init": str(Path(tmp) / "init"), "dir": tmp,
+                    "seed": seed, "world": EP_RANKS}, ep_train_rank)
+        sums = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(EP_RANKS)]
+    refs = sums[0]["reference"]
+    out = {"ranks": EP_RANKS, "experts": EP_EXPERTS, "capacities": caps,
+           "steps": EPT_STEPS,
+           "reference_ms": {s: r["ms"] for s, r in refs.items()},
+           "max_abs_param": {s: r["max_abs_param"] for s, r in refs.items()},
+           "tol": {"param_rtol": EPT_PARAM_RTOL, "int8_max": EPT_INT8_MAX,
+                   "int8_loss0_rtol": EPT_INT8_LOSS_RTOL,
+                   "card_vs_cpu": EPT_CPU_LIMITS,
+                   "int8_card_vs_cpu": EPT_INT8_CPU_LIMITS}}
+    bad = []
+    for name, seq, int8 in EPT_CASES:
+        rs = [sm[name] for sm in sums]
+        ref_mets = refs[str(seq)]["metrics"]
+        worst = max(r["param_max_abs_err"] for r in rs)
+        scale = refs[str(seq)]["max_abs_param"]
+        mets = [r["metrics"] for r in rs]
+        agree = all(m == mets[0] for m in mets)
+        loss_errs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                     for a, b in zip(mets[0], ref_mets)]
+        if int8:
+            # the first loss is taken before any update: under int8 it
+            # differs by the dispatch's rounding alone
+            ok = worst <= EPT_INT8_MAX and loss_errs[0] <= EPT_INT8_LOSS_RTOL
+        else:
+            ok = worst <= EPT_PARAM_RTOL * scale
+        ok = ok and agree and all(r["finite"] for r in rs)
+        out[name] = {"tokens": EPT_B * seq, "param_max_abs_err": worst,
+                     "loss_rel_err_by_step": loss_errs, "metrics": mets[0],
+                     "ms_per_rank": [r["ms"] for r in rs],
+                     "transport": sorted({r["transport"] for r in rs})}
+        print(f"  EP train {name} ({EPT_B} x {seq}): "
+              + ("the router, dense residual, final norm and embeddings "
+                 if int8 else "") + f"params within {worst:.3e} of the "
+              f"one-device step (limit "
+              + (f"{EPT_INT8_MAX}" if int8
+                 else f"{EPT_PARAM_RTOL * scale:.2e}")
+              + f"); loss rel err by step "
+              f"{', '.join(f'{e:.2e}' for e in loss_errs)}"
+              + (f" (the first's limit {EPT_INT8_LOSS_RTOL})" if int8 else "")
+              + f"; metrics equal on every rank: {agree}; step ms per rank "
+              f"{[[round(t, 1) for t in r['ms']] for r in rs]}; transport "
+              f"{out[name]['transport']}", flush=True)
+        if not ok:
+            bad.append(name)
+    bad += _ept_card_vs_cpu(sums)
+    out["card_vs_cpu"] = sums[0]["card_vs_cpu"]
+    out["wall_s"] = time.perf_counter() - t0
+    ref_ms = {s: [round(t, 1) for t in v]
+              for s, v in out["reference_ms"].items()}
+    print(f"  one-device step ms by S {ref_ms}; {out['wall_s']:.1f} s",
+          flush=True)
+    if bad:
+        raise AssertionError(f"EP training fails: {bad}: {out}")
+    return out
+
+
+def train_families_path(seed: int) -> dict:
+    """Training the recurrent and MoE families on the card: zamba2-2.7b and
+    rwkv6-1.6b at full width, each new family's card against the CPU,
+    kimi-k2's layer at full width, and expert-parallel training over
+    gloo ranks. None of K1-K4 may launch."""
+    t0 = time.perf_counter()
+    tsel.reset_launch_counts()
+    tham.reset_launch_counts()
+    fa.reset_launch_counts()
+    out = {}
+    for arch in TRAIN_REC_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"  full width: {arch}", flush=True)
+        out[arch] = train_full_width(seed, arch, TRAIN_REC_MICRO,
+                                     profile_one_micro=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = {
+        arch: train_card_vs_cpu(seed, arch, lim)
+        for arch, lim in TRAIN_FAMILY_LIMITS.items()}
+    print(f"  one MoE layer at full width: {MOE_TRAIN_ARCH}", flush=True)
+    out["moe_layer"] = train_moe_layer(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  expert-parallel training over {EP_RANKS} gloo ranks",
+          flush=True)
+    out["ep"] = train_ep(seed)
+    out["kernel_launches"] = {
+        "K1": tsel.hamming_hist_kernel.launches,
+        "K2": tsel.hamming_emit_kernel.launches,
+        "K3": tham.hamming_distance_kernel.launches,
+        "K4": fa.flash_attention_kernel.launches}
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"a kernel launched on a training path: "
+                             f"{out['kernel_launches']}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  train families phase: {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -3723,6 +4323,14 @@ def main() -> int:
     print(f"train path: {ARCH} through trainer.train, {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens a step", flush=True)
     trp = train_path(args.seed)
+
+    # phase 12: training the recurrent and MoE families
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train families: {', '.join(TRAIN_REC_ARCHS)} at full width, "
+          f"card vs CPU for {', '.join(TRAIN_FAMILY_LIMITS)}, "
+          f"{MOE_TRAIN_ARCH}'s layer, EP over {EP_RANKS} ranks", flush=True)
+    tfp = train_families_path(args.seed)
     print("main_path: " + json.dumps({
         "search_ms": main_ms, "queries_per_s": N_QUERIES / main_ms * 1e3,
         "blocks_skipped_frac": kt["skipped"],
@@ -3746,6 +4354,7 @@ def main() -> int:
     print("mutable_path: " + json.dumps(mp), flush=True)
     print("tenant_path: " + json.dumps(tp), flush=True)
     print("train_path: " + json.dumps(trp), flush=True)
+    print("train_families: " + json.dumps(tfp), flush=True)
     src = "src/repro_torch/kernels/csrc/topk_select.cu"
     # K1/K2 as they were before this design: CUDA-core popcounts, K2 as one
     # run (measured in this run by route_comparison)

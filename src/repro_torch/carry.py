@@ -120,27 +120,40 @@ def lm_params(tree, cfg: ModelConfig, device=None) -> lm.LM:
     return model
 
 
-def expert_shard(moe, cfg: ModelConfig, rank: int, n_shards: int):
-    """One rank's share of an ``MoE`` layer for expert parallelism over
+def expert_shard(obj, cfg: ModelConfig, rank: int, n_shards: int):
+    """One rank's share of ``obj`` for expert parallelism over
     ``n_shards`` ranks: experts [rank·E/n, (rank+1)·E/n) of ``w_gate``,
-    ``w_up`` and ``w_out`` (copies), with the router and the shared / dense
-    MLPs as they are (every rank holds them whole, as ``repro``'s
-    ``shard_map`` specs replicate them)."""
+    ``w_up`` and ``w_out`` (copies), every other tensor as it is (every
+    rank holds them whole, as ``repro``'s ``shard_map`` specs replicate
+    them). ``obj`` is an ``MoE`` layer (a new layer is returned), a model
+    (each MoE block's layer is replaced by its share, in place; the model
+    is returned), a dict keyed like ``named_parameters()`` or an
+    ``AdamState`` over such dicts (new ones, the expert entries sliced)."""
     from repro_torch.models import moe as moe_mod
 
     E = cfg.moe.num_experts
     if E % n_shards:
         raise ValueError(f"{E} experts do not split over {n_shards} ranks")
     e_loc = E // n_shards
-    part = moe_mod.MoE(cfg, moe.w_gate.dtype, "meta", num_experts=e_loc)
     lo = rank * e_loc
+    if isinstance(obj, optimizer.AdamState):
+        return optimizer.map_moments(
+            obj, lambda t: expert_shard(t, cfg, rank, n_shards))
+    if isinstance(obj, dict):
+        return {k: (v[lo:lo + e_loc].clone() if optimizer.is_expert(k)
+                    else v) for k, v in obj.items()}
+    if isinstance(obj, lm.LM):
+        for blk in obj.blocks:
+            blk.moe = expert_shard(blk.moe, cfg, rank, n_shards)
+        return obj
+    part = moe_mod.MoE(cfg, obj.w_gate.dtype, "meta", num_experts=e_loc)
     for name in ("w_gate", "w_up", "w_out"):
         setattr(part, name, torch.nn.Parameter(
-            getattr(moe, name)[lo:lo + e_loc].clone(), requires_grad=False))
-    part.router = moe.router
+            getattr(obj, name)[lo:lo + e_loc].clone(), requires_grad=False))
+    part.router = obj.router
     for name in ("shared", "dense"):
-        if hasattr(moe, name):
-            setattr(part, name, getattr(moe, name))
+        if hasattr(obj, name):
+            setattr(part, name, getattr(obj, name))
     return part
 
 
@@ -166,8 +179,10 @@ def decode_state(state, device=None) -> dict:
 
 def adam_state(state, model: lm.LM, device=None) -> optimizer.AdamState:
     """``repro``'s ``optimizer.AdamState`` as numpy (each moment tree of
-    the params' structure) -> the port's, keyed like
-    ``model.named_parameters()``."""
+    the params' structure: stacked on the layer axis, on (groups,
+    per_group) in the hybrid, the experts' (L, E, ...)) -> the port's,
+    keyed like ``model.named_parameters()`` of the whole model (split it
+    for expert parallelism with ``expert_shard``)."""
     dev = device_mod.resolve(device)
     keyed = lambda t: None if t is None else _keyed_like(t, model, dev)
     return optimizer.AdamState(

@@ -1,8 +1,9 @@
 """Step builders: the one place the train, prefill and serve computations
-are assembled (port of the single-device half of ``repro.dist.steps``).
+are assembled (port of ``repro.dist.steps``).
 
-Without a mesh there are no partition specs to return, so each builder
-returns its step function alone (the specs live in ``dist/sharding.py``).
+The port's arrays are not sharded, so each builder returns its step
+function alone (the specs live in ``dist/sharding.py``); on a mesh the
+train step runs on every rank with that rank's share (``make_train_step``).
 The prefill and serve steps run under ``torch.inference_mode``; the train
 step runs autograd over the blockwise attention path. The serve builder
 is memoized per (cfg, max_len, retrieval variant), as ``repro``'s is (the
@@ -16,11 +17,14 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as device_mod
-from repro_torch.configs.base import BlockKind, ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import retrieval as retrieval_mod
+from repro_torch.kernels import ops
 from repro_torch.models import lm
+from repro_torch.models import moe as moe_mod
 from repro_torch.optim import optimizer
 
 
@@ -29,44 +33,92 @@ def dp_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.mesh_dim_names if a != "model")
 
 
+def expert_parallel(cfg: ModelConfig, mesh, pure_dp: bool = False) -> bool:
+    """Whether a train step on ``mesh`` splits the experts over its
+    ``"model"`` axis (an MoE config, not ``pure_dp``, that axis > 1)."""
+    return (mesh is not None and cfg.moe is not None and not pure_dp
+            and moe_mod.ep_size(mesh, "model") > 1)
+
+
+def batch_axes(cfg: ModelConfig, mesh, pure_dp: bool = False
+               ) -> Tuple[str, ...]:
+    """The mesh axes over which a train step's ranks hold different slices
+    of the batch: the data axes under expert parallelism (the ranks of
+    the expert axis hold the same slice), else every axis."""
+    if expert_parallel(cfg, mesh, pure_dp):
+        return dp_axes(mesh)
+    return tuple(mesh.mesh_dim_names)
+
+
+def shard_batch(batch: dict, cfg: ModelConfig, tc: TrainConfig, mesh,
+                pure_dp: bool = False) -> dict:
+    """This rank's slice of the global batch (numpy arrays or tensors,
+    the batch on the leading axis) for ``make_train_step(..., mesh=)``:
+    of each of the ``tc.microbatches`` microbatches of the global batch,
+    the rows of this rank's flat index over ``batch_axes``, so a
+    microbatch holds on each rank the rows ``repro``'s sharded step gives
+    that device."""
+    axes = batch_axes(cfg, mesh, pure_dp)
+    n, f = ops.n_shards_of(mesh, axes), ops.flat_index(mesh, axes)
+    micro = max(int(tc.microbatches), 1)
+
+    def one(v):
+        per = v.shape[0] // (micro * n)
+        if per * micro * n != v.shape[0]:
+            raise ValueError(f"a batch of {v.shape[0]} does not split into "
+                             f"{micro} microbatches over {n} ranks")
+        v = v.reshape((micro, n, per) + tuple(v.shape[1:]))[:, f]
+        return v.reshape((micro * per,) + tuple(v.shape[2:]))
+
+    return {k: one(v) for k, v in batch.items()}
+
+
+def _mean_over(tensors, mesh, axes, n: int) -> None:
+    """Each tensor replaced in place by its mean over the ranks of
+    ``axes``: one ``all_reduce`` per dtype over a flat copy."""
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        for a in axes:
+            dist.all_reduce(flat, group=mesh.get_group(a))
+        flat.div_(n)
+        for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(part.view_as(t))
+
+
 # ---------------------------------------------------------------------------
 # train
 # ---------------------------------------------------------------------------
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
-                    causal_skip: bool = False, attn_p_bf16: bool = False,
-                    device=None):
-    """Returns ``step_fn(model, opt_state, batch, step) -> (model,
-    opt_state, metrics)`` with metrics at least {loss, ce, aux, grad_norm,
-    lr}; the batch's tokens and labels are moved to ``device`` — CUDA
-    unless ``device="cpu"``.
-
-    The step turns ``requires_grad`` on for the model it trains and
-    updates its parameters and ``opt_state``'s moments in place (the
-    reference's donated buffers). ``tc.microbatches > 1`` splits the batch
-    and accumulates the gradients in the param dtype, then divides them
-    by M; loss and aux are averaged in f32. Attention takes the blockwise
-    path (``attn_impl="xla"``): K4 is forward-only. Only the attention
-    family trains yet, the frontend configs included (``prefix_emb`` in
-    the batch): the Mamba2 hybrid, RWKV6 and MoE raise (their forward and
-    ``lm.loss_fn`` run under autograd, but the optimizer's per-leaf rules
-    over ``repro``'s (groups, per_group) leaves, and ``repro``'s
-    ``pure_dp`` and ``moe_a2a_int8`` step options, are not ported; ROADMAP
-    queue 1 item 11b)."""
-    if cfg.shared_attn_every or cfg.block_pattern[0] != BlockKind.ATTENTION:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.block_pattern[0].value} family "
-            f"is not ported yet: ROADMAP queue 1 item 11b")
+def make_grad_fn(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
+                 causal_skip: bool = False, attn_p_bf16: bool = False,
+                 pure_dp: bool = False, moe_a2a_int8: bool = False,
+                 device=None):
+    """The train step's first half (``make_train_step``'s arguments):
+    ``grad_fn(model, batch) -> (grads, metrics {loss, ce, aux})``, the
+    gradients the parameters' ``.grad`` (averaged over the microbatches
+    and over ``batch_axes``), the metrics global."""
     dev = device_mod.resolve(device)
-    ctx = lm.RunCtx(causal_skip=causal_skip, attn_p_bf16=attn_p_bf16,
-                    remat=tc.remat)
+    ep = expert_parallel(cfg, mesh, pure_dp)
+    ctx = lm.RunCtx(mesh=mesh if ep else None,
+                    aux_mesh=None if ep else mesh,
+                    dp_axes=dp_axes(mesh) if mesh is not None else ("data",),
+                    causal_skip=causal_skip, attn_p_bf16=attn_p_bf16,
+                    moe_a2a_int8=moe_a2a_int8, remat=tc.remat)
     micro = max(int(tc.microbatches), 1)
+    axes = batch_axes(cfg, mesh, pure_dp) if mesh is not None else ()
+    n_data = ops.n_shards_of(mesh, axes) if mesh is not None else 1
 
-    def step(model, opt_state, batch, step_idx):
+    def grad_fn(model, batch):
         params = dict(model.named_parameters())
         for p in params.values():
             p.requires_grad_(True)
             p.grad = None
+        if mesh is not None and "mask" in batch:
+            raise ValueError("a loss mask on a mesh is not supported: each "
+                             "rank would average over its own mask")
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         mbs = ([{k: v.reshape((micro, v.shape[0] // micro) + v.shape[1:])[i]
                  for k, v in batch.items()} for i in range(micro)]
@@ -81,13 +133,63 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
                 asum[k] += aux[k].detach()
         grads = {n: p.grad.div_(micro) if micro > 1 else p.grad
                  for n, p in params.items()}
+        if n_data > 1:
+            _mean_over([grads[k] for k in sorted(grads)], mesh, axes, n_data)
+            both = torch.stack([lsum, asum["ce"]])
+            _mean_over([both], mesh, axes, n_data)
+            lsum, asum["ce"] = both.unbind()
+        metrics = {k: a / micro for k, a in asum.items()}
+        metrics["loss"] = lsum / micro
+        return grads, metrics
+
+    return grad_fn
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
+                    causal_skip: bool = False, attn_p_bf16: bool = False,
+                    pure_dp: bool = False, moe_a2a_int8: bool = False,
+                    device=None):
+    """Returns ``step_fn(model, opt_state, batch, step) -> (model,
+    opt_state, metrics)`` with metrics at least {loss, ce, aux, grad_norm,
+    lr}; the batch's tensors are moved to ``device`` — CUDA unless
+    ``device="cpu"``. Every registered family trains.
+
+    The step turns ``requires_grad`` on for the model it trains and
+    updates its parameters and ``opt_state``'s moments in place (the
+    reference's donated buffers). ``tc.microbatches > 1`` splits the batch
+    and accumulates the gradients in the param dtype, then divides them
+    by M; loss and aux are averaged in f32. Attention takes the blockwise
+    path (``attn_impl="xla"``): K4 is forward-only.
+
+    With ``mesh`` (a ``DeviceMesh``; ``"model"`` is the expert axis, the
+    others are data axes) every rank calls the step with its own slice of
+    the global batch (``shard_batch``) and, for an MoE config, its own
+    experts (``carry.expert_shard``) — unless ``pure_dp``, where every
+    rank holds the whole model, runs ``moe_reference`` (``repro``'s
+    ``RunCtx(mesh=None)``) and its slice of the batch over every axis.
+    After the backward pass the gradients are averaged over the ranks
+    that hold different data (``batch_axes``: under expert parallelism
+    the data axes, where the expert leaves differ by rank and the other
+    leaves agree over the expert axis); the update then counts the expert
+    leaves over the expert axis (``optimizer.update(mesh=)``).
+    ``moe_a2a_int8`` quantizes the all-to-all dispatch. The expert
+    parallel strategy is ``repro``'s "auto": a2a when the global sequence
+    length splits over the expert axis, else allgather. The metrics are
+    the global ones, the same on every rank."""
+    ep = expert_parallel(cfg, mesh, pure_dp)
+    grad_fn = make_grad_fn(cfg, tc, mesh=mesh, causal_skip=causal_skip,
+                           attn_p_bf16=attn_p_bf16, pure_dp=pure_dp,
+                           moe_a2a_int8=moe_a2a_int8, device=device)
+
+    def step(model, opt_state, batch, step_idx):
+        params = dict(model.named_parameters())
+        grads, metrics = grad_fn(model, batch)
         _, new_opt, om = optimizer.update(grads, opt_state, params, tc,
-                                          step_idx)
+                                          step_idx,
+                                          mesh=mesh if ep else None)
         for p in params.values():
             p.grad = None
-        metrics = {k: a / micro for k, a in asum.items()}
         metrics.update(om)
-        metrics["loss"] = lsum / micro
         return model, new_opt, metrics
 
     return step
@@ -138,7 +240,6 @@ def unit_search_steps(bins: int, k: int):
     hit = _UNIT_STEP_CACHE.get(key)
     if hit is not None:
         return hit
-    from repro_torch.kernels import ops
 
     @torch.inference_mode()
     def hist(q, x):

@@ -276,13 +276,34 @@ def flat_index(mesh, axes) -> int:
     return flat
 
 
-def _psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """Sum of ``x`` over the ranks of ``axes``: ``all_reduce(SUM)`` over
-    each axis's group in turn, on a copy."""
+def _psum_copy(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     x = x.clone(memory_format=torch.contiguous_format)
     for a in axes:
         dist.all_reduce(x, group=mesh.get_group(a))
     return x
+
+
+class _Psum(torch.autograd.Function):
+    """psum under autograd: the backward is the psum of the cotangent over
+    the same axes, ``lax.psum``'s transpose."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _psum_copy(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_copy(g, ctx.mesh, ctx.axes), None, None
+
+
+def _psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axes``: ``all_reduce(SUM)`` over
+    each axis's group in turn, on a copy; under autograd its backward is
+    the same psum of the cotangent."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Psum.apply(x, mesh, tuple(axes))
+    return _psum_copy(x, mesh, axes)
 
 
 def _all_gather(x: torch.Tensor, mesh, axes, n_shards: int,

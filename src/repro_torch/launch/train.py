@@ -1,15 +1,18 @@
-"""Training launcher on one card (port of ``repro.launch.train``, without
-a mesh).
+"""Training launcher on one card (port of ``repro.launch.train``; its
+``--scaled`` (1, 1) mesh is one device here).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
         --shape train_4k --steps 200 --ckpt-dir CKPT [--scaled] [--device cpu]
 
-``--scaled`` trains the reduced config (seq 128, batch 8 unless given);
-without it the arch's full config at the shape's sequence length and
-global batch. It runs on CUDA unless ``--device cpu`` is given. The loop
-is fault-tolerant: auto-resume, checkpoints, deterministic data, straggler
-monitor (runtime/trainer.py). ``--multi-pod`` and the production mesh are
-launch tooling not ported yet (ROADMAP queue 1 item 12).
+Every registered arch trains (a frontend config on seeded stand-in
+prefix embeddings). ``--scaled`` trains the reduced config (seq 128,
+batch 8 unless given); without it the arch's full config at the shape's
+sequence length and global batch. It runs on CUDA unless ``--device
+cpu`` is given. The loop is fault-tolerant: auto-resume, checkpoints,
+deterministic data, straggler monitor (runtime/trainer.py).
+``--multi-pod`` and the production mesh are launch tooling not ported
+yet (ROADMAP queue 1 item 12); ``trainer.train(..., mesh=)`` is the
+library entry point on a mesh.
 """
 from __future__ import annotations
 

@@ -56,7 +56,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import BlockKind, ModelConfig
-from repro_torch.kernels.ops import _all_gather
 from repro_torch.models import frontends
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (Attention, KVCache,
@@ -77,11 +76,16 @@ from repro_torch.models.rwkv6 import (RWKV6, RWKVState, init_rwkv_state,
 class RunCtx:
     """Execution-context knobs threaded through the model. ``mesh`` is a
     ``DeviceMesh`` with ``mesh_dim_names``; only the MoE blocks read it
-    (expert parallelism over ``ep_axis``). ``repro``'s ``tp_axis`` and
-    activation sharder have no counterpart: the port's activations are
-    not sharded."""
+    (expert parallelism over ``ep_axis``). ``aux_mesh`` is the mesh whose
+    ranks each hold a slice of the batch while every rank runs the whole
+    MoE layer (``pure_dp``, ``repro``'s ``RunCtx(mesh=None)``, or an
+    expert axis of size 1): the router's load-balancing statistics are
+    summed over it. ``repro``'s
+    ``tp_axis`` and activation sharder have no counterpart: the port's
+    activations are not sharded."""
 
     mesh: Any = None
+    aux_mesh: Any = None
     dp_axes: Tuple[str, ...] = ("data",)
     ep_axis: str = "model"
     causal_skip: bool = False          # triangular attention schedule
@@ -307,23 +311,27 @@ def _moe(p: moe_mod.MoE, cfg: ModelConfig, ctx: RunCtx, h, strategy: str,
          a2a_int8: bool):
     """``moe_forward`` on the block's normed (B, S, d) input. On a mesh
     ``h`` is this rank's batch slice, replicated over ``ctx.ep_axis``:
-    ``a2a`` runs on this rank's S / n chunk and the chunks are gathered
-    back over the expert axis (one ``all_reduce`` of a zeroed buffer in
-    which each rank wrote its own chunk)."""
+    ``a2a`` runs on this rank's S / n chunk (``moe.ep_chunk``) and the
+    chunks are gathered back over the expert axis (``moe.ep_gather``,
+    through ``ops._all_gather``) before the shared and dense branches,
+    which run on the whole ``h`` as ``repro`` runs them outside its
+    ``shard_map``."""
     n = moe_mod.ep_size(ctx.mesh, ctx.ep_axis)
     kw = dict(mesh=ctx.mesh, dp_axes=ctx.dp_axes, ep_axis=ctx.ep_axis,
               a2a_int8=a2a_int8)
     if n == 1:
-        return moe_mod.moe_forward(p, cfg, h, **kw)
+        return moe_mod.moe_forward(p, cfg, h, aux_mesh=ctx.aux_mesh, **kw)
     B, S, d = h.shape
     strategy = moe_mod.resolve_strategy(strategy, S, n)
     if strategy != "a2a":
         return moe_mod.moe_forward(p, cfg, h, strategy=strategy, **kw)
-    r, s_loc = int(ctx.mesh.get_local_rank(ctx.ep_axis)), S // n
-    y, aux = moe_mod.moe_forward(p, cfg, h[:, r * s_loc:(r + 1) * s_loc],
-                                 strategy="a2a", **kw)
-    chunks = _all_gather(y, ctx.mesh, (ctx.ep_axis,), n, r)
-    return chunks.permute(1, 0, 2, 3).reshape(B, S, d), aux
+    r = int(ctx.mesh.get_local_rank(ctx.ep_axis))
+    y, aux = moe_mod.moe_routed(
+        p, cfg, moe_mod.ep_chunk(h, ctx.mesh, ctx.ep_axis, r, n),
+        strategy="a2a", **kw)
+    chunks = moe_mod.ep_gather(y, ctx.mesh, ctx.ep_axis, r, n)
+    y = chunks.permute(1, 0, 2, 3).reshape(B, S, d)
+    return moe_mod.add_dense_branches(p, cfg, h, y), aux
 
 
 def _apply_moe_block(p: MoEBlock, cfg: ModelConfig, ctx: RunCtx, x,

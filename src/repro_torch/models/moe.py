@@ -34,6 +34,28 @@ an all-to-all travels is ``a2a_transport``'s choice.
 Dropped entries (past a capacity) are masked out, never clamped into a
 slot: ``repro``'s ``.at[...].set(mode="drop")`` writes nothing for them.
 Routes take ties to the lower expert id, as ``lax.top_k`` does.
+
+**Under autograd** the collectives are ``torch.autograd.Function``s whose
+backward is the transpose ``shard_map`` gives the same code (with its
+replication checks off, as ``repro`` runs it), on the same transport:
+
+* the all-to-all's backward is the reverse all-to-all (the same
+  exchange: chunk i goes to rank i);
+* a psum's backward is the psum of the cotangent;
+* an input replicated over ``ep_axis`` (the router; the tokens under
+  ``allgather``) enters through ``_ep_entry``, whose backward sums the
+  cotangent over the expert axis (``shard_map`` sums an input's
+  cotangent over the axes its spec leaves out);
+* an output replicated over ``ep_axis`` (``allgather``'s y, the aux)
+  leaves through ``_ep_exit``, whose backward divides the cotangent by
+  the axis size (``shard_map`` divides an output's cotangent by its
+  replica count).
+
+The data axes need neither: a rank's loss is its own batch slice's, and
+the train step averages the gradients over the ranks that hold
+different data (``dist/steps.py``). The int8 dispatch's codes carry no
+gradient (``repro``'s ``astype(int8)``): the gradient reaches the
+payload through its scale alone.
 """
 from __future__ import annotations
 
@@ -45,7 +67,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ops import _psum, axis_size, n_shards_of
+from repro_torch.kernels.ops import _all_gather, _psum, axis_size, n_shards_of
 from repro_torch.models.layers import (MLP, _empty, _normal, _param, mlp,
                                        mlp_init)
 
@@ -120,15 +142,24 @@ def _route(router_w: torch.Tensor, x_tok: torch.Tensor, k: int):
 
 
 def _aux_loss(probs: torch.Tensor, idx: torch.Tensor,
-              num_experts: int) -> torch.Tensor:
-    """Switch-style load-balancing loss (local shard statistics)."""
+              num_experts: int, mesh=None) -> torch.Tensor:
+    """Switch-style load-balancing loss (local shard statistics). With
+    ``mesh`` (the unsharded layer on ranks that each hold a slice of the
+    batch: ``pure_dp``) the expert counts and the probabilities are summed
+    over all its ranks first, so the loss is the global batch's, as
+    ``repro``'s on its global arrays."""
     T, K = idx.shape
     f = torch.zeros((num_experts,), dtype=torch.float32, device=idx.device)
     f = f.index_add(0, idx.reshape(-1),
                     torch.ones((T * K,), dtype=torch.float32,
                                device=idx.device))
-    f = f / (T * K)
-    p_mean = probs.mean(0)
+    if mesh is None:
+        f = f / (T * K)
+        p_mean = probs.mean(0)
+    else:
+        axes, n = tuple(mesh.mesh_dim_names), mesh.size()
+        f = _psum(f, mesh, axes) / (T * K * n)
+        p_mean = _psum(probs.sum(0), mesh, axes) / (T * n)
     return num_experts * torch.sum(f * p_mean)
 
 
@@ -164,9 +195,11 @@ def _combine(flat_w: torch.Tensor, y_slot: torch.Tensor, T: int,
 # reference path
 # ---------------------------------------------------------------------------
 
-def moe_reference(params: MoE, cfg: ModelConfig, x_tok: torch.Tensor):
+def moe_reference(params: MoE, cfg: ModelConfig, x_tok: torch.Tensor,
+                  aux_mesh=None):
     """Exact capacity-free MoE on one device. x_tok: (T, d). y is
-    accumulated in f32 in expert order 0..E-1, as ``repro``'s scan."""
+    accumulated in f32 in expert order 0..E-1, as ``repro``'s scan.
+    ``aux_mesh``: the ranks over which the batch is split (``_aux_loss``)."""
     moe = cfg.moe
     weights, idx, probs = _route(params.router, x_tok, moe.experts_per_token)
     y = torch.zeros(x_tok.shape, dtype=torch.float32, device=x_tok.device)
@@ -176,7 +209,8 @@ def moe_reference(params: MoE, cfg: ModelConfig, x_tok: torch.Tensor):
         u = (x_tok @ params.w_up[e]).float()
         out = (g * u).to(x_tok.dtype) @ params.w_out[e]
         y = y + w_e[:, None] * out.float()
-    return y.to(x_tok.dtype), _aux_loss(probs, idx, moe.num_experts)
+    return y.to(x_tok.dtype), _aux_loss(probs, idx, moe.num_experts,
+                                        aux_mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +233,7 @@ def a2a_transport(x: torch.Tensor, group) -> str:
     return "all_to_all_single"
 
 
-def _all_to_all(x: torch.Tensor, group, transport: str) -> torch.Tensor:
-    """``lax.all_to_all(x, axis, 0, 0, tiled=False)`` over ``group``:
-    chunk i of axis 0 (size n) goes to the group's rank i, and what
-    arrives is stacked by source rank."""
+def _exchange(x: torch.Tensor, group, transport: str) -> torch.Tensor:
     x = x.contiguous()
     if transport == "all_to_all_single":
         out = torch.empty_like(x)
@@ -215,6 +246,125 @@ def _all_to_all(x: torch.Tensor, group, transport: str) -> torch.Tensor:
     buf[me] = x
     dist.all_reduce(buf, group=group)
     return buf[:, me].contiguous()
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange under autograd; its backward is the same exchange of
+    the cotangent (``lax.all_to_all``'s transpose at split = concat = 0)."""
+
+    @staticmethod
+    def forward(ctx, x, group, transport):
+        ctx.group, ctx.transport = group, transport
+        return _exchange(x, group, transport)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group, ctx.transport), None, None
+
+
+def _all_to_all(x: torch.Tensor, group, transport: str) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, 0, 0, tiled=False)`` over ``group``:
+    chunk i of axis 0 (size n) goes to the group's rank i, and what
+    arrives is stacked by source rank."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, group, transport)
+    return _exchange(x, group, transport)
+
+
+class _EpEntry(torch.autograd.Function):
+    """Identity; the backward sums the cotangent over ``group``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _EpExit(torch.autograd.Function):
+    """Identity; the backward divides the cotangent by ``n``."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class _ChunkOf(torch.autograd.Function):
+    """Chunk ``r`` of ``n`` along axis 1 of a tensor replicated over the
+    mesh's ``ep_axis``; the backward gathers every rank's chunk cotangent
+    into the whole (the sum over the axis of the zero-padded chunks)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ep_axis, r, n):
+        ctx.mesh, ctx.axes, ctx.r, ctx.n = mesh, (ep_axis,), r, n
+        s = x.shape[1] // n
+        return x[:, r * s:(r + 1) * s].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = _all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.n, ctx.r)
+        return torch.cat(parts.unbind(0), dim=1), None, None, None, None
+
+
+class _GatherChunks(torch.autograd.Function):
+    """(n, *y.shape): every rank's ``y`` by rank over the mesh's
+    ``ep_axis``, to be used alike by every rank of it; the backward is
+    this rank's own row of the cotangent (each rank's loss already counts
+    every row once)."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, ep_axis, r, n):
+        ctx.r = r
+        return _all_gather(y, mesh, (ep_axis,), n, r)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.r].contiguous(), None, None, None, None
+
+
+def ep_chunk(x: torch.Tensor, mesh, ep_axis: str, r: int,
+             n: int) -> torch.Tensor:
+    """Rank ``r``'s sequence chunk of the (B, S, d) ``x`` that every rank
+    of the expert axis holds alike: the ``a2a`` strategy's input."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ChunkOf.apply(x, mesh, ep_axis, r, n)
+    s = x.shape[1] // n
+    return x[:, r * s:(r + 1) * s]
+
+
+def ep_gather(y: torch.Tensor, mesh, ep_axis: str, r: int,
+              n: int) -> torch.Tensor:
+    """The ``a2a`` chunks of every rank of the expert axis, (n, B, S/n,
+    d), the same on every rank."""
+    if torch.is_grad_enabled() and y.requires_grad:
+        return _GatherChunks.apply(y, mesh, ep_axis, r, n)
+    return _all_gather(y, mesh, (ep_axis,), n, r)
+
+
+def _ep_entry(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, replicated over the expert axis, entering the EP region
+    (module docstring)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _EpEntry.apply(x, group)
+    return x
+
+
+def _ep_exit(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x``, replicated over the expert axis of size ``n``, leaving the
+    EP region (module docstring)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _EpExit.apply(x, n)
+    return x
 
 
 def _a2a_quantized(x: torch.Tensor, group, transport: str,
@@ -247,7 +397,7 @@ def _moe_a2a_local(params: MoE, cfg: ModelConfig, x_loc: torch.Tensor,
     T_loc, d = x_loc.shape
     transport = a2a_transport(x_loc, group)
 
-    weights, idx, probs = _route(params.router, x_loc, K)
+    weights, idx, probs = _route(_ep_entry(params.router, group), x_loc, K)
     aux = _aux_loss(probs, idx, E)
 
     # --- dispatch: pack entries per destination shard -----------------------
@@ -299,15 +449,20 @@ def _moe_a2a_local(params: MoE, cfg: ModelConfig, x_loc: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _moe_allgather_local(params: MoE, cfg: ModelConfig, x_loc: torch.Tensor,
-                         group, n_shards: int, shard: int):
+                         mesh, ep_axis: str):
     """Tokens replicated over the expert axis; each rank computes its local
-    experts and partial outputs are summed over ``group``. x_loc: (T, d)."""
+    experts and partial outputs are summed over ``ep_axis``. x_loc: (T,
+    d)."""
     moe = cfg.moe
     K, E = moe.experts_per_token, moe.num_experts
+    n_shards = ep_size(mesh, ep_axis)
+    shard = int(mesh.get_local_rank(ep_axis))
+    group = mesh.get_group(ep_axis)
     E_loc = E // n_shards
     T, d = x_loc.shape
+    x_loc = _ep_entry(x_loc, group)
 
-    weights, idx, probs = _route(params.router, x_loc, K)
+    weights, idx, probs = _route(_ep_entry(params.router, group), x_loc, K)
     aux = _aux_loss(probs, idx, E)
 
     flat_e = idx.reshape(-1)
@@ -324,7 +479,7 @@ def _moe_allgather_local(params: MoE, cfg: ModelConfig, x_loc: torch.Tensor,
     y_slot = x_loc.new_zeros((T * K, d))
     y_slot[keep] = ybuf[eloc[keep], rank[keep]]
     out = _combine(flat_w, y_slot, T, K)
-    dist.all_reduce(out, group=group)
+    out = _ep_exit(_psum(out, mesh, (ep_axis,)), n_shards)
     return out.to(x_loc.dtype), aux
 
 
@@ -352,43 +507,56 @@ def resolve_strategy(strategy: str, seq_len: int, n_shards: int) -> str:
 
 def moe_forward(params: MoE, cfg: ModelConfig, x: torch.Tensor, mesh=None,
                 dp_axes: Sequence[str] = ("data",), ep_axis: str = "model",
-                strategy: str = "auto", a2a_int8: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                strategy: str = "auto", a2a_int8: bool = False,
+                aux_mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss). Adds shared-expert and dense-residual
     branches per config (plain MLPs outside the EP path).
 
     Without a mesh (or with ``ep_axis`` of size 1) this is
-    ``moe_reference`` over all tokens. On a mesh, ``x`` and ``params`` are
-    this rank's slice and experts (module docstring) and the result is
-    this rank's slice; ``aux`` is averaged over every axis. There the
+    ``moe_reference`` over all tokens (its aux over ``aux_mesh``'s ranks,
+    when the batch is split over them). On a mesh, ``x`` and ``params``
+    are this rank's slice and experts (module docstring) and the result
+    is this rank's slice; ``aux`` is averaged over every axis. There the
     strategy must be named: ``"auto"`` depends on the global sequence
     length, which ``repro`` reads from the unsharded x and a rank's slice
     does not show (``resolve_strategy`` resolves it from that length)."""
-    moe = cfg.moe
+    y, aux = moe_routed(params, cfg, x, mesh, dp_axes, ep_axis, strategy,
+                        a2a_int8, aux_mesh)
+    return add_dense_branches(params, cfg, x, y), aux
+
+
+def moe_routed(params: MoE, cfg: ModelConfig, x: torch.Tensor, mesh=None,
+               dp_axes: Sequence[str] = ("data",), ep_axis: str = "model",
+               strategy: str = "auto", a2a_int8: bool = False,
+               aux_mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_forward`` without the shared and dense branches: the routed
+    experts' (y, aux)."""
     B, S, d = x.shape
     n_shards = ep_size(mesh, ep_axis)
     if n_shards == 1:
-        y_tok, aux = moe_reference(params, cfg, x.reshape(-1, d))
-        y = y_tok.reshape(B, S, d)
+        y_tok, aux = moe_reference(params, cfg, x.reshape(-1, d), aux_mesh)
+        return y_tok.reshape(B, S, d), aux
+    group = mesh.get_group(ep_axis)
+    x_tok = x.reshape(-1, d)
+    if strategy == "a2a":
+        y_tok, aux = _moe_a2a_local(params, cfg, x_tok, group, n_shards,
+                                    a2a_int8)
+    elif strategy == "allgather":
+        y_tok, aux = _moe_allgather_local(params, cfg, x_tok, mesh, ep_axis)
     else:
-        group = mesh.get_group(ep_axis)
-        x_tok = x.reshape(-1, d)
-        if strategy == "a2a":
-            y_tok, aux = _moe_a2a_local(params, cfg, x_tok, group, n_shards,
-                                        a2a_int8)
-        elif strategy == "allgather":
-            y_tok, aux = _moe_allgather_local(
-                params, cfg, x_tok, group, n_shards,
-                int(mesh.get_local_rank(ep_axis)))
-        else:
-            raise ValueError(f"MoE strategy {strategy!r} on a mesh: name "
-                             f"'a2a' or 'allgather' (resolve_strategy)")
-        y = y_tok.reshape(B, S, d)
-        axes = tuple(dp_axes) + (ep_axis,)
-        aux = _psum(aux, mesh, axes) / n_shards_of(mesh, axes)
+        raise ValueError(f"MoE strategy {strategy!r} on a mesh: name "
+                         f"'a2a' or 'allgather' (resolve_strategy)")
+    axes = tuple(dp_axes) + (ep_axis,)
+    aux = _psum(aux, mesh, axes) / n_shards_of(mesh, axes)
+    return y_tok.reshape(B, S, d), _ep_exit(aux, n_shards)
 
+
+def add_dense_branches(params: MoE, cfg: ModelConfig, x: torch.Tensor,
+                       y: torch.Tensor) -> torch.Tensor:
+    """``y`` plus the shared-expert and dense-residual MLPs of ``x``."""
+    moe = cfg.moe
     if moe.num_shared_experts:
         y = y + mlp(params.shared, x, "swiglu")
     if moe.dense_residual_d_ff:
         y = y + mlp(params.dense, x, cfg.mlp_activation)
-    return y, aux
+    return y

@@ -10,8 +10,21 @@ moments in f32, or blockwise int8 with nu kept in sqrt space.
 
 The reference stacks the blocks' parameters on a layer axis, so the
 port's ``blocks.<i>.<rest>`` of every layer lies in the one reference
-leaf ``blocks.*.<rest>`` (``_leaf``): that leaf's rank decides weight
-decay, and its layers share one int8_ef scale.
+leaf ``blocks.*.<rest>``, and the hybrid's ``blocks.<g>.<i>.<rest>`` in
+the leaf ``blocks.*.*.<rest>`` stacked on (groups, per_group)
+(``_leaf``; its one ``shared_attn`` is not stacked): that leaf's rank
+decides weight decay, and its layers share one int8_ef scale. An MoE
+layer's experts ``blocks.<i>.moe.w_gate|w_up|w_out`` lie in the (L, E,
+...) leaf. The blockwise int8 moments run along the last dim, which
+stacking leaves alone, so their scales are per layer as they are.
+
+With expert parallelism (``update(..., mesh=)``) each rank holds E/n of
+every expert leaf and the whole of the others, as ``carry.expert_shard``
+splits them: the global grad norm adds the expert leaves' squares over
+the expert axis and counts the replicated leaves once, and an expert
+leaf's int8_ef scale is the max over the whole leaf (an ``all_reduce``
+of MAX over the expert axis), which is what ``repro``'s update computes
+on its global arrays.
 
 Where the reference returns new trees, ``update`` writes the parameters
 and the moments IN PLACE, one tensor at a time under ``torch.no_grad()``
@@ -26,12 +39,14 @@ import re
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
 
 # the f32 reciprocal XLA multiplies by where the reference divides by 127
 _INV127 = 1.0 / 127.0
-_BLOCK = re.compile(r"^blocks\.\d+\.")
+_BLOCK = re.compile(r"^blocks\.\d+\.(\d+\.)?")
+_EXPERT = re.compile(r"^blocks\.\d+\.moe\.(w_gate|w_up|w_out)$")
 
 
 class AdamState(NamedTuple):
@@ -41,6 +56,14 @@ class AdamState(NamedTuple):
     ef: Optional[dict] = None   # error-feedback residual (grad compression)
     mu_scale: Optional[dict] = None   # blockwise f32 scales (opt_int8)
     nu_scale: Optional[dict] = None
+
+
+def map_moments(state: AdamState, fn) -> AdamState:
+    """``state`` with ``fn`` applied to each of its per-parameter dicts."""
+    part = lambda t: None if t is None else fn(t)
+    return state._replace(mu=part(state.mu), nu=part(state.nu),
+                          ef=part(state.ef), mu_scale=part(state.mu_scale),
+                          nu_scale=part(state.nu_scale))
 
 
 def _blocks(shape):
@@ -132,7 +155,25 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
 
 def _leaf(name: str) -> str:
     """The reference leaf that parameter ``name`` lies in."""
-    return _BLOCK.sub("blocks.*.", name)
+    m = _BLOCK.match(name)
+    if m is None:
+        return name
+    return ("blocks.*.*." if m.group(1) else "blocks.*.") + name[m.end():]
+
+
+def is_expert(name: str) -> bool:
+    """Whether ``name`` is an expert tensor (split over the expert axis
+    under expert parallelism)."""
+    return _EXPERT.match(name) is not None
+
+
+def _ep_group(mesh, ep_axis: str):
+    """The expert axis's process group, or None without a split."""
+    if mesh is None or ep_axis not in mesh.mesh_dim_names:
+        return None
+    if mesh.size(list(mesh.mesh_dim_names).index(ep_axis)) == 1:
+        return None
+    return mesh.get_group(ep_axis)
 
 
 def decayed(params: Dict[str, torch.Tensor]) -> set:
@@ -142,12 +183,16 @@ def decayed(params: Dict[str, torch.Tensor]) -> set:
     return {k for k, p in params.items() if _leaf(k) != k or p.dim() >= 2}
 
 
+def _ef_amax(gs: List[torch.Tensor], efs: List[torch.Tensor]):
+    """The max of ``|g + ef|`` over tensors that form one leaf."""
+    return torch.stack([(g.float() + ef).abs().amax()
+                        for g, ef in zip(gs, efs)]).amax()
+
+
 def _ef_scale(gs: List[torch.Tensor], efs: List[torch.Tensor]):
     """The int8_ef scale shared by tensors that form one leaf: the max of
     ``|g + ef|`` over all of them, over 127."""
-    amax = torch.stack([(g.float() + ef).abs().amax()
-                        for g, ef in zip(gs, efs)]).amax()
-    return torch.clamp(amax, min=1e-12) * _INV127
+    return torch.clamp(_ef_amax(gs, efs), min=1e-12) * _INV127
 
 
 def _compress_codes(g: torch.Tensor, ef: torch.Tensor, scale: torch.Tensor):
@@ -179,31 +224,49 @@ def _adamw(p, gf, m, v, *, lr, bc1, bc2, tc: TrainConfig, decay: bool):
 
 @torch.no_grad()
 def update(grads: Dict[str, torch.Tensor], state: AdamState,
-           params: Dict[str, torch.Tensor], tc: TrainConfig, step):
+           params: Dict[str, torch.Tensor], tc: TrainConfig, step,
+           mesh=None, ep_axis: str = "model"):
     """One AdamW step. Returns (params, new_state, metrics {grad_norm,
-    lr}); ``params`` and the state's moment dicts are updated in place."""
+    lr}); ``params`` and the state's moment dicts are updated in place.
+    ``mesh``: the experts are split over its ``ep_axis`` (module
+    docstring); the other leaves, and every gradient, are the same on
+    every rank of that axis."""
     names = sorted(params)
     decay = decayed(params)
+    group = _ep_group(mesh, ep_axis)
+    split = {k for k in names if group is not None and is_expert(k)}
     if tc.grad_compression == "int8_ef" and state.ef is not None:
         # the codes stand in for the dequantized gradients (a quarter of
         # their bytes) until the norm over all of them is known
         leaves: Dict[str, list] = {}
         for k in names:
             leaves.setdefault(_leaf(k), []).append(k)
+        amax = {leaf: _ef_amax([grads[k] for k in ks],
+                               [state.ef[k] for k in ks])
+                for leaf, ks in leaves.items()}
+        over = sorted(leaf for leaf, ks in leaves.items() if ks[0] in split)
+        if over:              # one MAX over the expert axis for all of them
+            both = torch.stack([amax[leaf] for leaf in over])
+            dist.all_reduce(both, op=dist.ReduceOp.MAX, group=group)
+            amax.update(zip(over, both.unbind()))
         codes = {}
-        for ks in leaves.values():
-            scale = _ef_scale([grads[k] for k in ks],
-                              [state.ef[k] for k in ks])
+        for leaf, ks in leaves.items():
+            scale = torch.clamp(amax[leaf], min=1e-12) * _INV127
             for k in ks:
                 q, res = _compress_codes(grads[k], state.ef[k], scale)
                 state.ef[k].copy_(res)
                 codes[k] = (q, scale)
         grad_f32 = lambda k: codes[k][0].float() * codes[k][1]
-        gnorm = torch.sqrt(torch.sum(torch.stack(
-            [torch.sum(torch.square(grad_f32(k))) for k in names])))
     else:
         grad_f32 = lambda k: grads[k].float()
-        gnorm = global_norm(grads)
+    sq = {k: torch.sum(torch.square(grad_f32(k))) for k in names}
+    if split:
+        own = torch.stack([sq[k] for k in names if k in split]).sum()
+        dist.all_reduce(own, group=group)
+        rest = [sq[k] for k in names if k not in split]
+        gnorm = torch.sqrt(torch.stack(rest).sum() + own)
+    else:
+        gnorm = torch.sqrt(torch.sum(torch.stack([sq[k] for k in names])))
     clip = _clip_scale(gnorm, tc.grad_clip)
     count = state.count + 1
     lr = schedule(tc, step).to(count.device)

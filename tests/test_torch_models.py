@@ -409,29 +409,36 @@ _SSM = SSMConfig(state_dim=16, head_dim=16, chunk_size=32)
     dict(frontend="vision_patches", frontend_positions=4),
 ], ids=["moe", "mamba2", "rwkv6", "hybrid", "frontend"])
 def test_unported_families_raise(change):
-    """Every family builds and runs forward; what is not ported yet is
-    training the recurrent and MoE families: their train step raises
-    (ROADMAP queue 1 item 11b). MoE and the hybrid and RWKV6 decode; a
-    pure Mamba2 stack has no decode step, as in ``repro``. A frontend
-    config trains, and its forward raises without the prefix."""
+    """Every family builds, runs forward and takes a finite train step
+    (the train step once raised for the recurrent and MoE families; the
+    name is kept). MoE and the hybrid and RWKV6 decode; a pure Mamba2
+    stack has no decode step, as in ``repro``. A frontend config's
+    forward raises without the prefix."""
     cfg = dataclasses.replace(scaled_down(get_config("gemma-2b")), **change)
     model = tlm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     assert tlm.param_count(cfg) == sum(p.numel() for p in model.parameters())
     tok = torch.zeros((1, 3), dtype=torch.int64)
+    tc = TrainConfig(warmup_steps=0)
+    step = steps.make_train_step(cfg, tc, device="cpu")
+    opt = topt.init(dict(model.named_parameters()), tc)
+    batch = {"tokens": tok, "labels": tok}
     if "frontend" in change:
         with pytest.raises(ValueError, match="frontend embeddings"):
             tlm.forward(model, cfg, tok)
-        step = steps.make_train_step(cfg, TrainConfig(), device="cpu")
-        opt = topt.init(dict(model.named_parameters()), TrainConfig())
-        pre = torch.randn((1, 4, 1024), generator=torch.Generator()
-                          .manual_seed(1)).to(torch.bfloat16)
-        _, _, m = step(model, opt, {"tokens": tok, "labels": tok,
-                                    "prefix_emb": pre}, 0)
-        assert np.isfinite(float(m["loss"]))
+        batch["prefix_emb"] = torch.randn(
+            (1, 4, 1024), generator=torch.Generator().manual_seed(1)).to(
+                torch.bfloat16)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _, opt, m = step(model, opt, batch, 0)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert (float(m["aux"]) > 0) == ("moe" in change)
+    assert int(opt.count) == 1
+    assert any(not torch.equal(p, before[n])
+               for n, p in model.named_parameters())
+    if "frontend" in change:
         return
-    with pytest.raises(NotImplementedError, match="queue 1 item 11b"):
-        steps.make_train_step(cfg, TrainConfig(), device="cpu")
-    logits, aux = tlm.forward(model, cfg, tok)
+    with torch.no_grad():
+        logits, aux = tlm.forward(model, cfg, tok)
     assert logits.shape == (1, 3, cfg.vocab_size)
     assert (float(aux) > 0) == ("moe" in change)
     state = tlm.init_decode_state(cfg, 1, 4, device="cpu")

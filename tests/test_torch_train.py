@@ -31,7 +31,7 @@ from repro.models import lm as jlm
 from repro.optim import optimizer as jopt
 from repro_torch import carry
 from repro_torch.checkpoint import manager as ckpt
-from repro_torch.configs import TrainConfig, get_config, scaled_down
+from repro_torch.configs import ALL_ARCHS, TrainConfig, get_config, scaled_down
 from repro_torch.data import pipeline
 from repro_torch.dist import steps
 from repro_torch.launch import train as tlaunch
@@ -349,3 +349,26 @@ def test_launcher_scaled_on_cpu(capsys):
         tlaunch.main(["--arch", "gemma-2b", "--scaled", "--device", "cpu",
                       "--multi-pod"])
     assert "item 12" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_train_step_builds_for_every_registered_arch(arch):
+    """No registered family is refused: the step builds on one device,
+    where no expert is split."""
+    cfg = scaled_down(get_config(arch))
+    assert callable(steps.make_train_step(cfg, TrainConfig(), device="cpu"))
+    assert steps.expert_parallel(cfg, None) is False
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b",
+                                  "kimi-k2-1t-a32b", "arctic-480b",
+                                  "llava-next-mistral-7b"])
+def test_launcher_trains_every_family(arch, capsys):
+    """The hybrid, RWKV6, MoE (shared expert; dense residual) and a
+    frontend config (on stand-in prefix embeddings) train from the
+    launcher, the loss finite."""
+    rep = tlaunch.main(["--arch", arch, "--scaled", "--device", "cpu",
+                        "--steps", "2", "--seq-len", "16",
+                        "--global-batch", "2"])
+    assert rep.steps_done == 2 and np.isfinite(rep.final_loss)
+    assert "final loss" in capsys.readouterr().out
