@@ -163,13 +163,26 @@ kernel launch counts set to 0 just before it and read just after:
   (arctic's width, experts CUT to 8, f32, 2 x 512 tokens, 2 steps) under
   a2a, allgather and the int8 dispatch, each rank's parameters held
   against a one-device step on the same global batch. No K1-K4 launch.
+* the launch tooling — ``launch/dryrun.py`` in a child process after the
+  training phases (its fake worlds are process groups of their own), with
+  nothing else running: gemma-2b x train_4k and
+  internlm2-20b x prefill_32k (flash attention, 48 K4 calls counted) on
+  the (16, 16) mesh and zamba2-2.7b x long_500k on (2, 16, 16), at full
+  width, each cell's dominant roofline term, bound, per-device bytes and
+  whether it fits; then gemma-2b's prefill of 8 x 2048 through K4, one
+  decode step at the serving batch and a train step of 8 x 2048 in 4
+  microbatches, each predicted there on fake CUDA tensors and run here:
+  the FLOPs, bytes and kernel calls of the two runs equal (18 K4 calls,
+  and launches, a prefill), the predicted train peak within 10 % of
+  ``torch.cuda.max_memory_allocated``, and every roofline bound at most
+  the measured median; measured/bound and useful_ratio printed.
 
 Output: progress lines; ``main_path``, ``board_scan``, ``index_path``,
 ``sharded_path``, ``shard_faults``, ``serving_path``, ``recurrent_path``,
 ``dense_path``, ``frontend_path``, ``moe_path``, ``moe_ep``,
 ``approx_path``,
-``mutable_path``, ``tenant_path``, ``train_path`` and ``train_families``
-JSON lines;
+``mutable_path``, ``tenant_path``, ``train_path``, ``train_families``
+and ``launch_tooling`` JSON lines;
 a ``kernels`` JSON line (launches on the paths, error against the plain
 version, kernel / plain / library ms, and the bound: the least time for
 the operations or the HBM bytes, whichever is larger); the card's name and
@@ -201,7 +214,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import carry, device  # noqa: E402
-from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.configs import (ShapeConfig, StepKind,  # noqa: E402
+                                 TrainConfig, get_config)
 from repro_torch.configs import scaled_down  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.core import binary, index, layout, plan  # noqa: E402
@@ -213,6 +227,8 @@ from repro_torch.kernels import approx_select  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hamming as tham  # noqa: E402
 from repro_torch.kernels import topk_select as tsel  # noqa: E402
+from repro_torch.launch import dryrun, op_analysis, roofline  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.models import frontends, layers, lm  # noqa: E402
 from repro_torch.models import mamba2, moe, rwkv6  # noqa: E402
 from repro_torch.optim import optimizer  # noqa: E402
@@ -227,13 +243,14 @@ FLIP_LOG2 = 4            # each code bit flips from its cluster centre w.p. 1/16
 N_CHECK = 64             # queries held against the on-card brute force
 N_TIMED = 5
 # peak rates of one H100 SXM for the bound: CUDA-core popcounts (compute
-# capability 9.0), dense int8 tensor-core operations and HBM bytes (NVIDIA's
-# data sheet, at 700 W), shared-memory accesses (one per bank per clock)
+# capability 9.0), shared-memory accesses (one per bank per clock); dense
+# int8 and bf16 tensor-core operations and HBM bytes are the data sheet's
+# (700 W), kept in launch/mesh.py
 POPC_PER_CLK_SM = 16
-INT8_OPS_PER_S = 1.979e15
+INT8_OPS_PER_S = launch_mesh.PEAK_OPS_INT8
 SMEM_OPS_PER_CLK_SM = 32
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores (data sheet, 700 W)
+HBM_BYTES_PER_S = launch_mesh.HBM_BW
+BF16_FLOPS_PER_S = launch_mesh.PEAK_FLOPS_BF16
 DEV = "cuda"
 
 # K3's main shape: the query batch against one board-sized chunk. The
@@ -514,6 +531,21 @@ EPT_SMALL_B, EPT_SMALL_S, EPT_SMALL_S_ODD = 4, 64, 63
 EPT_CPU_LIMITS = {"loss_max_abs_err": 6e-6, "param_max_abs_err": 1.2e-4}
 EPT_INT8_GRAD_CUT = 1e-3
 EPT_INT8_CPU_LIMITS = {"loss_abs_err": 1.5e-5, "grad_share": 2e-3}
+
+# launch tooling: launch/dryrun.py in a child process (its fake worlds are
+# process groups of their own) for three cells at full width on the
+# production meshes, (arch, shape, multi_pod, attn_impl); then gemma-2b's
+# prefill through K4, train step and decode step at this script's shapes,
+# predicted on fake CUDA tensors there and run on the card here: the op
+# counts of the two runs equal, the predicted train peak within
+# LT_MEM_RTOL of max_memory_allocated, every roofline bound at most the
+# measured median of LT_TIMED runs; the child gets LT_CHILD_TIMEOUT_S
+LT_CELLS = (("gemma-2b", "train_4k", False, "xla"),
+            ("internlm2-20b", "prefill_32k", False, "flash"),
+            ("zamba2-2.7b", "long_500k", True, "xla"))
+LT_TIMED = 3
+LT_MEM_RTOL = 0.10
+LT_CHILD_TIMEOUT_S = 900
 
 
 def fail(msg: str) -> int:
@@ -4153,6 +4185,217 @@ def train_families_path(seed: int) -> dict:
     return out
 
 
+def lt_shapes() -> dict:
+    """gemma-2b's three steps at this script's shapes: {name: (shape,
+    build_step's options)}."""
+    mk = lambda name, s, b, kind: ShapeConfig(name, seq_len=s,
+                                              global_batch=b, step=kind)
+    return {
+        "prefill": (mk("chip_prefill", PREFILL_LEN, PREFILL_BATCH,
+                       StepKind.PREFILL), {"attn_impl": "flash"}),
+        "decode": (mk("chip_decode", SERVE_LEN, SERVE_BATCH,
+                      StepKind.DECODE), {}),
+        "train": (mk("chip_train", TRAIN_SEQ, TRAIN_BATCH, StepKind.TRAIN),
+                  {"microbatches": TRAIN_MICRO}),
+    }
+
+
+def launch_child(path: str) -> None:
+    """The dry run in a process of its own: LT_CELLS on the production
+    meshes (a fake world each), then gemma-2b's three steps on one fake
+    card at this script's shapes; the records as JSON in ``path``."""
+    out = {"cells": [], "steps": {}}
+    for multi_pod in (False, True):
+        shape, _ = launch_mesh.PRODUCTION[multi_pod]
+        with launch_mesh.fake_world(int(np.prod(shape))):
+            mesh = launch_mesh.make_production_mesh(multi_pod=multi_pod)
+            for arch, name, mp, impl in LT_CELLS:
+                if mp == multi_pod:
+                    out["cells"].append(dryrun.run_cell(
+                        arch, name, multi_pod=mp, attn_impl=impl, mesh=mesh))
+    cfg = get_config(ARCH)
+    for name, (shape, kw) in lt_shapes().items():
+        t0 = time.perf_counter()
+        dev = dryrun.trace_device(kw.get("attn_impl", "xla"))
+        with dryrun.stand_ins(dev):
+            fn, args, _, _ = dryrun.build_step(cfg, shape, None, device=dev,
+                                               **kw)
+            counts, mem = dryrun.trace_cell(fn, args)
+        rec = roofline.build_report(cfg, shape, "1", 1,
+                                    dryrun.stats_of(counts), mem).as_dict()
+        rec.update(kernel_calls=dict(counts.kernel_calls),
+                   io_by=dict(counts.io_by),
+                   trace_s=time.perf_counter() - t0)
+        out["steps"][name] = rec
+    Path(path).write_text(json.dumps(out))
+
+
+def _storage_bytes(args) -> int:
+    seen = {}
+    for t in dryrun.tensors_of(args):
+        st = t.untyped_storage()
+        seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+def _lt_args(name: str, cfg, shape, kw, model, seed: int):
+    """(step fn, real arguments on the card) of one of lt_shapes."""
+    g = torch.Generator(device=DEV).manual_seed(seed + 41)
+    B, S = shape.global_batch, shape.seq_len
+    tok = lambda *sz: torch.randint(0, cfg.vocab_size, sz, generator=g,
+                                    device=DEV, dtype=torch.int32)
+    if name == "prefill":
+        fn = steps.make_prefill_step(cfg, S, attn_impl=kw["attn_impl"],
+                                     device=DEV)
+        return fn, (model, {"tokens": tok(B, S), "labels": tok(B, S)})
+    if name == "decode":
+        store = retrieval.synthetic_datastore(
+            cfg, generator=torch.Generator(device=DEV).manual_seed(seed + 3),
+            device=DEV)
+        state = lm.init_decode_state(cfg, B, S, device=DEV)
+        active = torch.ones((B,), dtype=torch.bool, device=DEV)
+        return (steps.make_serve_step(cfg, S),
+                (model, tok(B, 1), state, active, store))
+    tc = TrainConfig(microbatches=kw["microbatches"])
+    batch = pipeline.make_batch(pipeline.data_config_for(cfg, S, B, seed), 0)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+    opt = optimizer.init(dict(model.named_parameters()), tc)
+    return (steps.make_train_step(cfg, tc, device=DEV),
+            (model, opt, batch, torch.zeros((), dtype=torch.int32,
+                                            device=DEV)))
+
+
+def _lt_step(name: str, pred: dict, fn, args) -> dict:
+    """One step on the card against its dry run: the instrumented run's
+    counts (and K4 launches), the un-instrumented runs' peak and median."""
+    _reset_k_launches()
+    counts = op_analysis.trace_step(fn, args)[1]
+    torch.cuda.synchronize()
+    launches = _k_launches()
+    same = (counts.flops == pred["flops_per_device"]
+            and counts.io_bytes == pred["hbm_bytes_per_device"]
+            and dict(counts.kernel_calls) == pred["kernel_calls"])
+    if not same:
+        diff = {k: (v, pred["io_by"].get(k)) for k, v in counts.io_by.items()
+                if v != pred["io_by"].get(k)}
+        raise AssertionError(
+            f"{name}: the card's op counts differ from the dry run's: "
+            f"flops {counts.flops} vs {pred['flops_per_device']}, bytes "
+            f"{counts.io_bytes} vs {pred['hbm_bytes_per_device']}, kernels "
+            f"{dict(counts.kernel_calls)} vs {pred['kernel_calls']}; "
+            f"classes (card, dry run) {diff}")
+    if launches["K4"] != counts.kernel_calls.get("K4", 0):
+        raise AssertionError(f"{name}: {launches['K4']} K4 launches, the "
+                             f"analysis counted {counts.kernel_calls}")
+    gc.collect()
+    torch.cuda.synchronize()
+    leftover = torch.cuda.memory_allocated() - _storage_bytes(args)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(LT_TIMED):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if len(times) == 1:
+            peak = torch.cuda.max_memory_allocated() - leftover
+    ms = statistics.median(times) * 1e3
+    bound_ms = pred["step_time_bound_s"] * 1e3
+    out = {"ms": ms, "times_ms": [t * 1e3 for t in times],
+           "bound_ms": bound_ms, "dominant": pred["dominant"],
+           "measured_over_bound": ms / bound_ms,
+           "useful_ratio": pred["useful_ratio"],
+           "flops": counts.flops, "io_bytes": counts.io_bytes,
+           "kernel_calls": dict(counts.kernel_calls),
+           "k4_launches": launches["K4"],
+           "predicted_bytes": pred["memory_stats"]["per_device_bytes"],
+           "measured_peak_bytes": peak,
+           "compute_ms": pred["compute_s"] * 1e3,
+           "memory_ms": pred["memory_s"] * 1e3,
+           "trace_s": pred["trace_s"]}
+    print(f"  {name}: {ms:.1f} ms (median of {LT_TIMED}) against a "
+          f"{out['dominant']} bound of {bound_ms:.2f} ms (compute "
+          f"{out['compute_ms']:.2f}, memory {out['memory_ms']:.2f}): "
+          f"measured/bound {out['measured_over_bound']:.2f}, useful_ratio "
+          f"{out['useful_ratio']:.3f}; {counts.flops:.6e} FLOPs and "
+          f"{counts.io_bytes:.6e} bytes on the card and in the dry run; "
+          f"kernels {out['kernel_calls']} ({launches['K4']} K4 launches); "
+          f"peak {peak / 1e9:.2f} GB measured, "
+          f"{out['predicted_bytes'] / 1e9:.2f} GB predicted", flush=True)
+    if bound_ms > ms:
+        raise AssertionError(f"{name}: the bound {bound_ms:.3f} ms exceeds "
+                             f"the measured {ms:.3f} ms")
+    return out
+
+
+def launch_tooling(seed: int) -> dict:
+    """The dry run's cells and gemma-2b's three steps predicted in a child
+    process (spawned: a fresh interpreter), then the steps on the card
+    against their dry run (module docstring)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dryrun.json"
+        child = torch.multiprocessing.get_context("spawn").Process(
+            target=launch_child, args=(str(path),))
+        child.start()
+        child.join(timeout=LT_CHILD_TIMEOUT_S)
+        if child.is_alive():
+            child.kill()
+            child.join(timeout=30)
+            raise AssertionError(f"the dry run outlived "
+                                 f"{LT_CHILD_TIMEOUT_S} s")
+        if child.exitcode != 0:
+            raise AssertionError(f"the dry run exited with "
+                                 f"{child.exitcode}")
+        pred = json.loads(path.read_text())
+    out = {"cells": {}, "steps": {}}
+    for rec in pred["cells"]:
+        key = f"{rec['arch']} x {rec['shape']} on {rec['mesh']}"
+        ms = rec["memory_stats"]
+        out["cells"][key] = {
+            "dominant": rec["dominant"],
+            "bound_s": rec["step_time_bound_s"],
+            "compute_s": rec["compute_s"], "memory_s": rec["memory_s"],
+            "collective_s": rec["collective_s"],
+            "useful_ratio": rec["useful_ratio"],
+            "per_device_bytes": ms["per_device_bytes"],
+            "fits_hbm": ms["fits_hbm"], "rows_per_rank": rec["rows_per_rank"],
+            "kernel_calls": rec["kernel_calls"],
+            "attn_impl": rec["attn_impl"], "trace_s": rec["trace_s"]}
+        print(f"  dry run {key} ({rec['attn_impl']}): {rec['dominant']}-bound"
+              f" {rec['step_time_bound_s']:.4f} s, per device "
+              f"{ms['per_device_bytes'] / 1e9:.2f} GB, fits_hbm "
+              f"{ms['fits_hbm']}, useful_ratio {rec['useful_ratio']:.4f}, "
+              f"kernels {rec['kernel_calls']}, traced in "
+              f"{rec['trace_s']:.1f} s", flush=True)
+    cfg = get_config(ARCH)
+    model = lm.init_params(torch.Generator(device=DEV).manual_seed(seed),
+                           cfg, device=DEV)
+    for name, (shape, kw) in lt_shapes().items():
+        fn, args = _lt_args(name, cfg, shape, kw, model, seed)
+        out["steps"][name] = _lt_step(name, pred["steps"][name], fn, args)
+        del fn, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    tr = out["steps"]["train"]
+    err = abs(tr["predicted_bytes"] - tr["measured_peak_bytes"])
+    tr["peak_rel_err"] = err / tr["measured_peak_bytes"]
+    if tr["peak_rel_err"] > LT_MEM_RTOL:
+        raise AssertionError(f"the predicted train peak is "
+                             f"{tr['peak_rel_err']:.3f} off the measured one "
+                             f"(limit {LT_MEM_RTOL})")
+    if out["steps"]["prefill"]["kernel_calls"] != {"K4": cfg.num_layers}:
+        raise AssertionError(f"a prefill made "
+                             f"{out['steps']['prefill']['kernel_calls']} "
+                             f"kernel calls, not {cfg.num_layers} K4")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  launch tooling phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4331,6 +4574,14 @@ def main() -> int:
           f"card vs CPU for {', '.join(TRAIN_FAMILY_LIMITS)}, "
           f"{MOE_TRAIN_ARCH}'s layer, EP over {EP_RANKS} ranks", flush=True)
     tfp = train_families_path(args.seed)
+
+    # phase 13: the launch tooling's dry run against the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"launch tooling: dry run of {len(LT_CELLS)} cells at full width, "
+          f"then {ARCH}'s prefill, decode and train steps against the card",
+          flush=True)
+    ltp = launch_tooling(args.seed)
     print("main_path: " + json.dumps({
         "search_ms": main_ms, "queries_per_s": N_QUERIES / main_ms * 1e3,
         "blocks_skipped_frac": kt["skipped"],
@@ -4355,6 +4606,7 @@ def main() -> int:
     print("tenant_path: " + json.dumps(tp), flush=True)
     print("train_path: " + json.dumps(trp), flush=True)
     print("train_families: " + json.dumps(tfp), flush=True)
+    print("launch_tooling: " + json.dumps(ltp), flush=True)
     src = "src/repro_torch/kernels/csrc/topk_select.cu"
     # K1/K2 as they were before this design: CUDA-core popcounts, K2 as one
     # run (measured in this run by route_comparison)

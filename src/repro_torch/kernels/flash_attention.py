@@ -10,7 +10,11 @@ max(l, 1e-30); query head h reads kv head h // (H // KV).
 ``flash_attention_kernel`` runs the CUDA kernels (``csrc/flash_attention.cu``,
 built at first use) for CUDA tensors and ``flash_attention_plain`` for CPU
 tensors, and counts its kernel launches in
-``flash_attention_kernel.launches``. ``bq``/``bk`` are the TPU kernel's
+``flash_attention_kernel.launches``; the CUDA route is the
+``torch.library`` operator ``repro_torch::k4_flash_attention`` with a
+fake implementation, so tracing on fake tensors sees each call
+(``launch/op_analysis.py`` charges it with ``flash_attention_cost``) and
+counts no launch. ``bq``/``bk`` are the TPU kernel's
 VMEM tiles: S must be a multiple of both (``ops.flash_attention`` pads),
 as there; the CUDA kernels pick their own tiles. bfloat16 runs on the
 tensor cores (``mma.sync``, 64 query rows x 32 keys, fed by ``cp.async``
@@ -134,6 +138,40 @@ def refuse_grad(*ts: torch.Tensor) -> None:
             "models/attention.blockwise_causal_attention)")
 
 
+@torch.library.custom_op("repro_torch::k4_flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _k4_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int,
+           bk: int) -> torch.Tensor:
+    """K4's CUDA route as an operator that tracing sees (``bq``/``bk``
+    only size its cost, ``flash_attention_cost``)."""
+    return _k4_cuda(q, k, v)
+
+
+def _k4_cuda(q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """One K4 launch, counted."""
+    out = _launch(_lib(), q, k, v)
+    flash_attention_kernel.launches += 1
+    return out
+
+
+@_k4_op.register_fake
+def _k4_fake(q, k, v, bq, bk):
+    return torch.empty_like(q)
+
+
+def flash_attention_cost(q, k, v, bq: int, bk: int) -> tuple[float, float]:
+    """(FLOPs, HBM bytes) of one K4 call as ``repro``'s jaxpr analysis
+    charges its ``pallas_call`` on the grid (B, H, S/bq, S/bk): q and the
+    output once, k and v once per query block; FLOPs 4·B·H·S·S_k·hd·0.5
+    (the causal half)."""
+    B, H, S, hd = q.shape
+    nbytes = lambda t: t.numel() * t.element_size()
+    nq = S // min(bq, S)
+    io = 2 * nbytes(q) + nq * (nbytes(k) + nbytes(v))
+    return 4.0 * B * H * S * k.shape[2] * hd * 0.5, float(io)
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, bq: int = 512,
                            bk: int = 512) -> torch.Tensor:
@@ -141,7 +179,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     ``flash_attention_fwd``. The inputs may be strided views (the hd axis
     contiguous); the output has q's memory layout. Forward only, as in
     ``repro``: with gradients on and an input that requires them it
-    raises rather than return an output with no graph."""
+    raises rather than return an output with no graph. CUDA tensors go
+    through the operator ``repro_torch::k4_flash_attention`` (fake tensors
+    get its output's shape, and no launch)."""
     refuse_grad(q, k, v)
     dev = _check(q, k, v, bq, bk)
     if dev.type == "cpu":
@@ -153,9 +193,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                          f"got {q.dtype}, hd={hd}")
     if B > 65535 or H > 65535:
         raise ValueError(f"K4 takes B, H <= 65535; got B={B} H={H}")
-    out = _launch(_lib(), q, k, v)
-    flash_attention_kernel.launches += 1
-    return out
+    return _k4_op(q, k, v, min(bq, S), min(bk, S))
 
 
 flash_attention_kernel.launches = 0

@@ -28,7 +28,12 @@ with a run in place of a shard.
 
 Each wrapper runs its CUDA kernel (``csrc/topk_select.cu``, built at first
 use) for CUDA tensors and its plain PyTorch version for CPU tensors, and
-counts its kernel launches in ``<wrapper>.launches``. The plain versions
+counts its kernel launches in ``<wrapper>.launches``. The CUDA route is
+a ``torch.library`` operator (``repro_torch::k1_hist``, ``::k2_emit``)
+with a fake implementation, so tracing on fake tensors sees each call and
+its output shapes (``launch/op_analysis.py`` charges it with
+``hamming_hist_cost`` / ``hamming_emit_cost``) and launches nothing; a
+launch is counted where it is made, on real tensors only. The plain versions
 compute the same function tile for tile, one chunk of whole query blocks at
 a time so the (chunk, N) distance tensor stays bounded; ``chip_smoke.py``
 holds each kernel against its plain version on the card.
@@ -194,19 +199,20 @@ def hamming_hist_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
     outputs; ``block_mask`` (Q/bq, N/bn) disables tiles (None = all
     enabled). Q and N must be multiples of bq and bn. ``runs=R`` splits the
     tiles into R runs (module docstring) and returns, third, the (Q, R,
-    bins) int32 histogram of each run, which sums to ``hist``."""
+    bins) int32 histogram of each run, which sums to ``hist``. CUDA
+    tensors go through the operator ``repro_torch::k1_hist``."""
     dev = _device_of(q_packed, x_packed)
     Q, W = q_packed.shape
     N = x_packed.shape[0]
     bq, bn, sub = _check_geometry(Q, N, bq, bn, sub)
-    q32, x32 = _codes(q_packed), _codes(x_packed)
     nv = N if n_valid is None else int(n_valid)
     en = _tile_mask(block_mask, (Q // bq, N // bn), 1, dev)
     nqb, nnb = Q // bq, N // bn
     if runs is not None and int(runs) < 1:
         raise ValueError(f"runs must be >= 1, got {runs}")
     if dev.type == "cpu":
-        return hamming_hist_plain(q32, x32, bins, nv, en, bq, bn,
+        return hamming_hist_plain(_codes(q_packed), _codes(x_packed), bins,
+                                  nv, en, bq, bn,
                                   None if runs is None else int(runs))
 
     if bq > _HIST_THREADS * 4 or 4 * (bq * bins + 1) > _SMEM_LIMIT:
@@ -215,18 +221,59 @@ def hamming_hist_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
     if nqb > 65535:
         raise ValueError(f"K1 takes at most 65535 query blocks, got {nqb}")
     R = default_runs(nqb, nnb) if runs is None else int(runs)
-    hist = torch.zeros((Q, bins), dtype=torch.int32, device=dev)
-    bmin = torch.empty((nqb, nnb), dtype=torch.int32, device=dev)
-    run_hist = (None if runs is None else
-                torch.empty((Q, R, bins), dtype=torch.int32, device=dev))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (q_packed, x_packed, en, nv, bins, bq, bn, R, runs is not None)
+    hist, bmin, run_hist = _k1_op(*args)
+    return (hist, bmin) if runs is None else (hist, bmin, run_hist)
+
+
+@torch.library.custom_op("repro_torch::k1_hist", mutates_args=(),
+                         device_types="cuda")
+def _k1_op(q: torch.Tensor, x: torch.Tensor, en: torch.Tensor, n_valid: int,
+           bins: int, bq: int, bn: int, runs: int,
+           want_runs: bool) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """K1's CUDA route as an operator that tracing sees (``_k1_cuda``)."""
+    return _k1_cuda(q, x, en, n_valid, bins, bq, bn, runs, want_runs)
+
+
+def _k1_cuda(q, x, en, n_valid, bins, bq, bn, runs, want_runs):
+    """One K1 launch, counted: (hist, block_min, run_hist), the last (0,)
+    unless ``want_runs``."""
+    q32, x32 = _codes(q), _codes(x)
+    Q, W = q32.shape
+    N = x32.shape[0]
+    hist = torch.zeros((Q, bins), dtype=torch.int32, device=q.device)
+    bmin = torch.empty((Q // bq, N // bn), dtype=torch.int32,
+                       device=q.device)
+    run_hist = torch.empty((Q, runs, bins) if want_runs else (0,),
+                           dtype=torch.int32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().topk_hist_launch(
         q32.data_ptr(), x32.data_ptr(), en.data_ptr(), hist.data_ptr(),
-        bmin.data_ptr(), 0 if run_hist is None else run_hist.data_ptr(),
-        Q, N, W, nv, bins, bq, bn, R, stream)
+        bmin.data_ptr(), run_hist.data_ptr() if want_runs else 0,
+        Q, N, W, n_valid, bins, bq, bn, runs, stream)
     _raise_on(err, "K1 (topk_hist_launch)")
     hamming_hist_kernel.launches += 1
-    return (hist, bmin) if runs is None else (hist, bmin, run_hist)
+    return hist, bmin, run_hist
+
+
+@_k1_op.register_fake
+def _k1_fake(q, x, en, n_valid, bins, bq, bn, runs, want_runs):
+    Q, N = q.shape[0], x.shape[0]
+    new = lambda *shape: q.new_empty(shape, dtype=torch.int32)
+    return (new(Q, bins), new(Q // bq, N // bn),
+            new(Q, runs, bins) if want_runs else new(0))
+
+
+def hamming_hist_cost(q, x, en, n_valid, bins, bq, bn, runs,
+                      want_runs) -> tuple[float, float]:
+    """(FLOPs, HBM bytes) of one K1 call as ``repro``'s jaxpr analysis
+    charges its ``pallas_call`` (a 2-D grid): the operands (n_valid, the
+    tile mask, the int32 codes) and the first output (the histogram) once
+    each, no FLOPs."""
+    Q, W = q.shape
+    N = x.shape[0]
+    return 0.0, float(4 * (1 + en.numel() + Q * W + N * W + Q * bins))
 
 
 hamming_hist_kernel.launches = 0
@@ -312,12 +359,12 @@ def hamming_emit_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
 
     Returns (dists (Q, k), ids (Q, k)) int32, slot-ordered: dist < r* rows
     in index order from ``slot_base``, then r*-ties in index order from
-    ``n_lt``; untouched slots are 0."""
+    ``n_lt``; untouched slots are 0. CUDA tensors go through the operator
+    ``repro_torch::k2_emit``."""
     dev = _device_of(q_packed, x_packed)
     Q, W = q_packed.shape
     N = x_packed.shape[0]
     bq, bn, sub = _check_geometry(Q, N, bq, bn, sub)
-    q32, x32 = _codes(q_packed), _codes(x_packed)
     nv = N if n_valid is None else int(n_valid)
     ib = 0 if id_base is None else int(id_base)
     tiles = (Q // bq, N // bn)
@@ -337,22 +384,67 @@ def hamming_emit_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
                              f"{tuple(lt_base.shape)}, "
                              f"{tuple(tie_base.shape)}")
     if dev.type == "cpu":
-        return hamming_emit_plain(q32, x32, r, nlt, bins, k, nv, bm, en, sb,
-                                  ib, bq, bn, (lt_base, tie_base))
+        return hamming_emit_plain(_codes(q_packed), _codes(x_packed), r, nlt,
+                                  bins, k, nv, bm, en, sb, ib, bq, bn,
+                                  (lt_base, tie_base))
 
     if Q // bq > 65535:
         raise ValueError(f"K2 takes at most 65535 query blocks, got {Q // bq}")
-    out_d = torch.zeros((Q, k), dtype=torch.int32, device=dev)
-    out_i = torch.zeros((Q, k), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (q_packed, x_packed, en, bm, r, lt_base, tie_base, nv, ib, bins,
+            k, bq, bn)
+    return _k2_op(*args)
+
+
+@torch.library.custom_op("repro_torch::k2_emit", mutates_args=(),
+                         device_types="cuda")
+def _k2_op(q: torch.Tensor, x: torch.Tensor, en: torch.Tensor,
+           bm: torch.Tensor, r: torch.Tensor, lt_base: torch.Tensor,
+           tie_base: torch.Tensor, n_valid: int, id_base: int, bins: int,
+           k: int, bq: int, bn: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's CUDA route as an operator that tracing sees (``_k2_cuda``)."""
+    return _k2_cuda(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base,
+                    bins, k, bq, bn)
+
+
+def _k2_cuda(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base, bins,
+             k, bq, bn):
+    """One K2 launch, counted: (dists, ids)."""
+    q32, x32 = _codes(q), _codes(x)
+    Q, W = q32.shape
+    N = x32.shape[0]
+    out_d = torch.zeros((Q, k), dtype=torch.int32, device=q.device)
+    out_i = torch.zeros((Q, k), dtype=torch.int32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().topk_emit_launch(
         q32.data_ptr(), x32.data_ptr(), en.data_ptr(), bm.data_ptr(),
         r.data_ptr(), lt_base.data_ptr(), tie_base.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), Q, N, W, nv, ib, bins, k, bq, bn,
-        lt_base.shape[1], stream)
+        out_d.data_ptr(), out_i.data_ptr(), Q, N, W, n_valid, id_base, bins,
+        k, bq, bn, lt_base.shape[1], stream)
     _raise_on(err, "K2 (topk_emit_launch)")
     hamming_emit_kernel.launches += 1
     return out_d, out_i
+
+
+@_k2_op.register_fake
+def _k2_fake(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base, bins, k,
+             bq, bn):
+    Q = q.shape[0]
+    return (q.new_empty((Q, k), dtype=torch.int32),
+            q.new_empty((Q, k), dtype=torch.int32))
+
+
+def hamming_emit_cost(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base,
+                      bins, k, bq, bn) -> tuple[float, float]:
+    """(FLOPs, HBM bytes) of one K2 call as ``repro``'s jaxpr analysis
+    charges its ``pallas_call`` (a 2-D grid): its operands (n_valid,
+    id_base, the tile mask and block-min summary, the int32 codes, r*,
+    n_lt and slot_base) and the first output (the (Q, k) distances) once
+    each, no FLOPs. The run bases stand in for ``repro``'s (Q,) n_lt and
+    slot_base, which is what it charges."""
+    Q, W = q.shape
+    N = x.shape[0]
+    return 0.0, float(4 * (2 + en.numel() + bm.numel() + Q * W + N * W
+                           + 3 * Q + Q * k))
 
 
 hamming_emit_kernel.launches = 0

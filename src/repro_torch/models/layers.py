@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import handle_torch_function, has_torch_function
 
 from repro_torch.configs.base import ModelConfig
 
@@ -47,6 +48,18 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
     scale = scale if scale is not None else in_dim ** -0.5
     return _normal(gen, (in_dim, out_dim), scale, dtype,
                    device if device is not None else gen.device)
+
+
+def einsum_product(equation: str, compute, *operands) -> torch.Tensor:
+    """``compute()``: the einsum ``equation`` of ``operands`` written out
+    as broadcast products and sums (faster under autograd than
+    ``torch.einsum``'s batched products where most pairs have nothing to
+    sum). A torch function mode sees one call of this function with the
+    equation (``launch/op_analysis`` charges it as the einsum)."""
+    if has_torch_function(operands):
+        return handle_torch_function(einsum_product, operands, equation,
+                                     compute, *operands)
+    return compute()
 
 
 # ---------------------------------------------------------------------------

@@ -47,11 +47,13 @@ sequence chunk, the chunks gathered back over the expert axis.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.overrides import _get_current_function_mode_stack
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
@@ -421,6 +423,23 @@ def _stack_units(model: LM, cfg: ModelConfig, ctx: RunCtx, positions,
     return [(blk, fn) for blk in model.blocks], _stack
 
 
+def _same_function_modes():
+    """``checkpoint``'s contexts: the recomputation runs under the torch
+    function modes the forward ran under (the autograd engine does not
+    carry them into the backward pass; ``launch/op_analysis`` counts
+    ``torch.einsum`` through one)."""
+    modes = _get_current_function_mode_stack()
+
+    @contextlib.contextmanager
+    def recompute():
+        with contextlib.ExitStack() as stack:
+            for m in modes:
+                stack.enter_context(m)
+            yield
+
+    return contextlib.nullcontext(), recompute()
+
+
 def _run_stack(model: LM, cfg: ModelConfig, ctx: RunCtx, x, positions,
                want_cache: bool = False):
     """Returns (hidden, aux_loss, the decode state's cache or None); the
@@ -432,7 +451,8 @@ def _run_stack(model: LM, cfg: ModelConfig, ctx: RunCtx, x, positions,
     for unit, fn in units:
         if remat:
             x, aux_l = checkpoint(lambda u, h, f=fn: f(u, h)[:2], unit, x,
-                                  use_reentrant=False)
+                                  use_reentrant=False,
+                                  context_fn=_same_function_modes)
         else:
             x, aux_l, cache = fn(unit, x)
             caches.append(cache)

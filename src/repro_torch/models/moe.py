@@ -180,6 +180,25 @@ def _rank_in_group(group: torch.Tensor, num_groups: int) -> torch.Tensor:
                  group.long()]
 
 
+def _put_kept(buf: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
+              keep: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``buf`` (n, c + 1, ...) with ``values`` written at (i, j) where
+    ``keep``, cut to (n, c, ...): a dropped entry goes to the scratch
+    column c, as ``repro``'s ``.at[...].set(mode="drop")`` writes nothing
+    for an index out of bounds. Every shape is the data's, so the write traces on
+    fake tensors."""
+    c = buf.shape[1] - 1
+    buf[torch.where(keep, i, 0), torch.where(keep, j, c)] = values
+    return buf[:, :c]
+
+
+def _take_kept(src: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
+               keep: torch.Tensor) -> torch.Tensor:
+    """Rows ``src[i, j]`` where ``keep``, zero rows elsewhere."""
+    rows = src[torch.where(keep, i, 0), torch.where(keep, j, 0)]
+    return torch.where(keep[:, None], rows, 0)
+
+
 def _combine(flat_w: torch.Tensor, y_slot: torch.Tensor, T: int,
              K: int) -> torch.Tensor:
     """(T, d) f32: each token's K weighted outputs added in top-k order
@@ -411,11 +430,11 @@ def _moe_a2a_local(params: MoE, cfg: ModelConfig, x_loc: torch.Tensor,
     rank = _rank_in_group(dest, n_shards)
     keep = rank < c_send
 
-    send_x = x_loc.new_zeros((n_shards, c_send, d))
-    send_x[dest[keep], rank[keep]] = x_loc[flat_tok[keep]]
-    send_eid = torch.full((n_shards, c_send), -1, dtype=torch.int32,
-                          device=x_loc.device)
-    send_eid[dest[keep], rank[keep]] = flat_e[keep].to(torch.int32)
+    send_x = _put_kept(x_loc.new_zeros((n_shards, c_send + 1, d)), dest,
+                       rank, keep, x_loc[flat_tok])
+    send_eid = _put_kept(torch.full((n_shards, c_send + 1), -1,
+                                    dtype=torch.int32, device=x_loc.device),
+                         dest, rank, keep, flat_e.to(torch.int32))
 
     recv_x = _a2a_quantized(send_x, group, transport, a2a_int8)
     recv_eid = _all_to_all(send_eid, group, transport)
@@ -429,17 +448,15 @@ def _moe_a2a_local(params: MoE, cfg: ModelConfig, x_loc: torch.Tensor,
                                  / E_loc)), 8)
     erank = _rank_in_group(torch.where(valid, eloc, E_loc), E_loc + 1)
     ekeep = valid & (erank < c_exp)
-    xbuf = x_loc.new_zeros((E_loc, c_exp, d))
-    xbuf[eloc[ekeep], erank[ekeep]] = rx[ekeep]
+    xbuf = _put_kept(x_loc.new_zeros((E_loc, c_exp + 1, d)), eloc, erank,
+                     ekeep, rx)
     ybuf = _expert_ffn(params.w_gate, params.w_up, params.w_out, xbuf)
-    ry = x_loc.new_zeros((rx.shape[0], d))
-    ry[ekeep] = ybuf[eloc[ekeep], erank[ekeep]]
+    ry = _take_kept(ybuf, eloc, erank, ekeep)
 
     # --- return + combine ----------------------------------------------------
     back = _a2a_quantized(ry.reshape(n_shards, c_send, d), group, transport,
                           a2a_int8)
-    y_slot = x_loc.new_zeros((T_loc * K, d))
-    y_slot[keep] = back[dest[keep], rank[keep]]
+    y_slot = _take_kept(back, dest, rank, keep)
     out = _combine(flat_w, y_slot, T_loc, K)
     return out.to(x_loc.dtype), aux
 
@@ -473,11 +490,10 @@ def _moe_allgather_local(params: MoE, cfg: ModelConfig, x_loc: torch.Tensor,
     c_exp = _round_up(max(1, int(moe.capacity_factor * T * K / E)), 8)
     rank = _rank_in_group(eloc, E_loc + 1)
     keep = mine & (rank < c_exp)
-    xbuf = x_loc.new_zeros((E_loc, c_exp, d))
-    xbuf[eloc[keep], rank[keep]] = x_loc[flat_tok[keep]]
+    xbuf = _put_kept(x_loc.new_zeros((E_loc, c_exp + 1, d)), eloc, rank,
+                     keep, x_loc[flat_tok])
     ybuf = _expert_ffn(params.w_gate, params.w_up, params.w_out, xbuf)
-    y_slot = x_loc.new_zeros((T * K, d))
-    y_slot[keep] = ybuf[eloc[keep], rank[keep]]
+    y_slot = _take_kept(ybuf, eloc, rank, keep)
     out = _combine(flat_w, y_slot, T, K)
     out = _ep_exit(_psum(out, mesh, (ep_axis,)), n_shards)
     return out.to(x_loc.dtype), aux

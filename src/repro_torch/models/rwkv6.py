@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _empty, _normal, _param, dense_init
+from repro_torch.models.layers import (_empty, _normal, _param, dense_init,
+                                       einsum_product)
 
 WKV_CHUNK = 64
 
@@ -133,10 +134,16 @@ def _wkv_chunked(r, k, v, logw, bonus, chunk: int):
         decay = torch.where(tri_lower, torch.exp(torch.clamp(diff, max=0.0)),
                             0.0)
         # intra-chunk strict-past contribution
-        scores = (r_l[:, :, None] * decay * k_l[:, None, :]).sum(-1)
+        scores = einsum_product(
+            "bthi,btshi,bshi->btsh",
+            lambda: (r_l[:, :, None] * decay * k_l[:, None, :]).sum(-1),
+            r_l, decay, k_l)
         y = torch.einsum("btsh,bshj->bthj", scores, v_l)
         # current-token bonus
-        y = y + (r_l * bonus * k_l).sum(-1, keepdim=True) * v_l
+        y = y + einsum_product(
+            "bthi,hi,bthi,bthj->bthj",
+            lambda: (r_l * bonus * k_l).sum(-1, keepdim=True) * v_l,
+            r_l, bonus, k_l, v_l)
         # carried state: y_t += sum_i r[t,i] exp(L_{t-1})[i] S_in[i,j]
         rstate = r_l * torch.exp(lc - w_l)
         y = y + torch.einsum("bthi,bhij->bthj", rstate, state)
@@ -155,7 +162,10 @@ def _wkv_steps(r, k, v, logw, bonus, state):
     for t in range(r.shape[1]):
         r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], logw[:, t]
         y_t = (torch.einsum("bhi,bhij->bhj", r_t, state)
-               + (r_t * bonus * k_t).sum(-1, keepdim=True) * v_t)
+               + einsum_product(
+                   "bhi,hi,bhi,bhj->bhj",
+                   lambda: (r_t * bonus * k_t).sum(-1, keepdim=True) * v_t,
+                   r_t, bonus, k_t, v_t))
         state = (torch.exp(w_t)[..., None] * state
                  + torch.einsum("bhi,bhj->bhij", k_t, v_t))
         ys.append(y_t)

@@ -63,7 +63,10 @@ def test_the_scan_covers_every_module_of_the_port():
                 "core/tenant.py", "core/hierarchy.py", "dist/health.py",
                 "dist/sharding.py", "dist/search.py", "configs/shapes.py",
                 "data/pipeline.py", "optim/optimizer.py",
-                "runtime/trainer.py", "launch/train.py"):
+                "runtime/trainer.py", "launch/train.py", "launch/mesh.py",
+                "launch/specs.py", "launch/op_analysis.py",
+                "launch/collectives.py", "launch/roofline.py",
+                "launch/dryrun.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
