@@ -45,9 +45,10 @@ kernel launch counts set to 0 just before it and read just after:
   server answering 16 requests with retrieval in every decode step; and
   one decode batch's retrieval through the fused select (K1 + K2), equal
   to the composite path the config's plan picks. K4 is held against its
-  plain version on edge cases (ragged S, GQA, S=1) and at the main shape,
-  and timed there on both routes: bf16 on the tensor cores, f32 on the
-  CUDA cores. The same model and store then serve under a
+  plain version on edge cases (ragged S, GQA, S=1, S on either side of
+  the bf16 kernel's 64-key and 128-row tiles at hd 256 and 80) and at the
+  main shape, and timed there on both routes: bf16 on the tensor cores
+  (wgmma), f32 on the CUDA cores. The same model and store then serve under a
   ``DegradationPolicy`` with snapshots: a burst walks the ladder (exact,
   approx_rt95, approx_rt90, approx_rt80, retrieval_off) down and calm
   ticks walk it back, every rung visited and nothing lost; a fault
@@ -364,6 +365,9 @@ EP_B, EP_S, EP_X_SCALE = 2, 512, 0.1
 EP_REL_MAX, EP_INT8_ATOL, EP_TIMED = 1e-4, 0.05, 3
 EP_STRATEGIES = (("a2a", "a2a", False), ("allgather", "allgather", False),
                  ("a2a_int8", "a2a", True))
+# S on either side of the bf16 kernel's tiles (64 keys, 64 rows a
+# warpgroup, 128 a CTA)
+K4_TILE_EDGES = (63, 64, 65, 127, 128, 129, 191, 257)
 # the (H, KV, hd) the new families bring to K4: internlm2, granite (MQA),
 # deepseek, arctic (groups of 7), kimi-k2 (hd 112), musicgen (MHA, hd 64)
 K4_NEW_SHAPES = ((48, 8, 128), (48, 1, 128), (64, 8, 128), (56, 8, 128),
@@ -1378,6 +1382,15 @@ def run_k4_cases():
             for S in (1, 300):
                 err = max(err, k4_case(f"H={H} KV={KV} hd={hd}, S={S}", 2,
                                        S, H, KV, hd, dt))
+    # the bf16 kernel's tile edges (warpgroups of 64 query rows, 128 a CTA;
+    # key tiles of 64): S on either side of them, bq = bk = 1 so ops adds
+    # no padding; gemma-2b's and zamba2-2.7b's heads, internlm2-20b's GQA
+    for H, KV, hd in ((8, 1, 256), (4, 4, 80)):
+        for S in K4_TILE_EDGES:
+            err = max(err, k4_case(f"tile edge, hd={hd}, S={S}", 1, S, H,
+                                   KV, hd, torch.bfloat16, 1, 1))
+    err = max(err, k4_case("tile edge, H=48 KV=8 hd=128, S=129", 2, 129,
+                           48, 8, 128, torch.bfloat16, 1, 1))
     return err
 
 
@@ -4643,6 +4656,7 @@ def main() -> int:
          "bound_route": "bf16 tensor cores" if k4["bound_by"] ==
          "operations" else "HBM bytes", "library_ms": k4["library_ms"],
          "head_dims": list(fa._HEAD_DIMS),
+         "bf16_tile": {hd: fa.bf16_tile(hd) for hd in fa._HEAD_DIMS},
          "recurrent_launches_per_prefill": {
              a: rp[a]["k4_launches_per_prefill"] for a in REC_ARCHS},
          "zamba2_prefill_hd80": dict(

@@ -17,77 +17,93 @@
 // GFLOP, 0.139 ms at the 989 TFLOP/s of the bf16 tensor cores (dense),
 // against 0.045 ms for the 151 MB of HBM bytes: operations set the bound.
 //
-// == bfloat16: flash_fwd_tc_kernel<HD>, on the tensor cores ==
+// == bfloat16: flash_fwd_tc_kernel<HD>, on Hopper's wgmma ==
 //
-// Tiles. One CTA of 4 warps per (query block of BQ = 64 rows, head,
-// batch); warp w owns the m16 strip of rows 16w .. 16w + 15. The CTA
-// walks key tiles of BK = 32 from key 0 up to its last row. Two CTAs share
-// an SM (__launch_bounds__(128, 2)), so one CTA's softmax and barriers
-// overlap the other's products. The grid is one-dimensional with the query
+// Tiles. One CTA of WG = 2 warpgroups (256 threads) per (query block of
+// BQ = 128 rows, head, batch); warpgroup w owns rows 64w .. 64w + 63, one
+// wgmma M tile, and warp i of it the 16-row strip 16i .. 16i + 15. The CTA
+// walks key tiles of BK = 64 from key 0 up to its last row; a warpgroup
+// skips, as a whole, every tile wholly past its last row (wgmma is a
+// warpgroup-collective instruction), and only tiles crossing a warp's
+// diagonal compute the mask. The grid is one-dimensional with the query
 // block slowest and issued longest first (block nq - 1 first): late blocks
-// see the most keys, and the long ones would otherwise form a tail.
-// The O accumulator takes 128 of the 255 registers a thread may hold at
-// HD = 256, which sets the tile: 128 x 64 with 8 warps (one CTA per SM)
-// spilled 100 bytes and was slower on the card, 128 x 32 did not spill
-// and was slower still (PERF.md, PR 15, chip_k4_tiles.py).
+// see the most keys, and the long ones would otherwise form a tail. A
+// thread holds hd / 2 f32 of O (128 at hd = 256), BK / 2 scores and, a
+// k16 slice at a time, 8 registers of P: hd = 256 runs one CTA an SM (223
+// registers), hd <= 128 two (128 registers, no spills), whose barriers
+// and softmax interleave (Tile<HD>; chip_k4_tiles.py times the
+// alternatives).
 //
-// Shared memory. Q (BQ x HD bf16) and two stages each of K and V (BK x HD
-// bf16), every row padded by 16 bytes (row stride HD + 8 elements). At
-// HD = 256 a row is then 33 16-byte units (11 at 80, 15 at 112, 17 at
-// 128: every one odd), so the 8 row addresses of an ldmatrix fall in 8
-// different bank groups; an unpadded 512-byte stride would put all 8 in
-// the same banks. Padding rather than an XOR swizzle:
-// the addresses stay plain and the extra 3 KB fit. 99 KB per CTA at
-// HD = 256, set with cudaFuncSetAttribute; two CTAs fit in the SM's 228 KB.
+// Shared memory in wgmma's canonical layouts. Q (BQ x hd), then STAGES = 2
+// stages each of K and of V (BK x hd), all bf16, each tile stored as hd /
+// PW panels of PW columns (PW = 64 where hd is a multiple of 64, 32 at hd
+// = 32, 16 at hd = 80 and 112: 160- and 224-byte rows are multiples of 32
+// bytes only). A panel's rows are 2 * PW bytes apart, and the 16-byte chunk
+// index of a row is XORed with the row's offset bits 7 and up: the 128-,
+// 64- or 32-byte swizzle, which a descriptor names and under which the 8
+// rows of a core matrix fall in 8 different bank groups. Padded rows, as
+// the mma.sync kernel had, no descriptor can describe. Q and K are K-major
+// operands (hd contiguous, the products' depth); V, stored the same way,
+// is the MN-major B operand of P V (the transpose bit), so no copy is ever
+// transposed. The buffer starts on a 1024-byte boundary (the 128-byte
+// swizzle's atom): 193 KiB at hd = 256, 97 KiB at 128, set with
+// cudaFuncSetAttribute. 32-byte panels at every hd were 8-20 % slower at
+// hd 128 and 256 (chip_k4_tiles.py).
 //
-// Copies. cp.async.cg 16-byte copies: Q once with K/V tile 0, then K/V
-// tile j + 1 into the other stage while tile j computes (commit_group,
-// wait_group 1, a barrier; a second barrier before a stage is refilled).
-// Rows at or past S are zero-filled (src-size 0); the causal mask hides
-// them from every stored row. The wrapper hands only 16-byte aligned base
-// pointers and strides.
+// Copies. cp.async.cg 16-byte copies by all threads into the swizzled
+// addresses, each thread at the same offset within every pass of rows:
+// Q once with K/V tile 0, then at tile j, once every thread has waited for
+// its copies of tile j (wait_group), fenced them for wgmma's reads
+// (fence.proxy.async) and passed the one barrier of the tile, tile j + 1
+// into the stage tile j - 1 left. Rows at or past S are zero-filled
+// (src-size 0); the causal mask hides them from every stored row. The
+// wrapper hands only 16-byte aligned base pointers and strides.
 //
-// S = Q K^T. For each k16 slice of hd: ldmatrix.x4 loads the warp's Q
-// fragment (the row-major A operand), ldmatrix.x4 without .trans two n8
-// key tiles of K (K stored [key][hd] is exactly the "col" B operand), and
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 accumulates in f32.
-// Nothing pairs k16 slices, so an odd count (5 at hd = 80, 7 at 112) needs
-// no tail; PV pairs n8 tiles of hd, and hd / 8 is even for every hd that
-// is a multiple of 16 (the head dims instantiated: 32, 64, 80, 112, 128,
-// 256). The O accumulator is hd / 2 registers a thread (40 at hd = 80).
-// Q is re-read from shared memory on every key tile rather than held in
-// registers: at HD = 256 the O accumulator alone is 128 registers a
-// thread. The f32 scores are scaled by hd^-0.5 after the product. At
-// hd = 256 and 64 the scale is a power of two, so this equals the Pallas
-// kernel's (q * scale) . k up to summation order; at hd = 32, 80, 112 and
-// 128 it differs by one f32 rounding of each q element.
+// S = Q K^T: hd / 16 wgmma.mma_async m64n64k16 (5 at hd = 80, 7 at 112),
+// A and B both from shared-memory descriptors, then commit_group and
+// wait_group 0. A warp's slice of the f32 accumulator is mma.sync's C
+// fragment: rows g and g + 8 of its strip, columns 2t and 2t + 1 of each n8
+// tile. The scores are scaled by hd^-0.5 after the product. At hd = 256
+// and 64 the scale is a power of two, so this equals the Pallas kernel's
+// (q * scale) . k up to summation order; at hd = 32, 80, 112 and 128 it
+// differs by one f32 rounding of each q element.
 //
-// Softmax. Only key tiles that cross a warp's diagonal compute the mask;
-// a warp whose rows all lie before a tile's first key skips the tile (its
-// p would be 0 and alpha 1). A thread holds rows g and g + 8 of its strip
-// (g = lane / 4, the C fragment's layout); the row max reduces over the 4
-// lanes of a row (__shfl_xor_sync over 1 and 2). m, l and alpha are f32
-// per row; each lane sums its own p into a partial l, rescaled by the
-// row's alpha, and the 4 partials are added at the end. l sums the f32 p.
+// Softmax on that fragment: the row max reduces over the 4 lanes of a row
+// (__shfl_xor_sync over 1 and 2); m, l and alpha are f32 per row; each
+// lane sums its own p into a partial l, rescaled by the row's alpha, and
+// the 4 partials are added at the end. p = exp(s - m) is computed as
+// 2^((s - m) log2 e) on the special-function unit (ex2.approx, 2 ulps),
+// which took a quarter of the kernel's time as expf. O is rescaled by
+// alpha once wait_group has handed the accumulator back to ordinary code,
+// and not at all where no row max of the warp moved (alpha is then exactly
+// 1).
 //
-// P as two bf16 halves. hi = bf16(p), lo = bf16(p - hi). The f32 C layout
-// of two adjacent n8 score tiles is the A layout of one k16 bf16
-// fragment, so both halves are packed straight from the score registers,
-// with no trip through shared memory. PV is two mma.syncs per V fragment,
-// hi . V + lo . V, with V loaded once by ldmatrix.x4.trans. p keeps about
-// 2^-17 of relative error instead of bf16's 2^-9, which holds the output
-// within 2 bf16 ulps of the f32 plain version. The lo product makes the
-// kernel's own work 1.5x the function's (206.2 against 137.4 GFLOP at the
-// main shape); the bound stays the function's.
+// P as two bf16 halves, in registers. hi = bf16(p), lo = bf16(p - hi), a
+// pair of columns at a time (cvt.rn.bf16x2.f32). The f32 C layout of two
+// adjacent n8 score tiles is the A layout of one k16 bf16 fragment, which
+// is also wgmma's register A operand, so both halves are packed straight
+// from the score registers. O += P V is two wgmma m64n{hd}k16 a k16 slice
+// of keys, hi . V and lo . V, with V's descriptor as B. p keeps about 2^-17
+// of relative error instead of bf16's 2^-9, which holds the output within
+// 2 bf16 ulps of the f32 plain version. The lo product makes the kernel's
+// own work 1.5x the function's (206.2 against 137.4 GFLOP at the main
+// shape); the bound stays the function's.
+//
+// The warpgroup index comes through __shfl_sync, which tells ptxas it is
+// uniform over the warp: without it ptxas serializes the wgmma of a
+// branch that depends on it (C7520), and the kernel ran 8 % slower.
 //
 // Epilogue. acc / max(l, 1e-30) as bf16 pairs through the output strides;
 // rows at or past S are not stored.
 //
-// What still separates it from the bound: mma.sync (one warp, m16n8k16)
-// instead of Hopper's wgmma (a warpgroup, 64-row tiles, B straight from
-// shared memory); every warp re-reading the whole K and V tile through
-// ldmatrix; cp.async issued by the computing warps instead of TMA and a
-// producer warp (no warp specialisation); and the lo product.
+// What still separates it from the bound (chip_k4_tiles.py --ablations):
+// the CTA's two warpgroups pass one barrier a tile, so both multiply, then
+// both take the softmax, then both multiply again, and only at hd <= 128
+// does the other CTA fill the gap (the barrier alone costs ~5 %); each
+// warpgroup waits for its Q K^T before the softmax and for its P V before
+// the next tile; the copies are issued by the computing threads (~5-10 %)
+// instead of TMA and an mbarrier ring fed by a producer warp; and the lo
+// product (~10-15 %).
 //
 // == float32: flash_fwd_kernel<float, HD>, on the CUDA cores ==
 //
@@ -114,8 +130,8 @@
 // Any S works: rows >= S are not stored and keys >= S load as zeros, which
 // the causal mask hides from every stored row.
 //
-// Plain C entry point, loaded with ctypes. It returns cudaGetLastError()
-// (or the error of cudaFuncSetAttribute) as an int.
+// Plain C entry points, loaded with ctypes. The launch returns
+// cudaGetLastError() (or the error of cudaFuncSetAttribute) as an int.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -131,6 +147,7 @@ constexpr int BK = 32;               // keys per step, one per lane
 constexpr int WARPS = 8;
 constexpr int ROWS = BQ / WARPS;     // query rows per warp
 constexpr float NEG_INF = -1e30f;    // the Pallas kernel's mask value
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -308,16 +325,23 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;               // query rows per CTA, 16 per warp
-constexpr int BK = 32;               // keys per tile
-constexpr int WARPS = BQ / 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;               // bf16 elements (16 bytes) per row
-constexpr int MIN_CTAS = 2;          // CTAs resident on one SM
+constexpr int WG = 2;                // warpgroups of a CTA, 64 query rows each
+constexpr int BQ = 64 * WG;          // query rows per CTA
+constexpr int THREADS = 128 * WG;
 
 template <int HD>
-constexpr size_t smem_bytes() {      // Q, then 2 stages of K, then of V
-  return sizeof(bf16) * (BQ + 4 * BK) * (HD + PAD);
+struct Tile {
+  static constexpr int BK = 64;      // keys per tile
+  static constexpr int STAGES = 2;   // K/V tiles in shared memory
+  // panel width in elements: the widest swizzle atom whose rows divide hd
+  static constexpr int PW = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
+  static constexpr int MIN_CTAS = HD <= 128 ? 2 : 1;  // resident on one SM
+};
+
+template <int HD>
+constexpr size_t smem_bytes() {      // Q, K stages, V stages, 1 KB to align
+  return sizeof(bf16) * (BQ + 2 * Tile<HD>::STAGES * Tile<HD>::BK) * HD +
+         1024;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -340,68 +364,187 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// four 8 x 8 b16 matrices; lanes 8i .. 8i + 7 give the row addresses of
-// matrix i, and r[i] holds its elements (lane / 4, 2 * (lane % 4) + {0, 1})
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+// the copies' shared-memory writes made visible to wgmma's operand reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// the same, transposed: r[i] holds (2 * (lane % 4) + {0, 1}, lane / 4)
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-// d (16 x 8, f32) += a (16 x 16, row) . b (16 x 8, col), bf16 operands
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// two bf16 in one register, the first in the low half (fragment order)
-__device__ __forceinline__ unsigned pack(bf16 x0, bf16 x1) {
-  return static_cast<unsigned>(__bfloat16_as_ushort(x0)) |
-         static_cast<unsigned>(__bfloat16_as_ushort(x1)) << 16;
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of an accumulator across the
+// asynchronous products that read and write it
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// Byte offset of 16-byte chunk c of row r within a panel. A tile is hd /
+// PW panels of its rows x PW elements, one after another, each row PB = 2 *
+// PW bytes; a chunk's index is XORed with bits 7 and up of its row's
+// offset, as wgmma's 128-, 64- and 32-byte swizzle modes read it (panels of
+// 64, 32 and 16 elements).
+template <int HD>
+__device__ __forceinline__ unsigned swizzled(int r, int c) {
+  constexpr int PB = 2 * Tile<HD>::PW, CH = PB / 16;
+  return r * PB + ((c ^ ((r * PB >> 7) & (CH - 1))) << 4);
+}
+
+// rows r0 .. r0 + ROWS - 1 of a (rows, HD) bf16 matrix with row stride rs
+// into the panel layout at shared address dst; rows >= S read as zeros.
+// Thread tid copies chunk tid % CH of rows tid / CH + RP i (RP = THREADS /
+// CH rows a pass) in every panel: consecutive threads take the chunks of
+// one panel row, then the next row, so the 8 chunks a quarter-warp writes
+// land in 8 different bank groups. RP * PB is a multiple of 1024 bytes, so
+// the swizzle term, and the thread's offset within a pass, is the same for
+// all its rows.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(unsigned dst, const bf16* src,
+                                          long long rs, int r0, int S,
+                                          int tid) {
+  constexpr int PW = Tile<HD>::PW, PB = 2 * PW, CH = PW / 8;
+  constexpr int RP = THREADS / CH;
+  const int c = tid % CH, rt = tid / CH;
+  const unsigned d = dst + swizzled<HD>(rt, c);
+#pragma unroll
+  for (int rr = 0; rr < (ROWS + RP - 1) / RP; ++rr) {
+    const int r = rt + rr * RP;
+    if (ROWS % RP && r >= ROWS) break;
+    const int s = r0 + r;
+    const bool in = s < S;
+    const bf16* row = src + (in ? s * rs : 0) + c * 8;
+#pragma unroll
+    for (int p = 0; p < HD / PW; ++p)
+      cp_async16(d + (p * ROWS + rr * RP) * PB, row + p * PW, in ? 16 : 0);
+  }
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode in bits 62-63 (1: 128
+// bytes, 2: 64, 3: 32)
+template <int HD>
+__device__ __forceinline__ unsigned long long desc(unsigned addr,
+                                                   unsigned lbo,
+                                                   unsigned sbo) {
+  constexpr unsigned long long MODE =
+      Tile<HD>::PW == 64 ? 1 : Tile<HD>::PW == 32 ? 2 : 3;
+  return static_cast<unsigned long long>((addr & 0x3ffff) >> 4) |
+         static_cast<unsigned long long>(lbo >> 4) << 16 |
+         static_cast<unsigned long long>(sbo >> 4) << 32 | MODE << 62;
+}
+
+// x0, x1 rounded to bf16 in one register, x0 in the low half (fragment
+// order): one cvt.rn.bf16x2.f32
+__device__ __forceinline__ unsigned pack(float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const unsigned*>(&h);
 }
 
 // p0, p1 -> bf16 hi and lo halves with p = hi + lo to ~2^-17
 __device__ __forceinline__ void split(float p0, float p1, unsigned& hi,
                                       unsigned& lo) {
-  const bf16 h0 = __float2bfloat16_rn(p0), h1 = __float2bfloat16_rn(p1);
-  hi = pack(h0, h1);
-  lo = pack(__float2bfloat16_rn(p0 - __bfloat162float(h0)),
-            __float2bfloat16_rn(p1 - __bfloat162float(h1)));
+  hi = pack(p0, p1);
+  const float2 h = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&hi));
+  lo = pack(p0 - h.x, p1 - h.y);
 }
 
-// rows r0 .. r0 + ROWS - 1 of a (rows, HD) bf16 matrix with row stride rs
-// into shared memory with row stride HD + PAD; rows >= S read as zeros
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long rs, int r0, int S,
-                                          int tid) {
-  constexpr int UNITS = HD / 8;      // 16-byte units per row
-  constexpr int ALL = ROWS * UNITS;
-#pragma unroll
-  for (int it = 0; it < (ALL + THREADS - 1) / THREADS; ++it) {
-    const int i = tid + it * THREADS, r = i / UNITS, c = i % UNITS;
-    if (ALL % THREADS && i >= ALL) break;
-    const int s = r0 + r;
-    const bool in = s < S;
-    cp_async16(smem_addr(dst + r * (HD + PAD) + c * 8),
-               src + (in ? s * rs + c * 8 : 0), in ? 16 : 0);
-  }
+// 2^x on the special-function unit (ex2.approx: 2 ulps); tiny results
+// flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
+
+// wgmma.mma_async m64nNk16, f32 += bf16 . bf16. The N / 2 accumulator
+// registers of a thread are operands %0 .. %(N / 2 - 1), written out eight
+// at a time; the operands after them are numbered at each instantiation.
+#define K4_G0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define K4_G1 "%8, %9, %10, %11, %12, %13, %14, %15"
+#define K4_G2 "%16, %17, %18, %19, %20, %21, %22, %23"
+#define K4_G3 "%24, %25, %26, %27, %28, %29, %30, %31"
+#define K4_G4 "%32, %33, %34, %35, %36, %37, %38, %39"
+#define K4_G5 "%40, %41, %42, %43, %44, %45, %46, %47"
+#define K4_G6 "%48, %49, %50, %51, %52, %53, %54, %55"
+#define K4_G7 "%56, %57, %58, %59, %60, %61, %62, %63"
+#define K4_G8 "%64, %65, %66, %67, %68, %69, %70, %71"
+#define K4_G9 "%72, %73, %74, %75, %76, %77, %78, %79"
+#define K4_G10 "%80, %81, %82, %83, %84, %85, %86, %87"
+#define K4_G11 "%88, %89, %90, %91, %92, %93, %94, %95"
+#define K4_G12 "%96, %97, %98, %99, %100, %101, %102, %103"
+#define K4_G13 "%104, %105, %106, %107, %108, %109, %110, %111"
+#define K4_G14 "%112, %113, %114, %115, %116, %117, %118, %119"
+#define K4_G15 "%120, %121, %122, %123, %124, %125, %126, %127"
+#define K4_L16 K4_G0 ", " K4_G1
+#define K4_L32 K4_L16 ", " K4_G2 ", " K4_G3
+#define K4_L40 K4_L32 ", " K4_G4
+#define K4_L56 K4_L40 ", " K4_G5 ", " K4_G6
+#define K4_L64 K4_L56 ", " K4_G7
+#define K4_L128 K4_L64 ", " K4_G8 ", " K4_G9 ", " K4_G10 ", " K4_G11 \
+    ", " K4_G12 ", " K4_G13 ", " K4_G14 ", " K4_G15
+#define K4_F8(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), \
+    "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
+    "+f"(d[i + 7])
+#define K4_C16(d) K4_F8(d, 0), K4_F8(d, 8)
+#define K4_C32(d) K4_C16(d), K4_F8(d, 16), K4_F8(d, 24)
+#define K4_C40(d) K4_C32(d), K4_F8(d, 32)
+#define K4_C56(d) K4_C40(d), K4_F8(d, 40), K4_F8(d, 48)
+#define K4_C64(d) K4_C56(d), K4_F8(d, 56)
+#define K4_C128(d) K4_C64(d), K4_F8(d, 64), K4_F8(d, 72), K4_F8(d, 80), \
+    K4_F8(d, 88), K4_F8(d, 96), K4_F8(d, 104), K4_F8(d, 112), K4_F8(d, 120)
+
+template <int N>
+struct Wgmma;
+
+// ss: a (64 x 16) and b (16 x N) from shared memory, both K-major; d = a .
+// b, plus d where scale_d is not 0. rs: a from registers (each warp's 16
+// rows in mma.sync's A fragment), b MN-major (the transpose bit); d += a . b
+#define K4_WGMMA(N, LIST, OPS, R0, R1, R2, R3, R4, R5)                      \
+  template <>                                                               \
+  struct Wgmma<N> {                                                         \
+    static __device__ __forceinline__ void ss(float (&d)[N / 2],            \
+                                              unsigned long long da,        \
+                                              unsigned long long db,        \
+                                              int scale_d) {                \
+      asm volatile(                                                         \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" #R2 ", 0;\n"                 \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "      \
+          "{" LIST "}, %" #R0 ", %" #R1 ", p, 1, 1, 0, 0;\n}\n"             \
+          : OPS(d) : "l"(da), "l"(db), "r"(scale_d) : "memory");            \
+    }                                                                       \
+    static __device__ __forceinline__ void rs(float (&d)[N / 2],            \
+                                              const unsigned (&a)[4],       \
+                                              unsigned long long db) {      \
+      asm volatile(                                                         \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" #R5 ", 0;\n"                 \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "      \
+          "{" LIST "}, {%" #R0 ", %" #R1 ", %" #R2 ", %" #R3 "}, %" #R4     \
+          ", p, 1, 1, 1;\n}\n"                                              \
+          : OPS(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),  \
+            "r"(1) : "memory");                                             \
+    }                                                                       \
+  };
+
+K4_WGMMA(32, K4_L16, K4_C16, 16, 17, 18, 19, 20, 21)
+K4_WGMMA(64, K4_L32, K4_C32, 32, 33, 34, 35, 36, 37)
+K4_WGMMA(80, K4_L40, K4_C40, 40, 41, 42, 43, 44, 45)
+K4_WGMMA(112, K4_L56, K4_C56, 56, 57, 58, 59, 60, 61)
+K4_WGMMA(128, K4_L64, K4_C64, 64, 65, 66, 67, 68, 69)
+K4_WGMMA(256, K4_L128, K4_C128, 128, 129, 130, 131, 132, 133)
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, MIN_CTAS)
+__global__ void __launch_bounds__(THREADS, Tile<HD>::MIN_CTAS)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o, int S,
                     int H, int G, int BH, int nq,
@@ -411,150 +554,145 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     long long osb, long long osh, long long oss,
                     float scale) {
   static_assert(HD % 16 == 0, "k16 slices of hd");
-  constexpr int LD = HD + PAD;       // shared row stride, elements
-  constexpr int NO = HD / 8;         // n8 tiles of an output row
-  constexpr int NS = BK / 8;         // n8 tiles of a score row
+  constexpr int BK = Tile<HD>::BK, STAGES = Tile<HD>::STAGES;
+  constexpr int PW = Tile<HD>::PW, PB = 2 * PW;
+  static_assert(HD % PW == 0 && BK % 16 == 0, "whole panels and k16 slices");
+  constexpr int NO = HD / 2;         // O accumulator floats a thread
+  constexpr int NS = BK / 2;         // score floats a thread
+  constexpr int KT = BK / 16;        // k16 slices of a key tile
+  constexpr unsigned TILE = BK * HD * sizeof(bf16);
   extern __shared__ uint4 smem_tc[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
-  bf16* Ks = Qs + BQ * LD;           // stage st at Ks + st * BK * LD
-  bf16* Vs = Ks + 2 * BK * LD;
+  // Q, then the K stages, then the V stages, from a 1024-byte boundary
+  // (the 128-byte swizzle's atom: 8 rows of 128 bytes)
+  const unsigned Qs = (smem_addr(smem_tc) + 1023) & ~1023u;
+  const unsigned Ks = Qs + BQ * HD * sizeof(bf16);
+  const unsigned Vs = Ks + STAGES * TILE;
 
   // longest first: the last query block is issued first
   const int qb = nq - 1 - static_cast<int>(blockIdx.x) / BH;
   const int bh = static_cast<int>(blockIdx.x) % BH;
   const int h = bh % H, b = bh / H, kvh = h / G;
   const int q0 = qb * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16;     // the warp's first query position
+  // wg through a shuffle: ptxas then knows it is uniform over the warp
+  const int tid = threadIdx.x, wg = __shfl_sync(FULL, tid >> 7, 0);
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = q0 + 64 * wg;       // the warpgroup's first query position
+  const int r0 = w0 + 16 * warp;     // the warp's
   const bf16* qp = q + b * qsb + h * qsh;
   const bf16* kp = k + b * ksb + kvh * ksh;
   const bf16* vp = v + b * vsb + kvh * vsh;
   const int nk = (min(q0 + BQ, S) + BK - 1) / BK;
+  // the key tiles the warpgroup computes: those holding a key <= w0 + 63
+  const int wk = w0 < S ? min(nk, (w0 + 64 + BK - 1) / BK) : 0;
 
-  load_rows<HD, BQ>(Qs, qp, qss, q0, S, tid);
-  load_rows<HD, BK>(Ks, kp, kss, 0, S, tid);
-  load_rows<HD, BK>(Vs, vp, vss, 0, S, tid);
-  cp_async_commit();
+  load_tile<HD, BQ>(Qs, qp, qss, q0, S, tid);
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < nk) {
+      load_tile<HD, BK>(Ks + j * TILE, kp, kss, j * BK, S, tid);
+      load_tile<HD, BK>(Vs + j * TILE, vp, vss, j * BK, S, tid);
+    }
+    cp_async_commit();               // one group per tile, empty or not
+  }
 
-  float acc[NO][4];
+  float acc[NO];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  // each lane's ldmatrix row address within a tile:
-  // Q (A): rows lane % 16, columns 8 * (lane / 16) -> a0..a3
-  const unsigned q_lane =
-      smem_addr(Qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
-  // K (B of two n8 key tiles): keys lane % 8 + 8 * (lane / 16), columns
-  // 8 * (lane / 8 % 2) -> b0, b1 of the first tile, b0, b1 of the second
-  const int k_lane =
-      ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
-  // V (.trans, B of two n8 hd tiles): keys lane % 8 + 8 * (lane / 8 % 2),
-  // columns 8 * (lane / 16) -> b0, b1 of the first tile, of the second
-  const int v_lane =
-      ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+  // the warpgroup's 64 rows of Q; each panel holds BQ rows
+  const unsigned qa = Qs + 64 * wg * PB;
 
   for (int j = 0; j < nk; ++j) {
-    const int st = j & 1, k0 = j * BK;
-    if (j + 1 < nk) {                // tile j + 1 into the other stage
-      load_rows<HD, BK>(Ks + (st ^ 1) * BK * LD, kp, kss, k0 + BK, S, tid);
-      load_rows<HD, BK>(Vs + (st ^ 1) * BK * LD, vp, vss, k0 + BK, S, tid);
-      cp_async_commit();
-      cp_async_wait<1>();            // everything but tile j + 1 landed
-    } else {
-      cp_async_wait<0>();
+    const int st = j % STAGES, k0 = j * BK;
+    cp_async_wait<STAGES - 2>();     // tile j (and Q) landed
+    fence_proxy_async();
+    __syncthreads();                 // for every thread; all are done with
+    const int jn = j + STAGES - 1;   // tile j - 1, whose stage jn takes
+    if (jn < nk) {
+      load_tile<HD, BK>(Ks + jn % STAGES * TILE, kp, kss, jn * BK, S, tid);
+      load_tile<HD, BK>(Vs + jn % STAGES * TILE, vp, vss, jn * BK, S, tid);
     }
-    __syncthreads();
+    cp_async_commit();
 
-    if (k0 <= r0 + 15) {             // some row of the warp sees key k0
-      const unsigned k_base = smem_addr(Ks + st * BK * LD + k_lane);
-      const unsigned v_base = smem_addr(Vs + st * BK * LD + v_lane);
+    if (j < wk) {                    // uniform over the warpgroup
+      const unsigned ka = Ks + st * TILE, va = Vs + st * TILE;
 
-      // S = Q K^T in f32: s[n] is the C fragment of keys k0 + 8n ..
-      float s[NS][4];
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      // S = Q K^T in f32. Q and K are K-major: slice kk of hd lies in
+      // panel 16kk / PW at byte 32kk % PB of each row. Element 4n + e of
+      // s is row r0 + g + 8 (e / 2), key k0 + 8n + 2t + e % 2.
+      float s[NS];
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        unsigned a[4];
-        ldsm_x4(a, q_lane + kk * 32);
-#pragma unroll
-        for (int n = 0; n < NS / 2; ++n) {
-          unsigned bk[4];
-          ldsm_x4(bk, k_base + (n * 16 * LD + kk * 16) * 2);
-          mma(s[2 * n], a, bk[0], bk[1]);
-          mma(s[2 * n + 1], a, bk[2], bk[3]);
-        }
+        const unsigned p = kk * 16 / PW, col = kk * 16 % PW * 2;
+        Wgmma<BK>::ss(s, desc<HD>(qa + p * BQ * PB + col, 16, 8 * PB),
+                      desc<HD>(ka + p * BK * PB + col, 16, 8 * PB), kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
 
       // scale, mask (only where the tile crosses the warp's diagonal),
-      // row max over the row's 4 lanes; element e of s[n] is row
-      // r0 + g + 8 * (e / 2), key k0 + 8n + 2t + e % 2
+      // row max over the row's 4 lanes
       const bool diag = k0 + BK - 1 > r0;
       float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[n][e] * scale;
-          if (diag && k0 + n * 8 + 2 * t + (e & 1) > r0 + g + (e >> 1) * 8)
-            x = NEG_INF;
-          s[n][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
+      for (int i = 0; i < NS; ++i) {
+        const int n = i >> 2, e = i & 3;
+        float x = s[i] * scale;
+        if (diag && k0 + n * 8 + 2 * t + (e & 1) > r0 + g + (e >> 1) * 8)
+          x = NEG_INF;
+        s[i] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
       float alpha[2], ls[2] = {0.f, 0.f};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-        alpha[r] = expf(m[r] - mx[r]);
+        alpha[r] = ex2((m[r] - mx[r]) * LOG2E);
         m[r] = mx[r];
       }
 #pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[n][e];
-          const float p = x > NEG_INF / 2 ? expf(x - m[e >> 1]) : 0.f;
-          s[n][e] = p;
-          ls[e >> 1] += p;
-        }
+      for (int i = 0; i < NS; ++i) {
+        const float x = s[i];
+        const float p =
+            x > NEG_INF / 2 ? ex2((x - m[(i >> 1) & 1]) * LOG2E) : 0.f;
+        s[i] = p;
+        ls[(i >> 1) & 1] += p;
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+      // alpha is exactly 1 on a row whose max did not move: the warp skips
+      // the rescale when that holds for all its rows
+      if (__any_sync(FULL, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
+        for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
       }
 
-      // O += P V with P = hi + lo: score tiles 2kt, 2kt + 1 are the A
-      // fragment of keys k0 + 16kt .. k0 + 16kt + 15
+      // O += P V, one k16 slice of keys at a time: score tiles 2kt and
+      // 2kt + 1 are the register A fragment of keys k0 + 16kt .. + 15,
+      // packed as P = hi + lo. V is MN-major (hd contiguous): slice kt is
+      // rows 16kt .. of every panel, the panels BK * PB bytes apart.
+      fence_regs(acc);
 #pragma unroll
-      for (int kt = 0; kt < NS / 2; ++kt) {
+      for (int kt = 0; kt < KT; ++kt) {
         unsigned hi[4], lo[4];
-        split(s[2 * kt][0], s[2 * kt][1], hi[0], lo[0]);
-        split(s[2 * kt][2], s[2 * kt][3], hi[1], lo[1]);
-        split(s[2 * kt + 1][0], s[2 * kt + 1][1], hi[2], lo[2]);
-        split(s[2 * kt + 1][2], s[2 * kt + 1][3], hi[3], lo[3]);
 #pragma unroll
-        for (int n = 0; n < NO / 2; ++n) {
-          unsigned bv[4];
-          ldsm_x4_t(bv, v_base + (kt * 16 * LD + n * 16) * 2);
-          mma(acc[2 * n], hi, bv[0], bv[1]);
-          mma(acc[2 * n], lo, bv[0], bv[1]);
-          mma(acc[2 * n + 1], hi, bv[2], bv[3]);
-          mma(acc[2 * n + 1], lo, bv[2], bv[3]);
-        }
+        for (int f = 0; f < 4; ++f)
+          split(s[8 * kt + 2 * f], s[8 * kt + 2 * f + 1], hi[f], lo[f]);
+        const unsigned long long dv =
+            desc<HD>(va + kt * 16 * PB, BK * PB, 8 * PB);
+        wgmma_fence();               // hi and lo written by ordinary code
+        Wgmma<HD>::rs(acc, hi, dv);
+        Wgmma<HD>::rs(acc, lo, dv);
       }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
     }
-    __syncthreads();                 // stage st is free to be refilled
   }
 
 #pragma unroll
@@ -566,16 +704,14 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* op = o + b * osb + h * osh;
   const int s0 = r0 + g, s1 = s0 + 8;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
+  for (int n = 0; n < NO / 4; ++n) {
     const int c = n * 8 + 2 * t;
     if (s0 < S)
       *reinterpret_cast<unsigned*>(op + s0 * oss + c) =
-          pack(__float2bfloat16_rn(acc[n][0] / l[0]),
-               __float2bfloat16_rn(acc[n][1] / l[0]));
+          pack(acc[4 * n] / l[0], acc[4 * n + 1] / l[0]);
     if (s1 < S)
       *reinterpret_cast<unsigned*>(op + s1 * oss + c) =
-          pack(__float2bfloat16_rn(acc[n][2] / l[1]),
-               __float2bfloat16_rn(acc[n][3] / l[1]));
+          pack(acc[4 * n + 2] / l[1], acc[4 * n + 3] / l[1]);
   }
 }
 
@@ -613,6 +749,28 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
   }
 }
 
+// the tile of hd's kernel: {query rows, keys, warpgroups, stages, panel
+// width} of a CTA; 0 for an hd it does not take
+template <int HD>
+int tile_of(int* out) {
+  using T = Tile<HD>;
+  const int v[5] = {BQ, T::BK, WG, T::STAGES, T::PW};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
+
+int tile_hd(int hd, int* out) {
+  switch (hd) {
+    case 32: return tile_of<32>(out);
+    case 64: return tile_of<64>(out);
+    case 80: return tile_of<80>(out);
+    case 112: return tile_of<112>(out);
+    case 128: return tile_of<128>(out);
+    case 256: return tile_of<256>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace tc
 
 }  // namespace
@@ -634,5 +792,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       ? tc::dispatch_hd(q, k, v, o, B, H, G, S, hd, st, scale, s)
       : dispatch_hd<float>(q, k, v, o, B, H, G, S, hd, st, scale, s);
 }
+
+// the bf16 kernel's tile at head dim hd: out = {query rows, keys,
+// warpgroups, K/V stages, panel width} of a CTA; returns 0, or an error
+// for an hd it does not take
+int flash_attention_tile(int hd, int* out) { return tc::tile_hd(hd, out); }
 
 }  // extern "C"

@@ -16,11 +16,12 @@ fake implementation, so tracing on fake tensors sees each call
 (``launch/op_analysis.py`` charges it with ``flash_attention_cost``) and
 counts no launch. ``bq``/``bk`` are the TPU kernel's
 VMEM tiles: S must be a multiple of both (``ops.flash_attention`` pads),
-as there; the CUDA kernels pick their own tiles. bfloat16 runs on the
-tensor cores (``mma.sync``, 64 query rows x 32 keys, fed by ``cp.async``
-in 16-byte copies, so the wrapper hands it 16-byte aligned tensors);
-float32 on the CUDA cores (32 x 32, f32 FMAs). It is forward-only, as the
-Pallas kernel is: serving paths only.
+as there; the CUDA kernels pick their own tiles. bfloat16 runs on
+Hopper's ``wgmma`` (two warpgroups of 64 query rows x 64 keys a CTA,
+``bf16_tile``; fed by ``cp.async`` in 16-byte copies, so the wrapper
+hands it 16-byte aligned tensors); float32 on the CUDA cores (32 x 32,
+f32 FMAs). It is forward-only, as the Pallas kernel is: serving paths
+only.
 """
 from __future__ import annotations
 
@@ -100,6 +101,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.flash_attention_launch.restype = i
         lib._argtypes_set = True
     return lib
+
+
+def bf16_tile(hd: int) -> dict:
+    """The bf16 kernel's tile at head dim ``hd``, as its source sets it:
+    query rows, keys, warpgroups and K/V stages of a CTA, and the width of
+    the swizzled shared-memory panels."""
+    out = (ctypes.c_int * 5)()
+    lib = _lib()
+    lib.flash_attention_tile.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    if lib.flash_attention_tile(hd, out):
+        raise ValueError(f"K4's bf16 kernel does not take hd={hd}")
+    return dict(zip(("bq", "bk", "warpgroups", "stages", "panel"), out))
 
 
 def _lib() -> ctypes.CDLL:

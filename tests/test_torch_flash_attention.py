@@ -27,6 +27,10 @@ SHAPES = [(2, 256, 4, 2, 64, 64, 64), (2, 256, 4, 2, 64, 128, 64),
           (1, 160, 8, 1, 256, 64, 32)]
 
 
+# the f32 log2(e) the bf16 kernel's exponentials take
+LOG2E = 1.4426950408889634
+
+
 def _qkv(shape, seed=0):
     B, S, H, KV, hd = shape[:5]
     rng = np.random.default_rng(seed)
@@ -116,8 +120,10 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 def _tensor_core_emulation(q, k, v, halves=True):
     """The bf16 CUDA kernel's arithmetic in plain PyTorch, in one pass:
     bf16 q and k multiplied in f32 with hd^-0.5 applied after the product,
-    p = exp(s - m) split into bf16 hi + lo (hi alone if not ``halves``),
-    P V summed in f32, l the f32 sum of p. (B, H, S, hd) in and out."""
+    p = exp(s - m) taken as 2^((s - m) log2 e) in f32 (the kernel's
+    ex2.approx adds at most 2 ulps), split into bf16 hi + lo (hi alone if
+    not ``halves``), P V summed in f32, l the f32 sum of p. (B, H, S, hd)
+    in and out."""
     B, H, S, hd = q.shape
     G = H // k.shape[1]
     kf = k.float().repeat_interleave(G, dim=1)
@@ -126,7 +132,8 @@ def _tensor_core_emulation(q, k, v, halves=True):
     pos = torch.arange(S)
     s = torch.where(pos[None, :] <= pos[:, None], s, tfa.NEG_INF)
     p = torch.where(s > tfa.NEG_INF / 2,
-                    torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+                    torch.exp2((s - s.amax(dim=-1, keepdim=True)) * LOG2E),
+                    0.0)
     hi = p.bfloat16().float()
     pv = hi @ vf
     if halves:

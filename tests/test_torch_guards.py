@@ -27,7 +27,8 @@ from repro_torch.runtime import server
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "chip_k4_tiles.py",
-    REPO / "chip_topk_routes.py", REPO / "chip_decode_search.py"]
+    REPO / "chip_topk_routes.py", REPO / "chip_decode_search.py",
+    REPO / "chip_op_dispatch.py", REPO / "chip_step_turns.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
