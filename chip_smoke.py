@@ -15,7 +15,9 @@ kernel launch counts set to 0 just before it and read just after:
   the same store then runs through ``select="fused"`` on insertion order.
   K1 (with its per-run histograms) and K2 (split over the main run count
   and as one run) are held bit-for-bit against their plain PyTorch
-  versions on edge cases and at the main path's full shape; the committed
+  versions on edge cases and at the main path's full shape, and K2's own
+  count of the tiles it pruned (its counter, on while a profiler records)
+  against ``hamming_topk``'s ``return_stats`` mirror there; the committed
   d = 256 kernels (single-bit tensor-core products) and the CUDA-core ones
   (the same source built with its tensor-core dispatch taken out) are
   timed in turns, the latter held to the former.
@@ -214,7 +216,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import carry, device  # noqa: E402
+from repro_torch import carry, device, spans  # noqa: E402
 from repro_torch.configs import (ShapeConfig, StepKind,  # noqa: E402
                                  TrainConfig, get_config)
 from repro_torch.configs import scaled_down  # noqa: E402
@@ -771,13 +773,33 @@ def drive(label, eng, q, sample, **kw):
     return launches, ms, (dd, ii)
 
 
+def k2_pruned_check(q, x):
+    """One ``hamming_topk(return_stats=True)`` at the main path's k and
+    bins under a CPU-only profiler, which turns K2's counter on: K2's own
+    count of the tiles its guard skipped, and the tiles of its pass, held
+    to the stats' host-side mirror. -> (pruned, tiles)."""
+    spans.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, _, st = ops.hamming_topk(q, x, K, D_BITS + 1, return_stats=True)
+    counters = spans.snapshot()["counters"]
+    spans.reset()
+    own = (counters[spans.K2_TILES_PRUNED], counters[spans.K2_TILES])
+    mirror = (int(st["blocks_skipped"]), st["blocks_total"])
+    if own != mirror:
+        raise AssertionError(f"K2's own (pruned, tiles) {own} != "
+                             f"return_stats' {mirror}")
+    return own
+
+
 def kernel_timings(q, x, stats_label, with_plain=True):
     """K1/K2 at the main path's inputs, run as the main path runs them (K1
     with its per-run histograms, K2 from the run bases): their times; K2
     also as one run. with_plain also the plain versions' times, and the
     kernels' outputs (hist, block_min, per-run histograms; dists, ids at
     the main run count and at one run) held bit-for-bit against theirs;
-    the pass-2 skip share; and the work both passes must do."""
+    the pass-2 skip share, K2's own count of it held to ``return_stats``'
+    (``k2_pruned_check``); and the work both passes must do."""
     Q, W = q.shape
     N = x.shape[0]
     bins = D_BITS + 1
@@ -815,6 +837,7 @@ def kernel_timings(q, x, stats_label, with_plain=True):
     max_r = r_p.reshape(-1, bq).amax(dim=1)
     live = bmin <= max_r[:, None]
     skipped = 1.0 - float(live.float().mean())
+    k2_pruned, k2_tiles = k2_pruned_check(q, x)
     q_real = torch.clamp(Q - torch.arange(tiles[0], device=DEV) * bq,
                          0, bq)
     n_real = torch.clamp(N - torch.arange(tiles[1], device=DEV) * bn,
@@ -827,12 +850,14 @@ def kernel_timings(q, x, stats_label, with_plain=True):
     print(f"  {stats_label}: geometry bq={bq} bn={bn} sub={sub} "
           f"tiles={tiles} runs={runs}; K1 {k1_ms:.3f} ms (plain {k1_plain} "
           f"ms), K2 {k2_ms:.3f} ms at {runs} runs, {k2_one_ms:.3f} ms at 1 "
-          f"(plain {k2_plain} ms), pass-2 blocks_skipped {skipped:.4f}; "
+          f"(plain {k2_plain} ms), pass-2 blocks_skipped {skipped:.4f}, "
+          f"K2's own count {k2_pruned} of {k2_tiles} == return_stats'; "
           f"full-shape kernel vs plain: K1 err={k1_err} K2 err={k2_err}",
           flush=True)
     return {"k1_ms": k1_ms, "k2_ms": k2_ms, "k2_one_run_ms": k2_one_ms,
             "k1_plain": k1_plain, "k2_plain": k2_plain, "k1_err": k1_err,
-            "k2_err": k2_err, "skipped": skipped, "runs": runs, "W": W,
+            "k2_err": k2_err, "skipped": skipped, "k2_pruned": k2_pruned,
+            "runs": runs, "W": W,
             "k1_pairs": Q * N, "k2_pairs": k2_pairs, "k1_bytes": k1_bytes,
             "k2_bytes": k2_bytes}
 

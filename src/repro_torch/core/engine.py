@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import device as device_mod
+from repro_torch import device as device_mod, spans
 from repro_torch.core import layout as layout_mod, plan as plan_mod
 
 DistanceMethod = plan_mod.DistanceMethod
@@ -89,22 +89,30 @@ class KNNEngine(NamedTuple):
                    chunk: int = plan_mod.DEFAULT_CHUNK,
                    method: str = DistanceMethod.XOR, select: str = "auto",
                    force=None) -> plan_mod.QueryPlan:
-        """The QueryPlan ``search`` will execute for these arguments."""
-        stats = plan_mod.stats_of(self.codes, q_packed, self.d,
-                                  layout=self.layout)
-        return plan_mod.plan_local(stats, k, select=select, method=method,
-                                   chunk=chunk, force=force)
+        """The QueryPlan ``search`` will execute for these arguments
+        (span ``spans.PLAN``)."""
+        with spans.span(spans.PLAN):
+            stats = plan_mod.stats_of(self.codes, q_packed, self.d,
+                                      layout=self.layout)
+            return plan_mod.plan_local(stats, k, select=select,
+                                       method=method, chunk=chunk,
+                                       force=force)
 
     def search(self, q_packed: torch.Tensor, k: int,
                chunk: int = plan_mod.DEFAULT_CHUNK,
                method: str = DistanceMethod.XOR, select: str = "auto"):
         """Top-k of ``q_packed`` (Q, W) packed codes, moved to the engine's
-        device -> (dists (Q, k) ascending, original ids (Q, k)) int32."""
-        if select != "auto":
-            plan_mod._warn_legacy("KNNEngine.search", "select", select)
-        q = q_packed.to(device=self.device, dtype=torch.int32)
-        p = self.query_plan(q, k, chunk=chunk, method=method, select=select)
-        return plan_mod.execute(p, q, codes=self.codes, layout=self.layout)
+        device -> (dists (Q, k) ascending, original ids (Q, k)) int32.
+        Marked by the span ``spans.SEARCH`` (numbered by call) while a
+        profiler records."""
+        with spans.span(spans.SEARCH):
+            if select != "auto":
+                plan_mod._warn_legacy("KNNEngine.search", "select", select)
+            q = q_packed.to(device=self.device, dtype=torch.int32)
+            p = self.query_plan(q, k, chunk=chunk, method=method,
+                                select=select)
+            return plan_mod.execute(p, q, codes=self.codes,
+                                    layout=self.layout)
 
 
 # ---------------------------------------------------------------------------

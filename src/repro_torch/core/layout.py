@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import device as device_mod
+from repro_torch import device as device_mod, spans
 from repro_torch.core import binary
 
 
@@ -161,9 +161,11 @@ def local_sort(codes: torch.Tensor, d: int, bits: int | None = None,
 
 def to_original_ids(perm: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Map layout positions to original ids through ``perm``; sentinel rows
-    (position >= N) pass through unchanged."""
-    n = perm.shape[0]
-    return torch.where(ids < n, perm[torch.clamp(ids, max=n - 1).long()], ids)
+    (position >= N) pass through unchanged. Span ``spans.ORIGINAL_IDS``."""
+    with spans.span(spans.ORIGINAL_IDS):
+        n = perm.shape[0]
+        return torch.where(ids < n, perm[torch.clamp(ids, max=n - 1).long()],
+                           ids)
 
 
 def original_ids(layout: BucketLayout, dists: torch.Tensor, ids: torch.Tensor,

@@ -33,7 +33,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch import device as device_mod
+from repro_torch import device as device_mod, spans
 from repro_torch.core import binary, layout as layout_mod, topk
 
 DEFAULT_CHUNK = 1 << 16
@@ -1068,48 +1068,52 @@ def execute(plan: QueryPlan, q_packed: torch.Tensor, *,
     core/layout.py semantics); gather needs ``codes`` + ``cand`` ((Q, C)
     int32, -1 padded); full scans need ``codes`` (plus ``layout`` when the
     plan streams a prebuilt one). ``return_stats`` (masked plans only)
-    appends the pruning telemetry."""
-    if plan.merge.kind == "sharded":
-        if mesh is None or codes is None:
-            raise ValueError("a sharded plan needs the mesh and this rank's "
-                             "codes")
-        return _execute_sharded(plan, q_packed, codes, mesh,
-                                shard_n_valid=shard_n_valid,
-                                shard_participate=shard_participate)
-    if plan.candidates.kind == "block_mask":
-        if layout is None:
-            raise ValueError("a block_mask plan needs the layout")
-        if plan.select.path == "approx":
-            from repro_torch.kernels import approx_select
+    appends the pruning telemetry. Every route runs inside the span
+    ``spans.EXECUTE``."""
+    with spans.span(spans.EXECUTE):
+        if plan.merge.kind == "sharded":
+            if mesh is None or codes is None:
+                raise ValueError("a sharded plan needs the mesh and this "
+                                 "rank's codes")
+            return _execute_sharded(plan, q_packed, codes, mesh,
+                                    shard_n_valid=shard_n_valid,
+                                    shard_participate=shard_participate)
+        if plan.candidates.kind == "block_mask":
+            if layout is None:
+                raise ValueError("a block_mask plan needs the layout")
+            if plan.select.path == "approx":
+                from repro_torch.kernels import approx_select
 
-            if return_stats:
-                raise ValueError("pruning stats only exist on the fused "
-                                 "masked path")
-            return approx_select.masked_approx_topk(
-                layout, q_packed, plan.k, plan.d, probe=probe,
-                cand_ids=cand_ids,
-                recall_target=plan.select.recall_target)
-        return layout_mod.masked_topk(layout, q_packed, plan.k, plan.d,
-                                      probe=probe, cand_ids=cand_ids,
-                                      return_stats=return_stats)
-    if return_stats:
-        raise ValueError("pruning stats only exist on the masked path")
-    if plan.candidates.kind == "gather":
-        if codes is None or cand is None:
-            raise ValueError("a gather plan needs the codes and cand")
-        return gather_scan(codes, q_packed, cand, plan.k, plan.d)
-    if plan.candidates.layout == "prebuilt":
-        if layout is None:
-            raise ValueError("the plan streams a prebuilt layout; pass it")
-        dd, ii = _scan_select(layout.codes, q_packed, plan.k, plan)
-        return dd, layout_mod.to_original_ids(layout.perm, ii)
-    if codes is None:
-        raise ValueError("a full-scan plan needs the codes")
-    if plan.candidates.layout == "local_sort":
-        codes_l, perm = layout_mod.local_sort(codes, plan.d)
-        dd, ii = _scan_select(codes_l, q_packed, plan.k, plan)
-        return dd, layout_mod.to_original_ids(perm, ii)
-    return _scan_select(codes, q_packed, plan.k, plan, id_offset=id_offset)
+                if return_stats:
+                    raise ValueError("pruning stats only exist on the fused "
+                                     "masked path")
+                return approx_select.masked_approx_topk(
+                    layout, q_packed, plan.k, plan.d, probe=probe,
+                    cand_ids=cand_ids,
+                    recall_target=plan.select.recall_target)
+            return layout_mod.masked_topk(layout, q_packed, plan.k, plan.d,
+                                          probe=probe, cand_ids=cand_ids,
+                                          return_stats=return_stats)
+        if return_stats:
+            raise ValueError("pruning stats only exist on the masked path")
+        if plan.candidates.kind == "gather":
+            if codes is None or cand is None:
+                raise ValueError("a gather plan needs the codes and cand")
+            return gather_scan(codes, q_packed, cand, plan.k, plan.d)
+        if plan.candidates.layout == "prebuilt":
+            if layout is None:
+                raise ValueError("the plan streams a prebuilt layout; "
+                                 "pass it")
+            dd, ii = _scan_select(layout.codes, q_packed, plan.k, plan)
+            return dd, layout_mod.to_original_ids(layout.perm, ii)
+        if codes is None:
+            raise ValueError("a full-scan plan needs the codes")
+        if plan.candidates.layout == "local_sort":
+            codes_l, perm = layout_mod.local_sort(codes, plan.d)
+            dd, ii = _scan_select(codes_l, q_packed, plan.k, plan)
+            return dd, layout_mod.to_original_ids(perm, ii)
+        return _scan_select(codes, q_packed, plan.k, plan,
+                            id_offset=id_offset)
 
 
 # ---------------------------------------------------------------------------

@@ -67,7 +67,10 @@
 // In K2 a tile is skipped, uniformly for the CTA, when it is disabled or
 // its block-min exceeds the widest r* of the query block (padded query
 // rows carry r* = -1 and never raise it). Slots are written with plain
-// stores; untouched slots keep the zeros the wrapper allocated.
+// stores; untouched slots keep the zeros the wrapper allocated. Given a
+// counter (a profiler records), each CTA's warp 0 ends by counting its
+// run's skipped tiles through the same guard and adds them with one
+// atomic; a null counter adds no store and no launch.
 //
 // Plain C entry points, loaded with ctypes. Each returns cudaGetLastError()
 // (or the error of cudaFuncSetAttribute) as an int.
@@ -150,6 +153,30 @@ __device__ __forceinline__ int valid_rows(int j, int bn, int n_valid) {
   return static_cast<int>(left < 0 ? 0 : (left < bn ? left : bn));
 }
 
+// K2's guard: tile t can hold no winner of its query block when it is
+// disabled or its block-min exceeds the block's widest r* (uniform for the
+// CTA).
+__device__ __forceinline__ bool pruned_tile(const int* en, const int* bm,
+                                            size_t t, int maxr) {
+  return en[t] == 0 || bm[t] > maxr;
+}
+
+// K2's epilogue when the caller passed a counter: warp 0 counts the tiles
+// of the CTA's run that the guard skipped, in registers, and adds them
+// with one atomic. A null counter writes nothing.
+__device__ __forceinline__ void add_pruned(unsigned long long* pruned,
+                                           const int* en, const int* bm,
+                                           int qb, int n_nblocks, int j0,
+                                           int j1, int maxr) {
+  if (pruned == nullptr || threadIdx.x >= 32) return;
+  unsigned n = 0;
+  for (int j = j0 + static_cast<int>(threadIdx.x); j < j1; j += 32)
+    n += pruned_tile(en, bm, static_cast<size_t>(qb) * n_nblocks + j, maxr);
+  n = __reduce_add_sync(0xffffffffu, n);
+  if (threadIdx.x == 0 && n)
+    atomicAdd(pruned, static_cast<unsigned long long>(n));
+}
+
 template <int W>
 __global__ void hist_kernel(const int* __restrict__ q,
                             const int* __restrict__ x,
@@ -212,6 +239,7 @@ __global__ void emit_kernel(const int* __restrict__ q,
                             const int* __restrict__ lt_base,
                             const int* __restrict__ tie_base,
                             int* __restrict__ out_d, int* __restrict__ out_i,
+                            unsigned long long* __restrict__ pruned,
                             int nw, int n_valid, int id_base, int bins, int k,
                             int bq, int bn, int n_nblocks, int n_runs) {
   const unsigned full = 0xffffffffu;
@@ -242,7 +270,7 @@ __global__ void emit_kernel(const int* __restrict__ q,
 
     for (int j = j0; j < j1; ++j) {
       const size_t t = static_cast<size_t>(qb) * n_nblocks + j;
-      if (en[t] == 0 || bm[t] > maxr) continue;   // uniform for the CTA
+      if (pruned_tile(en, bm, t, maxr)) continue;  // uniform for the CTA
       const long long base = static_cast<long long>(j) * bn;
       const int rows = valid_rows(j, bn, n_valid);
       for (int r0 = 0; r0 < rows; r0 += 32) {     // uniform for the warp
@@ -269,6 +297,7 @@ __global__ void emit_kernel(const int* __restrict__ q,
       }
     }
   }
+  add_pruned(pruned, en, bm, qb, n_nblocks, j0, j1, maxr);
 }
 
 // ---------------------------------------------------------------------------
@@ -449,9 +478,10 @@ __global__ void __launch_bounds__(TC_THREADS)
                    const int* __restrict__ r_star,
                    const int* __restrict__ lt_base,
                    const int* __restrict__ tie_base, int* __restrict__ out_d,
-                   int* __restrict__ out_i, int n_valid, int id_base,
-                   int bins, int k, int bq, int bn, int n_nblocks,
-                   int n_runs) {
+                   int* __restrict__ out_i,
+                   unsigned long long* __restrict__ pruned, int n_valid,
+                   int id_base, int bins, int k, int bq, int bn,
+                   int n_nblocks, int n_runs) {
   constexpr int QPW = 2 * MB;       // queries a warp ranks: 16 * MB / 8
   constexpr int CH = tc_ch(MB);
   constexpr int LD = CH + 8;
@@ -489,7 +519,7 @@ __global__ void __launch_bounds__(TC_THREADS)
 
   for (int j = j0; j < j1; ++j) {
     const size_t t = static_cast<size_t>(qb) * n_nblocks + j;
-    if (en[t] == 0 || bm[t] > maxr) continue;   // uniform for the CTA
+    if (pruned_tile(en, bm, t, maxr)) continue;  // uniform for the CTA
     const long long base = static_cast<long long>(j) * bn;
     const int rows = valid_rows(j, bn, n_valid);
     const int n_ch = max(1, (rows + CH - 1) / CH);
@@ -570,6 +600,7 @@ __global__ void __launch_bounds__(TC_THREADS)
       __syncthreads();
     }
   }
+  add_pruned(pruned, en, bm, qb, n_nblocks, j0, j1, maxr);
 }
 
 template <int MB>
@@ -594,12 +625,13 @@ int launch_hist_tc(const int* q, const int* x, const int* en, int* hist,
 template <int MB>
 int launch_emit_tc(const int* q, const int* x, const int* en, const int* bm,
                    const int* r_star, const int* lt_base,
-                   const int* tie_base, int* out_d, int* out_i, int Q, int N,
-                   int n_valid, int id_base, int bins, int k, int bq, int bn,
-                   int n_runs, cudaStream_t stream) {
+                   const int* tie_base, int* out_d, int* out_i,
+                   unsigned long long* pruned, int Q, int N, int n_valid,
+                   int id_base, int bins, int k, int bq, int bn, int n_runs,
+                   cudaStream_t stream) {
   emit_tc_kernel<MB><<<dim3(n_runs, Q / bq), TC_THREADS, 0, stream>>>(
-      q, x, en, bm, r_star, lt_base, tie_base, out_d, out_i, n_valid,
-      id_base, bins, k, bq, bn, N / bn, n_runs);
+      q, x, en, bm, r_star, lt_base, tie_base, out_d, out_i, pruned,
+      n_valid, id_base, bins, k, bq, bn, N / bn, n_runs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -624,12 +656,12 @@ int launch_hist(const int* q, const int* x, const int* en, int* hist,
 template <int W>
 int launch_emit(const int* q, const int* x, const int* en, const int* bm,
                 const int* r_star, const int* lt_base, const int* tie_base,
-                int* out_d, int* out_i, int Q, int N, int nw, int n_valid,
-                int id_base, int bins, int k, int bq, int bn, int n_runs,
-                cudaStream_t stream) {
+                int* out_d, int* out_i, unsigned long long* pruned, int Q,
+                int N, int nw, int n_valid, int id_base, int bins, int k,
+                int bq, int bn, int n_runs, cudaStream_t stream) {
   emit_kernel<W><<<dim3(n_runs, Q / bq), 32 * min(bq, 32), 0, stream>>>(
-      q, x, en, bm, r_star, lt_base, tie_base, out_d, out_i, nw, n_valid,
-      id_base, bins, k, bq, bn, N / bn, n_runs);
+      q, x, en, bm, r_star, lt_base, tie_base, out_d, out_i, pruned, nw,
+      n_valid, id_base, bins, k, bq, bn, N / bn, n_runs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -678,22 +710,25 @@ int topk_hist_launch(const int* q, const int* x, const int* en, int* hist,
 
 // K2. r_star (Q,), lt_base and tie_base (Q, n_runs) int32: the first slot
 // of each run's below-r* and tie winners; out_d, out_i (Q, k) zeroed by the
-// caller. One CTA per (run, query block).
+// caller; pruned, an int64 the tiles the guard skipped are added to, or
+// null (then nothing is written there). One CTA per (run, query block).
 int topk_emit_launch(const int* q, const int* x, const int* en,
                      const int* bm, const int* r_star, const int* lt_base,
-                     const int* tie_base, int* out_d, int* out_i, int Q,
-                     int N, int nw, int n_valid, int id_base, int bins, int k,
-                     int bq, int bn, int n_runs, void* stream) {
+                     const int* tie_base, int* out_d, int* out_i,
+                     unsigned long long* pruned, int Q, int N, int nw,
+                     int n_valid, int id_base, int bins, int k, int bq,
+                     int bn, int n_runs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define EMIT_TC(MB)                                                      \
   launch_emit_tc<MB>(q, x, en, bm, r_star, lt_base, tie_base, out_d,     \
-                     out_i, Q, N, n_valid, id_base, bins, k, bq, bn,     \
-                     n_runs, s)
+                     out_i, pruned, Q, N, n_valid, id_base, bins, k, bq, \
+                     bn, n_runs, s)
   if (nw == 8 && bq <= TC_MAX_BQ) DISPATCH_TC(bq, EMIT_TC);
 #undef EMIT_TC
 #define EMIT_CALL(Wt) \
-  launch_emit<Wt>(q, x, en, bm, r_star, lt_base, tie_base, out_d, out_i, Q, \
-                  N, nw, n_valid, id_base, bins, k, bq, bn, n_runs, s)
+  launch_emit<Wt>(q, x, en, bm, r_star, lt_base, tie_base, out_d, out_i, \
+                  pruned, Q, N, nw, n_valid, id_base, bins, k, bq, bn,   \
+                  n_runs, s)
   DISPATCH_W(nw, EMIT_CALL)
 #undef EMIT_CALL
 }

@@ -37,13 +37,26 @@ launch is counted where it is made, on real tensors only. The plain versions
 compute the same function tile for tile, one chunk of whole query blocks at
 a time so the (chunk, N) distance tensor stays bounded; ``chip_smoke.py``
 holds each kernel against its plain version on the card.
+
+**Spans and K2's pruning counter** (``repro_torch.spans``, only while a
+torch profiler records): each wrapper runs inside its span (``spans.K1``,
+``spans.K2``: argument preparation, the operator's dispatch, the launch).
+K2's wrapper counts the call's tiles, (Q/bq)·(N/bn), in ``spans.K2_TILES``
+and passes ``spans.device_counter`` as the operator's mutated optional
+``pruned`` argument: each CTA of the kernel ends by adding the tiles of its
+run that its block-min guard skipped, with one atomic, and the plain
+version adds its count of skipped tiles. With no profiler recording the
+counter is None, the kernel gets a null pointer and nothing more is
+written or launched.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.binary import hamming_xor
 
 _SOURCE = "topk_select.cu"
@@ -121,7 +134,7 @@ def _run_of_row(N: int, bn: int, runs: int, dev) -> torch.Tensor:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {
     "topk_hist_launch": [_P] * 6 + [_I] * 8 + [_P],
-    "topk_emit_launch": [_P] * 9 + [_I] * 10 + [_P],
+    "topk_emit_launch": [_P] * 10 + [_I] * 10 + [_P],
 }
 
 
@@ -200,30 +213,34 @@ def hamming_hist_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
     enabled). Q and N must be multiples of bq and bn. ``runs=R`` splits the
     tiles into R runs (module docstring) and returns, third, the (Q, R,
     bins) int32 histogram of each run, which sums to ``hist``. CUDA
-    tensors go through the operator ``repro_torch::k1_hist``."""
-    dev = _device_of(q_packed, x_packed)
-    Q, W = q_packed.shape
-    N = x_packed.shape[0]
-    bq, bn, sub = _check_geometry(Q, N, bq, bn, sub)
-    nv = N if n_valid is None else int(n_valid)
-    en = _tile_mask(block_mask, (Q // bq, N // bn), 1, dev)
-    nqb, nnb = Q // bq, N // bn
-    if runs is not None and int(runs) < 1:
-        raise ValueError(f"runs must be >= 1, got {runs}")
-    if dev.type == "cpu":
-        return hamming_hist_plain(_codes(q_packed), _codes(x_packed), bins,
-                                  nv, en, bq, bn,
-                                  None if runs is None else int(runs))
+    tensors go through the operator ``repro_torch::k1_hist``. Span
+    ``spans.K1``."""
+    with spans.span(spans.K1):
+        dev = _device_of(q_packed, x_packed)
+        Q, W = q_packed.shape
+        N = x_packed.shape[0]
+        bq, bn, sub = _check_geometry(Q, N, bq, bn, sub)
+        nv = N if n_valid is None else int(n_valid)
+        en = _tile_mask(block_mask, (Q // bq, N // bn), 1, dev)
+        nqb, nnb = Q // bq, N // bn
+        if runs is not None and int(runs) < 1:
+            raise ValueError(f"runs must be >= 1, got {runs}")
+        if dev.type == "cpu":
+            return hamming_hist_plain(_codes(q_packed), _codes(x_packed),
+                                      bins, nv, en, bq, bn,
+                                      None if runs is None else int(runs))
 
-    if bq > _HIST_THREADS * 4 or 4 * (bq * bins + 1) > _SMEM_LIMIT:
-        raise ValueError(f"K1 takes bq <= 1024 and bq * bins <= 58111; "
-                         f"got bq={bq} bins={bins}")
-    if nqb > 65535:
-        raise ValueError(f"K1 takes at most 65535 query blocks, got {nqb}")
-    R = default_runs(nqb, nnb) if runs is None else int(runs)
-    args = (q_packed, x_packed, en, nv, bins, bq, bn, R, runs is not None)
-    hist, bmin, run_hist = _k1_op(*args)
-    return (hist, bmin) if runs is None else (hist, bmin, run_hist)
+        if bq > _HIST_THREADS * 4 or 4 * (bq * bins + 1) > _SMEM_LIMIT:
+            raise ValueError(f"K1 takes bq <= 1024 and bq * bins <= 58111; "
+                             f"got bq={bq} bins={bins}")
+        if nqb > 65535:
+            raise ValueError(f"K1 takes at most 65535 query blocks, got "
+                             f"{nqb}")
+        R = default_runs(nqb, nnb) if runs is None else int(runs)
+        args = (q_packed, x_packed, en, nv, bins, bq, bn, R,
+                runs is not None)
+        hist, bmin, run_hist = _k1_op(*args)
+        return (hist, bmin) if runs is None else (hist, bmin, run_hist)
 
 
 @torch.library.custom_op("repro_torch::k1_hist", mutates_args=(),
@@ -286,7 +303,7 @@ hamming_hist_kernel.launches = 0
 def hamming_emit_plain(q: torch.Tensor, x: torch.Tensor, r_star, n_lt,
                        bins: int, k: int, n_valid: int, bm: torch.Tensor,
                        en: torch.Tensor, slot_base, id_base: int, bq: int,
-                       bn: int, run_bases=None):
+                       bn: int, run_bases=None, pruned=None):
     """Plain PyTorch K2 on padded, tiled inputs -> (dists, ids) (Q, k).
 
     A winner's slot adds into the output, as the Pallas kernel's one-hot
@@ -294,7 +311,8 @@ def hamming_emit_plain(q: torch.Tensor, x: torch.Tensor, r_star, n_lt,
     histogram) every slot has at most one winner. ``run_bases=(lt_base,
     tie_base)``, each (Q, R), numbers each run's winners from its own bases
     (``slot_base`` and ``n_lt`` are then not read); None is one run from
-    ``slot_base`` and ``n_lt``."""
+    ``slot_base`` and ``n_lt``. ``pruned`` (an int64 scalar, or None) gets
+    the count of tiles the block-min guard skips added to it."""
     Q, N = q.shape[0], x.shape[0]
     dev = q.device
     nqb = Q // bq
@@ -312,6 +330,8 @@ def hamming_emit_plain(q: torch.Tensor, x: torch.Tensor, r_star, n_lt,
     valid = gid < n_valid
     max_r = r_star.reshape(nqb, bq).amax(dim=1)
     active_tiles = (en != 0) & (bm <= max_r[:, None])
+    if pruned is not None:
+        pruned += (~active_tiles).sum()
 
     def rank(flags, base):
         cum = torch.cumsum(flags, dim=1, dtype=torch.int32)
@@ -360,55 +380,74 @@ def hamming_emit_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
     Returns (dists (Q, k), ids (Q, k)) int32, slot-ordered: dist < r* rows
     in index order from ``slot_base``, then r*-ties in index order from
     ``n_lt``; untouched slots are 0. CUDA tensors go through the operator
-    ``repro_torch::k2_emit``."""
-    dev = _device_of(q_packed, x_packed)
-    Q, W = q_packed.shape
-    N = x_packed.shape[0]
-    bq, bn, sub = _check_geometry(Q, N, bq, bn, sub)
-    nv = N if n_valid is None else int(n_valid)
-    ib = 0 if id_base is None else int(id_base)
-    tiles = (Q // bq, N // bn)
-    bm = _tile_mask(block_min, tiles, 0, dev)
-    en = _tile_mask(block_mask, tiles, 1, dev)
-    r = _vec(r_star, Q, 0, dev)
-    nlt = _vec(n_lt, Q, 0, dev)
-    sb = _vec(slot_base, Q, 0, dev)
-    if run_bases is None:
-        lt_base, tie_base = sb[:, None], nlt[:, None]
-    else:
-        lt_base, tie_base = (torch.as_tensor(b, device=dev).to(torch.int32)
-                             .contiguous() for b in run_bases)
-        if (lt_base.dim() != 2 or lt_base.shape[0] != Q
-                or lt_base.shape != tie_base.shape or lt_base.shape[1] < 1):
-            raise ValueError(f"run_bases must be two (Q={Q}, R) arrays, got "
-                             f"{tuple(lt_base.shape)}, "
-                             f"{tuple(tie_base.shape)}")
-    if dev.type == "cpu":
-        return hamming_emit_plain(_codes(q_packed), _codes(x_packed), r, nlt,
-                                  bins, k, nv, bm, en, sb, ib, bq, bn,
-                                  (lt_base, tie_base))
+    ``repro_torch::k2_emit``.
 
-    if Q // bq > 65535:
-        raise ValueError(f"K2 takes at most 65535 query blocks, got {Q // bq}")
-    args = (q_packed, x_packed, en, bm, r, lt_base, tie_base, nv, ib, bins,
-            k, bq, bn)
-    return _k2_op(*args)
+    Span ``spans.K2``. While a profiler records, the call adds its tiles,
+    (Q/bq)·(N/bn), to the counter ``spans.K2_TILES``, and the kernel (or
+    the plain version) adds the tiles its block-min guard skipped to
+    ``spans.device_counter``: ``spans.K2_TILES_PRUNED``, which equals
+    ``ops.hamming_topk(return_stats=True)``'s ``blocks_skipped``. Otherwise
+    the kernel gets a null counter and writes nothing more."""
+    with spans.span(spans.K2):
+        dev = _device_of(q_packed, x_packed)
+        Q, W = q_packed.shape
+        N = x_packed.shape[0]
+        bq, bn, sub = _check_geometry(Q, N, bq, bn, sub)
+        nv = N if n_valid is None else int(n_valid)
+        ib = 0 if id_base is None else int(id_base)
+        tiles = (Q // bq, N // bn)
+        bm = _tile_mask(block_min, tiles, 0, dev)
+        en = _tile_mask(block_mask, tiles, 1, dev)
+        r = _vec(r_star, Q, 0, dev)
+        nlt = _vec(n_lt, Q, 0, dev)
+        sb = _vec(slot_base, Q, 0, dev)
+        if run_bases is None:
+            lt_base, tie_base = sb[:, None], nlt[:, None]
+        else:
+            lt_base, tie_base = (torch.as_tensor(b, device=dev)
+                                 .to(torch.int32).contiguous()
+                                 for b in run_bases)
+            if (lt_base.dim() != 2 or lt_base.shape[0] != Q
+                    or lt_base.shape != tie_base.shape
+                    or lt_base.shape[1] < 1):
+                raise ValueError(f"run_bases must be two (Q={Q}, R) arrays, "
+                                 f"got {tuple(lt_base.shape)}, "
+                                 f"{tuple(tie_base.shape)}")
+        spans.count(spans.K2_TILES, tiles[0] * tiles[1])
+        pruned = spans.device_counter(dev)
+        if dev.type == "cpu":
+            return hamming_emit_plain(_codes(q_packed), _codes(x_packed), r,
+                                      nlt, bins, k, nv, bm, en, sb, ib, bq,
+                                      bn, (lt_base, tie_base), pruned)
+
+        if Q // bq > 65535:
+            raise ValueError(f"K2 takes at most 65535 query blocks, got "
+                             f"{Q // bq}")
+        args = (q_packed, x_packed, en, bm, r, lt_base, tie_base, nv, ib,
+                bins, k, bq, bn, pruned)
+        return _k2_op(*args)
 
 
-@torch.library.custom_op("repro_torch::k2_emit", mutates_args=(),
+@torch.library.custom_op("repro_torch::k2_emit", mutates_args=("pruned",),
                          device_types="cuda")
 def _k2_op(q: torch.Tensor, x: torch.Tensor, en: torch.Tensor,
            bm: torch.Tensor, r: torch.Tensor, lt_base: torch.Tensor,
            tie_base: torch.Tensor, n_valid: int, id_base: int, bins: int,
-           k: int, bq: int, bn: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2's CUDA route as an operator that tracing sees (``_k2_cuda``)."""
+           k: int, bq: int, bn: int, pruned: Optional[torch.Tensor]
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's CUDA route as an operator that tracing sees (``_k2_cuda``);
+    ``pruned``, an int64 scalar or None, is the counter it adds to. It has
+    no default: the dispatcher drops a trailing argument equal to its
+    default, and torch 2.11's version bump of a mutated argument then
+    indexes past the end."""
     return _k2_cuda(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base,
-                    bins, k, bq, bn)
+                    bins, k, bq, bn, pruned)
 
 
 def _k2_cuda(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base, bins,
-             k, bq, bn):
-    """One K2 launch, counted: (dists, ids)."""
+             k, bq, bn, pruned):
+    """One K2 launch, counted: (dists, ids). The kernel adds the tiles it
+    skipped to ``pruned`` (int64) unless it is None (a null pointer)."""
     q32, x32 = _codes(q), _codes(x)
     Q, W = q32.shape
     N = x32.shape[0]
@@ -418,8 +457,9 @@ def _k2_cuda(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base, bins,
     err = _lib().topk_emit_launch(
         q32.data_ptr(), x32.data_ptr(), en.data_ptr(), bm.data_ptr(),
         r.data_ptr(), lt_base.data_ptr(), tie_base.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), Q, N, W, n_valid, id_base, bins,
-        k, bq, bn, lt_base.shape[1], stream)
+        out_d.data_ptr(), out_i.data_ptr(),
+        0 if pruned is None else pruned.data_ptr(), Q, N, W, n_valid,
+        id_base, bins, k, bq, bn, lt_base.shape[1], stream)
     _raise_on(err, "K2 (topk_emit_launch)")
     hamming_emit_kernel.launches += 1
     return out_d, out_i
@@ -427,24 +467,26 @@ def _k2_cuda(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base, bins,
 
 @_k2_op.register_fake
 def _k2_fake(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base, bins, k,
-             bq, bn):
+             bq, bn, pruned):
     Q = q.shape[0]
     return (q.new_empty((Q, k), dtype=torch.int32),
             q.new_empty((Q, k), dtype=torch.int32))
 
 
 def hamming_emit_cost(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base,
-                      bins, k, bq, bn) -> tuple[float, float]:
+                      bins, k, bq, bn, pruned) -> tuple[float, float]:
     """(FLOPs, HBM bytes) of one K2 call as ``repro``'s jaxpr analysis
     charges its ``pallas_call`` (a 2-D grid): its operands (n_valid,
     id_base, the tile mask and block-min summary, the int32 codes, r*,
     n_lt and slot_base) and the first output (the (Q, k) distances) once
     each, no FLOPs. The run bases stand in for ``repro``'s (Q,) n_lt and
-    slot_base, which is what it charges."""
+    slot_base, which is what it charges. A pruned-tile counter, which
+    ``repro`` has not, adds its 8 bytes."""
     Q, W = q.shape
     N = x.shape[0]
     return 0.0, float(4 * (2 + en.numel() + bm.numel() + Q * W + N * W
-                           + 3 * Q + Q * k))
+                           + 3 * Q + Q * k)
+                      + (0 if pruned is None else 8))
 
 
 hamming_emit_kernel.launches = 0
