@@ -241,6 +241,7 @@ N_ROWS = 1 << 20         # 1M codes: SIFT1M/GIST1M-class store
 D_BITS = 256             # kNN-TagSpace: d = 256, k = 16, 4096 queries
 K = 16
 N_QUERIES = 4096
+SIFT_BITS, SIFT_K = 128, 4   # kNN-SIFT: d = 128, k = 4 (K1/K2's W = 4 tile)
 N_CLUSTERS = 1024
 FLIP_LOG2 = 4            # each code bit flips from its cluster centre w.p. 1/16
 N_CHECK = 64             # queries held against the on-card brute force
@@ -577,6 +578,16 @@ def clustered_codes(rng, n: int, centers):
     return centers[owner] ^ noise
 
 
+def clustered_store(rng, d: int, n_rows: int, n_queries: int):
+    """Seeded clustered d-bit codes as the main path's: (queries, the
+    store's codes in ``KNNEngine.with_layout()`` order), both on DEV."""
+    centers = rng.integers(0, 1 << 32, size=(N_CLUSTERS, d // 32),
+                           dtype=np.uint32)
+    codes_np = clustered_codes(rng, n_rows, centers)
+    q = carry.codes(clustered_codes(rng, n_queries, centers), DEV)
+    return q, carry.engine(codes_np, d, device=DEV).with_layout().layout.codes
+
+
 def cuda_ms(fn, reps: int):
     """(median ms of ``fn()`` over ``reps`` runs, each timed with CUDA
     events after one warm-up run; the last run's output)."""
@@ -680,7 +691,11 @@ def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
     return k1, k2
 
 
-def run_cases(main_q, main_x):
+def run_cases(main_q, main_x, sift_q, sift_x):
+    """K1/K2 against their plain versions on the edge cases, the first
+    256 queries of each main-shape store (d=256 ``main_*``, d=128
+    ``sift_*``) over all of its rows, and the whole select on the card
+    against the CPU. -> (K1 err, K2 err), the largest of any case."""
     rng = np.random.default_rng(1)
 
     def rand_codes(n, d):
@@ -714,19 +729,42 @@ def run_cases(main_q, main_x):
         ("24 queries, bq=24 (one and a half m16 fragments)",
          rand_codes(24, 256), rand_codes(5000, 256), 257, 16, {}),
     ]
+    # d = 128 (W = 4) on its tensor-core tile, the same edges
+    cases += [
+        ("d=128 main-shape 256 queries x all rows", sift_q[:256], sift_x,
+         129, SIFT_K, {}),
+        ("d=128 ragged N", rand_codes(40, 128), rand_codes(5001, 128), 129,
+         SIFT_K, {}),
+        ("d=128 n_valid < N", rand_codes(64, 128), rand_codes(5000, 128),
+         129, 16, {"n_valid": 3000}),
+        ("d=128 block_mask with zeros", rand_codes(96, 128),
+         rand_codes(9000, 128), 129, 16,
+         {"mask_p": 0.5, "geometry": (32, 504, 24)}),
+        ("d=128 slot_base/id_base (shard 2 of 2)", rand_codes(64, 128),
+         rand_codes(8000, 128), 129, 16,
+         {"shard": (4032, 8064), "geometry": (32, 504, 24)}),
+        ("d=128 bq=64 (four m16 fragments)", rand_codes(100, 128),
+         rand_codes(3000, 128), 129, 16, {"geometry": (64, 512, 8)}),
+        ("d=128 bq=24 (one and a half m16 fragments)", rand_codes(24, 128),
+         rand_codes(5000, 128), 129, 16, {}),
+        ("d=128 bq=8 (half of one m16 fragment)", rand_codes(8, 128),
+         rand_codes(5000, 128), 129, 16, {}),
+    ]
     for name, q, x, bins, k, kw in cases:
         a, b = kernel_case(name, q, x, bins, k, **kw)
         k1, k2 = max(k1, a), max(k2, b)
 
     # the whole select on the card against the same select on the CPU
-    q, x = rand_codes(33, 160), rand_codes(4097, 160)
-    gd, gi, gs = ops.hamming_topk(q, x, 24, 161, return_stats=True)
-    cd, ci, cs = ops.hamming_topk(q.cpu(), x.cpu(), 24, 161,
-                                  bq=32, bn=1032, sub=24, return_stats=True)
-    if not (torch.equal(gd.cpu(), cd) and torch.equal(gi.cpu(), ci)):
-        raise AssertionError("hamming_topk on the card != on the CPU")
-    print("  hamming_topk card == cpu (33 x 4097, d=160, k=24): ok",
-          flush=True)
+    for Q, N, d, k in ((33, 4097, 160, 24), (33, 4097, 128, SIFT_K)):
+        q, x = rand_codes(Q, d), rand_codes(N, d)
+        gd, gi, _ = ops.hamming_topk(q, x, k, d + 1, return_stats=True)
+        cd, ci, _ = ops.hamming_topk(q.cpu(), x.cpu(), k, d + 1, bq=32,
+                                     bn=1032, sub=24, return_stats=True)
+        if not (torch.equal(gd.cpu(), cd) and torch.equal(gi.cpu(), ci)):
+            raise AssertionError(f"hamming_topk on the card != on the CPU "
+                                 f"(d={d})")
+        print(f"  hamming_topk card == cpu ({Q} x {N}, d={d}, k={k}): ok",
+              flush=True)
     return k1, k2
 
 
@@ -773,15 +811,16 @@ def drive(label, eng, q, sample, **kw):
     return launches, ms, (dd, ii)
 
 
-def k2_pruned_check(q, x):
-    """One ``hamming_topk(return_stats=True)`` at the main path's k and
-    bins under a CPU-only profiler, which turns K2's counter on: K2's own
-    count of the tiles its guard skipped, and the tiles of its pass, held
-    to the stats' host-side mirror. -> (pruned, tiles)."""
+def k2_pruned_check(q, x, d=D_BITS, k=K):
+    """One ``hamming_topk(return_stats=True)`` at k and d + 1 bins (the
+    main path's by default) under a CPU-only profiler, which turns K2's
+    counter on: K2's own count of the tiles its guard skipped, and the
+    tiles of its pass, held to the stats' host-side mirror. -> (pruned,
+    tiles)."""
     spans.reset()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
-        _, _, st = ops.hamming_topk(q, x, K, D_BITS + 1, return_stats=True)
+        _, _, st = ops.hamming_topk(q, x, k, d + 1, return_stats=True)
     counters = spans.snapshot()["counters"]
     spans.reset()
     own = (counters[spans.K2_TILES_PRUNED], counters[spans.K2_TILES])
@@ -792,17 +831,18 @@ def k2_pruned_check(q, x):
     return own
 
 
-def kernel_timings(q, x, stats_label, with_plain=True):
-    """K1/K2 at the main path's inputs, run as the main path runs them (K1
-    with its per-run histograms, K2 from the run bases): their times; K2
-    also as one run. with_plain also the plain versions' times, and the
-    kernels' outputs (hist, block_min, per-run histograms; dists, ids at
-    the main run count and at one run) held bit-for-bit against theirs;
-    the pass-2 skip share, K2's own count of it held to ``return_stats``'
-    (``k2_pruned_check``); and the work both passes must do."""
+def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
+    """K1/K2 at the main path's inputs (d-bit codes, k, d + 1 bins), run as
+    the main path runs them (K1 with its per-run histograms, K2 from the
+    run bases): their times; K2 also as one run. with_plain also the plain
+    versions' times, and the kernels' outputs (hist, block_min, per-run
+    histograms; dists, ids at the main run count and at one run) held
+    bit-for-bit against theirs; the pass-2 skip share, K2's own count of it
+    held to ``return_stats``' (``k2_pruned_check``); and the work both
+    passes must do."""
     Q, W = q.shape
     N = x.shape[0]
-    bins = D_BITS + 1
+    bins = d + 1
     qp, xp, bq, bn, sub = ops._topk_blocked(q, x, bins, None, None, None)
     tiles = (qp.shape[0] // bq, xp.shape[0] // bn)
     runs = tsel.default_runs(*tiles)
@@ -810,7 +850,7 @@ def kernel_timings(q, x, stats_label, with_plain=True):
     hist, bmin, run_hist = tsel.hamming_hist_kernel(
         qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs)
     cum = torch.cumsum(hist[:Q], dim=-1, dtype=torch.int32)
-    _, r_star, n_lt, _ = ops._radius_from_cum(cum, K)
+    _, r_star, n_lt, _ = ops._radius_from_cum(cum, k)
     r_p = torch.nn.functional.pad(r_star, (0, qp.shape[0] - Q), value=-1)
     nlt_p = torch.nn.functional.pad(n_lt, (0, qp.shape[0] - Q))
     zeros = torch.zeros_like(r_p)
@@ -819,7 +859,7 @@ def kernel_timings(q, x, stats_label, with_plain=True):
     k1_ms, k1_out = cuda_ms(lambda: tsel.hamming_hist_kernel(
         qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs), N_TIMED)
     emit = lambda rb: tsel.hamming_emit_kernel(
-        qp, xp, r_p, nlt_p, bins, K, N, block_min=bmin, bq=bq, bn=bn,
+        qp, xp, r_p, nlt_p, bins, k, N, block_min=bmin, bq=bq, bn=bn,
         sub=sub, run_bases=rb)
     k2_ms, k2_out = cuda_ms(lambda: emit(bases), N_TIMED)
     k2_one_ms, k2_one = cuda_ms(lambda: emit(None), N_TIMED)
@@ -828,7 +868,7 @@ def kernel_timings(q, x, stats_label, with_plain=True):
         k1_plain, p1 = cuda_ms(lambda: tsel.hamming_hist_plain(
             qp, xp, bins, N, ones, bq, bn, runs), 1)
         k2_plain, p2 = cuda_ms(lambda: tsel.hamming_emit_plain(
-            qp, xp, r_p, nlt_p, bins, K, N, bmin, ones, zeros, 0, bq, bn), 1)
+            qp, xp, r_p, nlt_p, bins, k, N, bmin, ones, zeros, 0, bq, bn), 1)
         k1_err = max_abs_diff(zip(k1_out, p1))
         k2_err = max_abs_diff([*zip(k2_out, p2), *zip(k2_one, p2)])
 
@@ -837,7 +877,7 @@ def kernel_timings(q, x, stats_label, with_plain=True):
     max_r = r_p.reshape(-1, bq).amax(dim=1)
     live = bmin <= max_r[:, None]
     skipped = 1.0 - float(live.float().mean())
-    k2_pruned, k2_tiles = k2_pruned_check(q, x)
+    k2_pruned, k2_tiles = k2_pruned_check(q, x, d, k)
     q_real = torch.clamp(Q - torch.arange(tiles[0], device=DEV) * bq,
                          0, bq)
     n_real = torch.clamp(N - torch.arange(tiles[1], device=DEV) * bn,
@@ -846,7 +886,7 @@ def kernel_timings(q, x, stats_label, with_plain=True):
     rows_read = int((live.any(dim=0) * n_real).sum())
     k1_bytes = 4 * (Q * W + N * W + Q * bins + bmin.numel())
     k2_bytes = 4 * (Q * W + rows_read * W + 2 * bmin.numel() + 3 * Q
-                    + 2 * Q * K)
+                    + 2 * Q * k)
     print(f"  {stats_label}: geometry bq={bq} bn={bn} sub={sub} "
           f"tiles={tiles} runs={runs}; K1 {k1_ms:.3f} ms (plain {k1_plain} "
           f"ms), K2 {k2_ms:.3f} ms at {runs} runs, {k2_one_ms:.3f} ms at 1 "
@@ -862,13 +902,13 @@ def kernel_timings(q, x, stats_label, with_plain=True):
             "k2_bytes": k2_bytes}
 
 
-# K1/K2 at d = 256 on each route: the committed tensor-core kernels, and
-# the CUDA-core ones (the design they had before, still the route of other
-# widths and of query blocks wider than 64) built from the same source with
-# the tensor-core dispatch taken out
+# K1/K2 at d = 256 and 128 on each route: the committed tensor-core
+# kernels, and the CUDA-core ones (the design they had before, still the
+# route of other widths and of query blocks wider than 64) built from the
+# same source with the tensor-core dispatch taken out
 W8_ROUTE = "b1 (mma.sync m16n8k256 AND-popc)"
 POPC_ROUTE = "popc (CUDA cores)"
-POPC_VARIANT = [("if (nw == 8 && bq <= TC_MAX_BQ)", "if (false)")]
+POPC_VARIANT = [("if (tc_width(nw) && bq <= TC_MAX_BQ)", "if (false)")]
 
 
 def start_variants(source: str, variants: dict):
@@ -922,27 +962,28 @@ def topk_library(lib):
         _build._LIBS[tsel._SOURCE] = committed
 
 
-def route_comparison(q, x, libs, reps=N_TIMED, check=True, quiet=False):
-    """K1 and K2 at the main path's inputs from each {name: library} in
-    turn (each one's median of ``reps``; K2 at the main run count and as
-    one run), their outputs held bit-for-bit against the committed
-    library's (which ``kernel_timings`` holds against the plain versions).
-    Returns {name: {"k1_ms", "k2_ms", "k2_one_run_ms"}}. ``check=False``
-    only times (for builds whose outputs are wrong by design); ``quiet``
-    prints nothing."""
+def route_comparison(q, x, libs, reps=N_TIMED, check=True, quiet=False,
+                     d=D_BITS, k=K):
+    """K1 and K2 at the main path's inputs (d-bit codes, k, d + 1 bins)
+    from each {name: library} in turn (each one's median of ``reps``; K2 at
+    the main run count and as one run), their outputs held bit-for-bit
+    against the committed library's (which ``kernel_timings`` holds against
+    the plain versions). Returns {name: {"k1_ms", "k2_ms",
+    "k2_one_run_ms"}}. ``check=False`` only times (for builds whose outputs
+    are wrong by design); ``quiet`` prints nothing."""
     Q, N = q.shape[0], x.shape[0]
-    bins = D_BITS + 1
+    bins = d + 1
     qp, xp, bq, bn, sub = ops._topk_blocked(q, x, bins, None, None, None)
     runs = tsel.default_runs(qp.shape[0] // bq, xp.shape[0] // bn)
     hist, bmin, run_hist = tsel.hamming_hist_kernel(
         qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs)
     _, r_star, n_lt, _ = ops._radius_from_cum(
-        torch.cumsum(hist[:Q], dim=-1, dtype=torch.int32), K)
+        torch.cumsum(hist[:Q], dim=-1, dtype=torch.int32), k)
     r_p = torch.nn.functional.pad(r_star, (0, qp.shape[0] - Q), value=-1)
     nlt_p = torch.nn.functional.pad(n_lt, (0, qp.shape[0] - Q))
     bases = ops._run_bases(run_hist, r_p, nlt_p)
     emit = lambda rb=bases: tsel.hamming_emit_kernel(
-        qp, xp, r_p, nlt_p, bins, K, N, block_min=bmin, bq=bq, bn=bn,
+        qp, xp, r_p, nlt_p, bins, k, N, block_min=bmin, bq=bq, bn=bn,
         sub=sub, run_bases=rb)
     ref1, ref2 = (hist, bmin, run_hist), emit()
     out = {}
@@ -960,7 +1001,7 @@ def route_comparison(q, x, libs, reps=N_TIMED, check=True, quiet=False):
                      "k2_one_run_ms": k2_one_ms}
     if quiet:
         return out
-    print(f"route comparison (K1, K2 at the main shape, W=8; committed "
+    print(f"route comparison (K1, K2 at {Q} x {N}, d={d}, k={k}; committed "
           f"{W8_ROUTE}): " + "; ".join(
               f"{name} K1 {v['k1_ms']:.3f} ms K2 {v['k2_ms']:.3f} ms "
               f"({v['k2_one_run_ms']:.3f} as one run)"
@@ -4486,9 +4527,14 @@ def main() -> int:
           f"of codes), layout with {eng.layout.n_buckets} buckets built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
+    # kNN-SIFT's store at the same scale (d=128, layout order), for K1/K2's
+    # W = 4 tile
+    sift_q, sift_x = clustered_store(np.random.default_rng(args.seed + 2),
+                                     SIFT_BITS, N_ROWS, N_QUERIES)
+
     # phase 3: each kernel against its plain version
     print("kernels vs plain (bit-for-bit):", flush=True)
-    k1_err, k2_err = run_cases(q, eng.layout.codes)
+    k1_err, k2_err = run_cases(q, eng.layout.codes, sift_q, sift_x)
     if k1_err or k2_err:
         return fail(f"kernel != plain: K1 err {k1_err}, K2 err {k2_err}")
     k3_err = run_k3_cases(q, eng.codes[:K3_CHUNK])
@@ -4508,6 +4554,12 @@ def main() -> int:
         return fail(f"kernel != plain at the main path's shape: K1 err "
                     f"{kt['k1_err']}, K2 err {kt['k2_err']}")
     k1_err, k2_err = max(k1_err, kt["k1_err"]), max(k2_err, kt["k2_err"])
+    st = kernel_timings(sift_q, sift_x, f"d={SIFT_BITS} layout order",
+                        d=SIFT_BITS, k=SIFT_K)
+    if st["k1_err"] or st["k2_err"]:
+        return fail(f"kernel != plain at d={SIFT_BITS}'s main shape: K1 err "
+                    f"{st['k1_err']}, K2 err {st['k2_err']}")
+    k1_err, k2_err = max(k1_err, st["k1_err"]), max(k2_err, st["k2_err"])
     routes = route_comparison(q, eng.layout.codes, {
         W8_ROUTE: tsel._lib(), POPC_ROUTE: popc_lib})
 
@@ -4654,6 +4706,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/topk_select.py:91",
          "launches": launches["K1"], "max_abs_err": k1_err,
          "ms": kt["k1_ms"], "plain_ms": kt["k1_plain"], "bound_ms": b1,
+         "ms_d128": st["k1_ms"], "plain_ms_d128": st["k1_plain"],
          "bound_by": by1, "bound_route": route1, "library_ms": None,
          "w8_route": W8_ROUTE,
          "earlier_design_ms": popc["k1_ms"]},
@@ -4661,6 +4714,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/topk_select.py:192",
          "launches": launches["K2"], "max_abs_err": k2_err,
          "ms": kt["k2_ms"], "plain_ms": kt["k2_plain"], "bound_ms": b2,
+         "ms_d128": st["k2_ms"], "plain_ms_d128": st["k2_plain"],
          "bound_by": by2, "bound_route": route2, "library_ms": None,
          "w8_route": W8_ROUTE,
          "earlier_design_ms": popc["k2_one_run_ms"]},

@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""K1 and K2 on each of their d = 256 routes on the card, and where their
-time goes.
+"""K1 and K2 on each of their d = 256 and d = 128 routes on the card, and
+where their time goes.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_topk_routes.py [--reps 5] [--seed 0]
 
 It builds ``src/repro_torch/kernels/csrc/topk_select.cu`` from the
-checkout and prints ptxas's registers and spills for each of its kernels.
+checkout and prints ptxas's registers and spills for each of its kernels
+by name (``hist_tc_kernel<MB, W>``: MB m16 fragments, W words a code).
 Beside it, it builds variants of the same source, each a text
-substitution: the CUDA-core kernels at d = 256 (the tensor-core dispatch
-taken out), and the committed kernels with one part of the work taken out
-at a time (ABLATIONS; their outputs are wrong by design and only timed).
-For the committed kernels and the CUDA-core variant it runs
-``chip_smoke.py``'s K1/K2 cases and its full-shape check, both bit-for-bit
-against the plain versions, at the main path's shape (4096 queries x 2^20
-seeded clustered codes, d=256, k=16, layout order), and stops at the
-first mismatch; then it times the two in turns there, and each ablation
-beside the committed build. Without a CUDA card it exits non-zero at once.
-To try another design of a kernel, add its substitution here.
+substitution: the CUDA-core kernels (the tensor-core dispatch taken out),
+and the committed kernels with one part of the work taken out at a time
+(ABLATIONS; their outputs are wrong by design and only timed). For the
+committed kernels and the CUDA-core variant it runs ``chip_smoke.py``'s
+K1/K2 cases and its full-shape check, both bit-for-bit against the plain
+versions, at the main path's shape (4096 queries x 2^20 seeded clustered
+codes, d=256, k=16, layout order), and stops at the first mismatch; then
+it times the two in turns there, and each ablation beside the committed
+build. Then the same two at kNN-SIFT's d=128, k=4 (4096 x 2^20, layout
+order): each held to the plain versions, and timed in turns, twice, the
+second time in the reverse order. Without a CUDA card it exits non-zero
+at once. To try another design of a kernel, add its substitution here.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from chip_smoke import carry, tsel
+from chip_smoke import tsel
 
 
 # one part of the committed kernels' work taken out: (old text, new text)
@@ -40,7 +43,7 @@ ABLATIONS = {
     "K1 without its histogram adds": [
         ("atomicAdd(hrow[m][h] + v, 1);", "")],
     "one AND-popc product a tile instead of two": [
-        ("      mma_b1(d[m], na[m], b0, b1);\n", "")],
+        ("        mma_b1(d[m], na[m], b0, b1);\n", "")],
     "K2 without ranking (phase B)": [
         ("if (qmin > r) continue;", "continue;")],
     "K1 without products (distances = the row's bytes)": [
@@ -53,13 +56,22 @@ ABLATIONS = {
 }
 
 
+def kernel_name(mangled: str) -> str:
+    """hist_tc_kernel<2, 8> for its mangled name; others as they are."""
+    m = re.search(r"((?:hist|emit)(?:_tc)?_kernel)I((?:Li\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(2))
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
 def ptxas_lines(log: str):
     """(kernel, registers/spills line) pairs from nvcc -Xptxas -v."""
     name = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
+            name = kernel_name(m.group(1))
         elif name and ("registers" in line or "spill" in line):
             yield name, line.split(":", 1)[-1].strip()
 
@@ -87,21 +99,18 @@ def main() -> int:
     for name, line in ptxas_lines(variants["as committed"].nvcc_log):
         print(f"  ptxas: {name}: {line}", flush=True)
 
-    rng = np.random.default_rng(args.seed)
-    W = cs.D_BITS // 32
-    centers = rng.integers(0, 1 << 32, size=(cs.N_CLUSTERS, W),
-                           dtype=np.uint32)
-    codes_np = cs.clustered_codes(rng, cs.N_ROWS, centers)
-    q = carry.codes(cs.clustered_codes(rng, cs.N_QUERIES, centers), cs.DEV)
-    x = carry.engine(codes_np, cs.D_BITS, device=cs.DEV).with_layout() \
-        .layout.codes
+    q, x = cs.clustered_store(np.random.default_rng(args.seed), cs.D_BITS,
+                              cs.N_ROWS, cs.N_QUERIES)
+    d, k = cs.SIFT_BITS, cs.SIFT_K
+    sq, sx = cs.clustered_store(np.random.default_rng(args.seed + 1), d,
+                                cs.N_ROWS, cs.N_QUERIES)
 
     routes = {cs.W8_ROUTE: tsel._lib(),
               cs.POPC_ROUTE: variants[cs.POPC_ROUTE]}
     for name, lib in routes.items():
         print(f"route {name}:", flush=True)
         with cs.topk_library(lib):
-            k1, k2 = cs.run_cases(q, x)
+            k1, k2 = cs.run_cases(q, x, sq, sx)
             kt = cs.kernel_timings(q, x, "main shape")
         if k1 or k2 or kt["k1_err"] or kt["k2_err"]:
             return cs.fail(f"route {name}: kernel != plain (cases K1 {k1} "
@@ -119,6 +128,20 @@ def main() -> int:
                                 check=lib is committed, quiet=True)[name]
         print(f"  ablation {name}: K1 {t['k1_ms']:.3f} ms, K2 "
               f"{t['k2_ms']:.3f} ms", flush=True)
+
+    # kNN-SIFT's width: the committed tensor-core kernels and the CUDA-core
+    # ones (W == 0), each held to the plain versions, then timed in turns
+    for name, lib in routes.items():
+        with cs.topk_library(lib):
+            kt = cs.kernel_timings(sq, sx, f"d={d} k={k} {name}", d=d, k=k)
+        if kt["k1_err"] or kt["k2_err"]:
+            return cs.fail(f"d={d} route {name}: kernel != plain (K1 "
+                           f"{kt['k1_err']} K2 {kt['k2_err']})")
+    cs.route_comparison(sq, sx, routes, reps=args.reps, d=d, k=k)
+    cs.route_comparison(sq, sx, dict(reversed(routes.items())),
+                        reps=args.reps, d=d, k=k)
+    print(f"chip_topk_routes: ok in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return 0
 
 

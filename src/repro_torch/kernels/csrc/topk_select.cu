@@ -27,17 +27,18 @@
 // global row order while it runs 128 x 16 CTAs at the main shape, not one
 // CTA per query block (128 CTAs on 132 SMs).
 //
-// d = 256 (W = 8, bq <= 64) runs on the tensor cores, through mma.sync
-// m16n8k256 on single bits: a warp's tile is the query block (m16
-// fragments held in registers for the whole CTA) against an n8 chunk of
-// data rows, one 8-byte load a lane, and popc(q & ~x) + popc(~q & x) as two
-// AND-popc products is the distance itself, with no conversion of the
-// packed words. On the H100 it beat both the CUDA-core kernels and a +-1
+// d = 256 and d = 128 (W = 8, 4; bq <= 64) run on the tensor cores,
+// through mma.sync m16n8k256 on single bits: a warp's tile is the query
+// block (m16 fragments held in registers for the whole CTA) against an n8
+// chunk of data rows, one load a lane, and popc(q & ~x) + popc(~q & x) is
+// the distance itself, with no conversion of the packed words: two AND-popc
+// products at d = 256; one at d = 128, whose 256 k-bits hold [q, ~q]
+// against [~x, x]. On the H100 it beat both the CUDA-core kernels and a +-1
 // int8 product (m16n8k32 on bits expanded to bytes), which was measured
 // and dropped (PERF.md). Other widths and wider query blocks take the
 // CUDA-core kernels, with the query row in registers at W = 8.
 // The codes go straight from L2 to the fragments, without a cp.async ring
-// in shared memory: a lane's B operand is 8 contiguous bytes of one row,
+// in shared memory: a lane's B operand is 4 or 8 contiguous bytes of a row,
 // used once per CTA by all of its query fragments, so a ring would add a
 // store and a load per byte and no reuse; and timing builds with parts of
 // the work taken out (chip_topk_routes.py) found neither the loads, nor
@@ -301,7 +302,7 @@ __global__ void emit_kernel(const int* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// d = 256 (W = 8) on the tensor cores
+// d = 128 and 256 (W = 4, 8) on the tensor cores
 // ---------------------------------------------------------------------------
 
 // The widest query block the tensor-core kernels take (MB <= 4 m16
@@ -320,30 +321,41 @@ __device__ __forceinline__ void mma_b1(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Lane (g, t)'s share of an n8 chunk of data rows: words 2t and 2t+1 of
-// chunk row g (zeros past `rows`), one 8-byte load; a warp's load is the
-// chunk's 256 contiguous bytes.
+// Lane (g, t)'s share of an n8 chunk of W-word data rows (zeros past
+// `rows`), one load: at W = 8 words 2t and 2t+1 of chunk row g, 8 bytes (a
+// warp's load is the chunk's 256 contiguous bytes); at W = 4 word t in .x,
+// 4 bytes (128 a warp), and .y = 0.
+template <int W>
 __device__ __forceinline__ int2 load_chunk(const int* xt, int c, int rows,
                                            int lane) {
   const int r = c * 8 + (lane >> 2);
-  return r < rows ? __ldg(reinterpret_cast<const int2*>(
-                        xt + static_cast<size_t>(r) * 8 + 2 * (lane & 3)))
-                  : make_int2(0, 0);
+  if constexpr (W == 4) {
+    return make_int2(
+        r < rows ? __ldg(xt + static_cast<size_t>(r) * 4 + (lane & 3)) : 0, 0);
+  } else {
+    return r < rows ? __ldg(reinterpret_cast<const int2*>(
+                          xt + static_cast<size_t>(r) * 8 + 2 * (lane & 3)))
+                    : make_int2(0, 0);
+  }
 }
 
 // One warp's distance tile: the query block's 16*MB rows (m16 fragments;
 // lane (g, t) holds rows 16m+g and 16m+g+8, zeros past bq) against one n8
-// chunk of data rows. Word 2t of every code goes in k-slot t of lane t
-// (k = 32t..32t+31) and word 2t+1 in slot 4+t, in A and B alike, so each
-// bit of a query meets the same bit of the row. dist() returns the Hamming
+// chunk of W-word data rows (load_chunk<W>). dist() returns the Hamming
 // distances in the accumulator layout: d[m][0], d[m][1] are chunk rows 2t,
 // 2t+1 for query 16m+g; d[m][2], d[m][3] the same for query 16m+g+8.
 //
-// popc(q & ~x) + popc(~q & x) is the distance itself: two single-bit
-// products on the packed words, with no conversion.
-template <int MB>
+// popc(q & ~x) + popc(~q & x) is the distance itself, on the packed words
+// with no conversion. W = 8: word 2t of every code goes in k-slot t of lane
+// t (k = 32t..32t+31) and word 2t+1 in slot 4+t, in A and B alike, so each
+// bit of a query meets the same bit of the row; two products, a with ~x,
+// then na = ~a with x. W = 4: lane t puts query word t in k-slot t and its
+// complement in slot 4+t, and row word t's complement in B's slot t and the
+// word itself in slot 4+t; one product.
+template <int MB, int W>
 struct TcTile {
-  unsigned a[MB][4], na[MB][4];
+  static_assert(W == 4 || W == 8, "tensor-core rows are 128 or 256 bits");
+  unsigned a[MB][4], na[MB][4];     // na: W == 8 only
 
   __device__ __forceinline__ void load(const int* qblk, int bq, int lane) {
 #pragma unroll
@@ -351,25 +363,38 @@ struct TcTile {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = 16 * m + (lane >> 2) + 8 * h;
-        const int2 w = row < bq
-                           ? __ldg(reinterpret_cast<const int2*>(
-                                 qblk + row * 8 + 2 * (lane & 3)))
-                           : make_int2(0, 0);
-        a[m][h] = static_cast<unsigned>(w.x);
-        a[m][2 + h] = static_cast<unsigned>(w.y);
-        na[m][h] = ~a[m][h];
-        na[m][2 + h] = ~a[m][2 + h];
+        if constexpr (W == 4) {
+          const unsigned w =
+              row < bq ? static_cast<unsigned>(__ldg(qblk + row * 4 +
+                                                     (lane & 3)))
+                       : 0u;
+          a[m][h] = w;
+          a[m][2 + h] = ~w;
+        } else {
+          const int2 w = row < bq
+                             ? __ldg(reinterpret_cast<const int2*>(
+                                   qblk + row * 8 + 2 * (lane & 3)))
+                             : make_int2(0, 0);
+          a[m][h] = static_cast<unsigned>(w.x);
+          a[m][2 + h] = static_cast<unsigned>(w.y);
+          na[m][h] = ~a[m][h];
+          na[m][2 + h] = ~a[m][2 + h];
+        }
       }
   }
 
   __device__ __forceinline__ void dist(int2 xw, int (&d)[MB][4]) const {
     const unsigned b0 = static_cast<unsigned>(xw.x);
-    const unsigned b1 = static_cast<unsigned>(xw.y);
 #pragma unroll
     for (int m = 0; m < MB; ++m) {
       d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0;
-      mma_b1(d[m], a[m], ~b0, ~b1);
-      mma_b1(d[m], na[m], b0, b1);
+      if constexpr (W == 4) {
+        mma_b1(d[m], a[m], ~b0, b0);
+      } else {
+        const unsigned b1 = static_cast<unsigned>(xw.y);
+        mma_b1(d[m], a[m], ~b0, ~b1);
+        mma_b1(d[m], na[m], b0, b1);
+      }
     }
   }
 };
@@ -378,7 +403,7 @@ struct TcTile {
 // w takes n8 chunks w, w+8, ... of each tile, prefetching its next chunk
 // while the current one is scored, and adds each distance into the shared
 // histogram of its query.
-template <int MB>
+template <int MB, int W>
 __global__ void __launch_bounds__(TC_THREADS)
     hist_tc_kernel(const int* __restrict__ q, const int* __restrict__ x,
                    const int* __restrict__ en, int* __restrict__ hist,
@@ -398,8 +423,8 @@ __global__ void __launch_bounds__(TC_THREADS)
   const int t2 = 2 * (lane & 3);
 
   for (int i = threadIdx.x; i < bq * bins; i += TC_THREADS) sh_hist[i] = 0;
-  TcTile<MB> tile;
-  tile.load(q + static_cast<size_t>(qb) * bq * 8, bq, lane);
+  TcTile<MB, W> tile;
+  tile.load(q + static_cast<size_t>(qb) * bq * W, bq, lane);
   int* hrow[MB][2];                 // this lane's queries' histograms
 #pragma unroll
   for (int m = 0; m < MB; ++m)
@@ -418,14 +443,14 @@ __global__ void __launch_bounds__(TC_THREADS)
     }
     if (threadIdx.x == 0) *sh_min = bins;
     __syncthreads();
-    const int* xt = x + static_cast<size_t>(j) * bn * 8;
+    const int* xt = x + static_cast<size_t>(j) * bn * W;
     const int rows = valid_rows(j, bn, n_valid);
     const int chunks = (rows + 7) >> 3;
     int local_min = bins;
-    int2 next = load_chunk(xt, warp, rows, lane);
+    int2 next = load_chunk<W>(xt, warp, rows, lane);
     for (int c = warp; c < chunks; c += TC_WARPS) {
       const int2 cur = next;
-      next = load_chunk(xt, c + TC_WARPS, rows, lane);
+      next = load_chunk<W>(xt, c + TC_WARPS, rows, lane);
       int d[MB][4];
       tile.dist(cur, d);
       const bool ok0 = c * 8 + t2 < rows;
@@ -471,7 +496,7 @@ __host__ __device__ constexpr int tc_ch(int mb) { return mb <= 2 ? 512 : 256; }
 // are ranked in row order, 32 rows a step, with __ballot_sync +
 // __popc(mask & lanemask) from the (query, run) counters, which start at
 // lt_base / tie_base.
-template <int MB>
+template <int MB, int W>
 __global__ void __launch_bounds__(TC_THREADS)
     emit_tc_kernel(const int* __restrict__ q, const int* __restrict__ x,
                    const int* __restrict__ en, const int* __restrict__ bm,
@@ -512,8 +537,8 @@ __global__ void __launch_bounds__(TC_THREADS)
     cnt_lt[s] = rq[s] >= 0 ? lt_base[row * n_runs + run] : 0;
     cnt_tie[s] = rq[s] >= 0 ? tie_base[row * n_runs + run] : 0;
   }
-  TcTile<MB> tile;
-  tile.load(q + static_cast<size_t>(qb) * bq * 8, bq, lane);
+  TcTile<MB, W> tile;
+  tile.load(q + static_cast<size_t>(qb) * bq * W, bq, lane);
   if (threadIdx.x < 16 * MB) sh_qmin[threadIdx.x] = bins;
   __syncthreads();
 
@@ -526,14 +551,14 @@ __global__ void __launch_bounds__(TC_THREADS)
     const int step = ((rows + n_ch - 1) / n_ch + 7) & ~7;
     for (int c0 = 0; c0 < rows; c0 += step) {   // uniform for the CTA
       const int crow = min(step, rows - c0);
-      const int* xc = x + (base + c0) * 8;
+      const int* xc = x + (base + c0) * W;
       int lmin[MB][2];
 #pragma unroll
       for (int m = 0; m < MB; ++m) lmin[m][0] = lmin[m][1] = bins;
       int2 xs[PCS];                 // all of the warp's pieces, in flight
 #pragma unroll
       for (int p = 0; p < PCS; ++p)
-        xs[p] = load_chunk(xc, warp + p * TC_WARPS, crow, lane);
+        xs[p] = load_chunk<W>(xc, warp + p * TC_WARPS, crow, lane);
 #pragma unroll
       for (int p = 0; p < PCS; ++p) {
         const int c = warp + p * TC_WARPS;
@@ -603,7 +628,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   add_pruned(pruned, en, bm, qb, n_nblocks, j0, j1, maxr);
 }
 
-template <int MB>
+template <int MB, int W>
 int launch_hist_tc(const int* q, const int* x, const int* en, int* hist,
                    int* bmin, int* run_hist, int Q, int N, int n_valid,
                    int bins, int bq, int bn, int n_runs,
@@ -611,25 +636,25 @@ int launch_hist_tc(const int* q, const int* x, const int* en, int* hist,
   const size_t smem = (static_cast<size_t>(bq) * bins + 1) * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        hist_tc_kernel<MB>,
+        hist_tc_kernel<MB, W>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  hist_tc_kernel<MB>
+  hist_tc_kernel<MB, W>
       <<<dim3(n_runs, Q / bq), TC_THREADS, smem, stream>>>(
           q, x, en, hist, bmin, run_hist, n_valid, bins, bq, bn, N / bn,
           n_runs);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MB>
+template <int MB, int W>
 int launch_emit_tc(const int* q, const int* x, const int* en, const int* bm,
                    const int* r_star, const int* lt_base,
                    const int* tie_base, int* out_d, int* out_i,
                    unsigned long long* pruned, int Q, int N, int n_valid,
                    int id_base, int bins, int k, int bq, int bn, int n_runs,
                    cudaStream_t stream) {
-  emit_tc_kernel<MB><<<dim3(n_runs, Q / bq), TC_THREADS, 0, stream>>>(
+  emit_tc_kernel<MB, W><<<dim3(n_runs, Q / bq), TC_THREADS, 0, stream>>>(
       q, x, en, bm, r_star, lt_base, tie_base, out_d, out_i, pruned,
       n_valid, id_base, bins, k, bq, bn, N / bn, n_runs);
   return static_cast<int>(cudaGetLastError());
@@ -665,21 +690,29 @@ int launch_emit(const int* q, const int* x, const int* en, const int* bm,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core instance for a query block of bq <= TC_MAX_BQ rows
-// (MB = bq / 16 rounded up; 3 takes 4).
-#define DISPATCH_TC(BQ, CALL)                 \
+// Code widths with a tensor-core tile: 128 and 256 bits.
+constexpr bool tc_width(int nw) { return nw == 4 || nw == 8; }
+
+// The tensor-core instance for nw-word codes (tc_width) and a query block
+// of bq <= TC_MAX_BQ rows (MB = bq / 16 rounded up; 3 takes 4).
+#define DISPATCH_TC(NW, BQ, CALL)             \
   do {                                        \
     const int mb_ = ((BQ) + 15) / 16;         \
-    if (mb_ == 1) return CALL(1);             \
-    if (mb_ == 2) return CALL(2);             \
-    return CALL(4);                           \
+    if ((NW) == 4) {                          \
+      if (mb_ == 1) return CALL(1, 4);        \
+      if (mb_ == 2) return CALL(2, 4);        \
+      return CALL(4, 4);                      \
+    }                                         \
+    if (mb_ == 1) return CALL(1, 8);          \
+    if (mb_ == 2) return CALL(2, 8);          \
+    return CALL(4, 8);                        \
   } while (0)
 
 }  // namespace
 
-// d = 256 (8 words, the main path's width) gets kernels with the query
-// rows in registers (on the tensor cores for bq <= TC_MAX_BQ); every other
-// width takes the W == 0 kernel.
+// Past the tensor-core dispatch: d = 256 (8 words, the main path's width)
+// gets the CUDA-core kernels with the query row in registers; every other
+// width takes the W == 0 ones.
 #define DISPATCH_W(NW, CALL)            \
   switch (NW) {                         \
     case 8: return CALL(8);             \
@@ -696,10 +729,10 @@ int topk_hist_launch(const int* q, const int* x, const int* en, int* hist,
                      int n_valid, int bins, int bq, int bn, int n_runs,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HIST_TC(MB)                                                    \
-  launch_hist_tc<MB>(q, x, en, hist, bmin, run_hist, Q, N, n_valid,    \
-                     bins, bq, bn, n_runs, s)
-  if (nw == 8 && bq <= TC_MAX_BQ) DISPATCH_TC(bq, HIST_TC);
+#define HIST_TC(MB, Wt)                                                \
+  launch_hist_tc<MB, Wt>(q, x, en, hist, bmin, run_hist, Q, N, n_valid, \
+                         bins, bq, bn, n_runs, s)
+  if (tc_width(nw) && bq <= TC_MAX_BQ) DISPATCH_TC(nw, bq, HIST_TC);
 #undef HIST_TC
 #define HIST_CALL(Wt) \
   launch_hist<Wt>(q, x, en, hist, bmin, run_hist, Q, N, nw, n_valid, bins, \
@@ -719,11 +752,11 @@ int topk_emit_launch(const int* q, const int* x, const int* en,
                      int n_valid, int id_base, int bins, int k, int bq,
                      int bn, int n_runs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define EMIT_TC(MB)                                                      \
-  launch_emit_tc<MB>(q, x, en, bm, r_star, lt_base, tie_base, out_d,     \
-                     out_i, pruned, Q, N, n_valid, id_base, bins, k, bq, \
-                     bn, n_runs, s)
-  if (nw == 8 && bq <= TC_MAX_BQ) DISPATCH_TC(bq, EMIT_TC);
+#define EMIT_TC(MB, Wt)                                                  \
+  launch_emit_tc<MB, Wt>(q, x, en, bm, r_star, lt_base, tie_base, out_d, \
+                         out_i, pruned, Q, N, n_valid, id_base, bins, k, \
+                         bq, bn, n_runs, s)
+  if (tc_width(nw) && bq <= TC_MAX_BQ) DISPATCH_TC(nw, bq, EMIT_TC);
 #undef EMIT_TC
 #define EMIT_CALL(Wt) \
   launch_emit<Wt>(q, x, en, bm, r_star, lt_base, tie_base, out_d, out_i, \

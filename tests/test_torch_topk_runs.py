@@ -226,7 +226,7 @@ def test_launcher_argtypes_match_the_c_entry_points():
 
 
 # ---------------------------------------------------------------------------
-# the d = 256 tensor-core distance tile, emulated lane by lane
+# the d = 256 and d = 128 tensor-core distance tiles, emulated lane by lane
 # ---------------------------------------------------------------------------
 
 def _bits(w):
@@ -235,31 +235,38 @@ def _bits(w):
                          bitorder="little").astype(np.int64)
 
 
-def _load_a(q_rows, bq, mb):
-    """TcTile<MB>::load: each lane (g, t)'s a[m][0..3]: words 2t, 2t+1 of
-    query rows 16m+g (h = 0) and 16m+g+8 (h = 1), zeros past bq;
-    a[m][h] = word 2t, a[m][2 + h] = word 2t+1."""
+def _load_a(q_rows, bq, mb, w):
+    """TcTile<MB, W>::load: each lane (g, t)'s a[m][0..3] for query rows
+    16m+g (h = 0) and 16m+g+8 (h = 1), zero words past bq. W = 8: a[m][h]
+    = word 2t, a[m][2 + h] = word 2t+1. W = 4: a[m][h] = word t, a[m][2 +
+    h] its complement."""
     a = np.zeros((32, mb, 4), np.uint32)
     for lane in range(32):
         g, t = lane >> 2, lane & 3
         for m in range(mb):
             for h in range(2):
                 row = 16 * m + g + 8 * h
-                if row < bq:
-                    a[lane, m, h] = q_rows[row, 2 * t]
-                    a[lane, m, 2 + h] = q_rows[row, 2 * t + 1]
+                words = (q_rows[row] if row < bq
+                         else np.zeros(q_rows.shape[1], np.uint32))
+                if w == 8:
+                    a[lane, m, h] = words[2 * t]
+                    a[lane, m, 2 + h] = words[2 * t + 1]
+                else:
+                    a[lane, m, h] = words[t]
+                    a[lane, m, 2 + h] = ~words[t]
     return a
 
 
-def _load_chunk(x_rows, c, rows):
-    """load_chunk: each lane (g, t)'s (b0, b1), words 2t, 2t+1 of chunk
-    row c*8 + g, zeros past ``rows``."""
+def _load_chunk(x_rows, c, rows, w):
+    """load_chunk<W>: each lane (g, t)'s int2 of chunk row c*8 + g, zeros
+    past ``rows``: words 2t, 2t+1 at W = 8; word t and 0 at W = 4."""
     b = np.zeros((32, 2), np.uint32)
     for lane in range(32):
         g, t = lane >> 2, lane & 3
         r = c * 8 + g
         if r < rows:
-            b[lane] = x_rows[r, 2 * t:2 * t + 2]
+            b[lane] = x_rows[r, 2 * t:2 * t + 2] if w == 8 else (x_rows[r, t],
+                                                                 0)
     return b
 
 
@@ -284,18 +291,21 @@ def _mma_b1(a, b):
                       for i in range(4)] for lane in range(32)])
 
 
-def _tile(q_rows, x_rows, bq, rows):
+def _tile(q_rows, x_rows, bq, rows, w):
     """The kernels' distance tile for one warp and n8 chunk 0, lane by lane:
-    the registers that TcTile<MB>::load and load_chunk fill, the two
-    products of TcTile::dist (a with ~b, then ~a with b), and each lane's
-    d[m][2h + e] read back as query 16m+g+8h, chunk row 2t+e ->
-    (16 * MB, 8) distances."""
+    the registers that TcTile<MB, W>::load and load_chunk<W> fill, the
+    products of TcTile::dist (W = 8: a with ~b, then ~a with b; W = 4: one,
+    a with (~b0, b0)), and each lane's d[m][2h + e] read back as query
+    16m+g+8h, chunk row 2t+e -> (16 * MB, 8) distances."""
     mb = {1: 1, 2: 2, 3: 4, 4: 4}[-(-bq // 16)]     # DISPATCH_TC
-    a = _load_a(q_rows, bq, mb)
-    b = _load_chunk(x_rows, 0, rows)
+    a = _load_a(q_rows, bq, mb, w)
+    b = _load_chunk(x_rows, 0, rows, w)
     out = np.zeros((16 * mb, 8), np.int64)
     for m in range(mb):
-        d = _mma_b1(a[:, m], ~b) + _mma_b1(~a[:, m], b)
+        if w == 8:
+            d = _mma_b1(a[:, m], ~b) + _mma_b1(~a[:, m], b)
+        else:
+            d = _mma_b1(a[:, m], np.stack([~b[:, 0], b[:, 0]], axis=1))
         for lane in range(32):
             g, t = lane >> 2, lane & 3
             for h in range(2):
@@ -304,28 +314,41 @@ def _tile(q_rows, x_rows, bq, rows):
     return out
 
 
-@pytest.mark.parametrize("bq,rows", [(8, 8), (16, 5), (24, 8), (32, 3),
-                                     (48, 8), (64, 8)])
+TILE_CASES = [(8, 8), (16, 5), (24, 8), (32, 3), (48, 8), (64, 8)]
+
+
+@pytest.mark.parametrize("bq,rows", TILE_CASES)
 def test_tensor_core_tile_emulation_equals_hamming(bq, rows):
-    """The d = 256 tensor-core tile, emulated lane by lane (each side's
-    registers loaded as the kernel indexes them, the product taken through
-    PTX's fragment layout, so a wrong index on either side fails), against
-    ``binary.hamming_xor`` on zero-padded rows: random words with the top
-    bit set half the time, zero-padded codes (d = 200 in 256 bits),
-    identical rows (distance 0), complements (256), query rows past bq and
-    chunk rows past ``rows``, and the bins - 1 clamp."""
+    """The d = 256 tensor-core tile (``_check_tile``)."""
+    _check_tile(bq, rows, 8)
+
+
+@pytest.mark.parametrize("bq,rows", TILE_CASES)
+def test_tensor_core_tile_emulation_equals_hamming_d128(bq, rows):
+    """The d = 128 tensor-core tile (``_check_tile``)."""
+    _check_tile(bq, rows, 4)
+
+
+def _check_tile(bq, rows, w):
+    """The tensor-core tile at d = 32 * w, emulated lane by lane (each
+    side's registers loaded as the kernel indexes them, the product taken
+    through PTX's fragment layout, so a wrong index on either side fails),
+    against ``binary.hamming_xor`` on zero-padded rows: random words with
+    the top bit set half the time, zero-padded codes (d = 200 in 256 bits,
+    72 in 128), identical rows (distance 0), complements (32 * w), query
+    rows past bq and chunk rows past ``rows``, and the bins - 1 clamp."""
     from repro_torch.core.binary import hamming_xor
 
     rng = np.random.default_rng(20 + bq)
-    q = rng.integers(0, 1 << 32, (64, 8), dtype=np.uint32)
-    x = rng.integers(0, 1 << 32, (8, 8), dtype=np.uint32)
-    q[::2, 7] |= np.uint32(1 << 31)
-    for a in (q, x):                              # d = 200: zero padding
-        a[1, 6] &= np.uint32((1 << 8) - 1)
-        a[1, 7] = 0
+    q = rng.integers(0, 1 << 32, (64, w), dtype=np.uint32)
+    x = rng.integers(0, 1 << 32, (8, w), dtype=np.uint32)
+    q[::2, w - 1] |= np.uint32(1 << 31)
+    for a in (q, x):                              # zero padding
+        a[1, w - 2] &= np.uint32((1 << 8) - 1)
+        a[1, w - 1] = 0
     x[2] = q[2]                                   # distance 0
-    x[0] = ~q[0]                                  # distance 256
-    got = _tile(q, x, bq, rows)
+    x[0] = ~q[0]                                  # distance 32 * w
+    got = _tile(q, x, bq, rows, w)
     qz = np.where(np.arange(got.shape[0])[:, None] < bq, q[:got.shape[0]], 0)
     xz = np.where(np.arange(8)[:, None] < rows, x, 0)
     want = hamming_xor(torch.from_numpy(qz.astype(np.uint32).view(np.int32)),
@@ -334,7 +357,7 @@ def test_tensor_core_tile_emulation_equals_hamming(bq, rows):
     j = lambda a: jnp.asarray(a.view(np.int32))
     assert np.array_equal(got[:bq, :rows], np.asarray(
         jbin.hamming_xor(j(q[:bq]), j(x[:rows]))))
-    assert got[2, 2] == 0 and got[0, 0] == 256
+    assert got[2, 2] == 0 and got[0, 0] == 32 * w
     for bins in (257, 129, 9):                    # the kernels' clamp
         assert np.array_equal(np.minimum(got, bins - 1),
                               np.minimum(want.numpy(), bins - 1))

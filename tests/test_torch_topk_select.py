@@ -20,9 +20,10 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import topk_select as tsel
 
 # as in tests/test_fused_topk.py: aligned and ragged N, W from 1 to 8
-# words, Q below one sublane tile
+# words, Q below one sublane tile; last, d = 128 (kNN-SIFT's width) at a
+# ragged N
 SHAPES = [(8, 1024, 64), (5, 999, 96), (16, 300, 32), (1, 4097, 256),
-          (33, 130, 160)]
+          (33, 130, 160), (32, 1031, 128)]
 
 
 def _codes(seed, n, q, d):
