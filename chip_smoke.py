@@ -20,7 +20,11 @@ kernel launch counts set to 0 just before it and read just after:
   against ``hamming_topk``'s ``return_stats`` mirror there; the committed
   d = 256 kernels (single-bit tensor-core products) and the CUDA-core ones
   (the same source built with its tensor-core dispatch taken out) are
-  timed in turns, the latter held to the former.
+  timed in turns, the latter held to the former. The same full-shape
+  check runs at kNN-SIFT's d = 128, k = 4 and at kNN-WordEmbed's d = 64,
+  k = 2 (the CUDA-core kernels), over 2^20 clustered codes each; the tiles
+  the launches count as taking the CUDA-core kernels must be 0 % at
+  d = 256 and 128 and 100 % at d = 64.
 * the board scan — the same store through ``KNNEngine.search(...,
   method="pallas")`` under the counting (the paper's temporal sort over
   board-sized chunks of 65,536 rows), composite and bisect selects: K3
@@ -242,6 +246,8 @@ D_BITS = 256             # kNN-TagSpace: d = 256, k = 16, 4096 queries
 K = 16
 N_QUERIES = 4096
 SIFT_BITS, SIFT_K = 128, 4   # kNN-SIFT: d = 128, k = 4 (K1/K2's W = 4 tile)
+# kNN-WordEmbed: d = 64, k = 2 (no tensor-core tile: the CUDA-core K1/K2)
+WORDEMBED_BITS, WORDEMBED_K = 64, 2
 N_CLUSTERS = 1024
 FLIP_LOG2 = 4            # each code bit flips from its cluster centre w.p. 1/16
 N_CHECK = 64             # queries held against the on-card brute force
@@ -815,8 +821,9 @@ def k2_pruned_check(q, x, d=D_BITS, k=K):
     """One ``hamming_topk(return_stats=True)`` at k and d + 1 bins (the
     main path's by default) under a CPU-only profiler, which turns K2's
     counter on: K2's own count of the tiles its guard skipped, and the
-    tiles of its pass, held to the stats' host-side mirror. -> (pruned,
-    tiles)."""
+    tiles of its pass, held to the stats' host-side mirror; K1's tiles
+    equal to K2's. -> (pruned, tiles, the share of K1's and K2's tiles
+    that their launches counted as taking the CUDA-core kernels, %)."""
     spans.reset()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -828,7 +835,12 @@ def k2_pruned_check(q, x, d=D_BITS, k=K):
     if own != mirror:
         raise AssertionError(f"K2's own (pruned, tiles) {own} != "
                              f"return_stats' {mirror}")
-    return own
+    if counters[spans.K1_TILES] != own[1]:
+        raise AssertionError(f"K1's tiles {counters[spans.K1_TILES]} != "
+                             f"K2's {own[1]}")
+    cudacore = (counters[spans.K1_TILES_CUDACORE]
+                + counters[spans.K2_TILES_CUDACORE])
+    return (*own, 100.0 * cudacore / (2 * own[1]))
 
 
 def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
@@ -838,8 +850,9 @@ def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
     versions' times, and the kernels' outputs (hist, block_min, per-run
     histograms; dists, ids at the main run count and at one run) held
     bit-for-bit against theirs; the pass-2 skip share, K2's own count of it
-    held to ``return_stats``' (``k2_pruned_check``); and the work both
-    passes must do."""
+    held to ``return_stats``' and the share of the tiles counted as taking
+    the CUDA-core kernels (``k2_pruned_check``); and the work both passes
+    must do."""
     Q, W = q.shape
     N = x.shape[0]
     bins = d + 1
@@ -877,7 +890,7 @@ def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
     max_r = r_p.reshape(-1, bq).amax(dim=1)
     live = bmin <= max_r[:, None]
     skipped = 1.0 - float(live.float().mean())
-    k2_pruned, k2_tiles = k2_pruned_check(q, x, d, k)
+    k2_pruned, k2_tiles, cudacore = k2_pruned_check(q, x, d, k)
     q_real = torch.clamp(Q - torch.arange(tiles[0], device=DEV) * bq,
                          0, bq)
     n_real = torch.clamp(N - torch.arange(tiles[1], device=DEV) * bn,
@@ -892,11 +905,13 @@ def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
           f"ms), K2 {k2_ms:.3f} ms at {runs} runs, {k2_one_ms:.3f} ms at 1 "
           f"(plain {k2_plain} ms), pass-2 blocks_skipped {skipped:.4f}, "
           f"K2's own count {k2_pruned} of {k2_tiles} == return_stats'; "
+          f"tiles on the CUDA cores {cudacore:.1f} %; "
           f"full-shape kernel vs plain: K1 err={k1_err} K2 err={k2_err}",
           flush=True)
     return {"k1_ms": k1_ms, "k2_ms": k2_ms, "k2_one_run_ms": k2_one_ms,
             "k1_plain": k1_plain, "k2_plain": k2_plain, "k1_err": k1_err,
             "k2_err": k2_err, "skipped": skipped, "k2_pruned": k2_pruned,
+            "cudacore_share": cudacore,
             "runs": runs, "W": W,
             "k1_pairs": Q * N, "k2_pairs": k2_pairs, "k1_bytes": k1_bytes,
             "k2_bytes": k2_bytes}
@@ -908,7 +923,7 @@ def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
 # same source with the tensor-core dispatch taken out
 W8_ROUTE = "b1 (mma.sync m16n8k256 AND-popc)"
 POPC_ROUTE = "popc (CUDA cores)"
-POPC_VARIANT = [("if (tc_width(nw) && bq <= TC_MAX_BQ)", "if (false)")]
+POPC_VARIANT = [("return tc_width(nw) && bq <= TC_MAX_BQ;", "return 0;")]
 
 
 def start_variants(source: str, variants: dict):
@@ -4528,9 +4543,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # kNN-SIFT's store at the same scale (d=128, layout order), for K1/K2's
-    # W = 4 tile
+    # W = 4 tile; kNN-WordEmbed's (d=64), for the CUDA-core K1/K2
     sift_q, sift_x = clustered_store(np.random.default_rng(args.seed + 2),
                                      SIFT_BITS, N_ROWS, N_QUERIES)
+    we_q, we_x = clustered_store(np.random.default_rng(args.seed + 3),
+                                 WORDEMBED_BITS, N_ROWS, N_QUERIES)
 
     # phase 3: each kernel against its plain version
     print("kernels vs plain (bit-for-bit):", flush=True)
@@ -4560,6 +4577,17 @@ def main() -> int:
         return fail(f"kernel != plain at d={SIFT_BITS}'s main shape: K1 err "
                     f"{st['k1_err']}, K2 err {st['k2_err']}")
     k1_err, k2_err = max(k1_err, st["k1_err"]), max(k2_err, st["k2_err"])
+    wt = kernel_timings(we_q, we_x, f"d={WORDEMBED_BITS} layout order",
+                        d=WORDEMBED_BITS, k=WORDEMBED_K)
+    if wt["k1_err"] or wt["k2_err"]:
+        return fail(f"kernel != plain at d={WORDEMBED_BITS}'s main shape: "
+                    f"K1 err {wt['k1_err']}, K2 err {wt['k2_err']}")
+    k1_err, k2_err = max(k1_err, wt["k1_err"]), max(k2_err, wt["k2_err"])
+    shares = [kt["cudacore_share"], st["cudacore_share"],
+              wt["cudacore_share"]]
+    if shares != [0.0, 0.0, 100.0]:
+        return fail(f"tiles counted on the CUDA cores at d=256, 128, 64: "
+                    f"{shares} %, expected 0, 0, 100")
     routes = route_comparison(q, eng.layout.codes, {
         W8_ROUTE: tsel._lib(), POPC_ROUTE: popc_lib})
 
@@ -4707,6 +4735,7 @@ def main() -> int:
          "launches": launches["K1"], "max_abs_err": k1_err,
          "ms": kt["k1_ms"], "plain_ms": kt["k1_plain"], "bound_ms": b1,
          "ms_d128": st["k1_ms"], "plain_ms_d128": st["k1_plain"],
+         "ms_d64": wt["k1_ms"], "plain_ms_d64": wt["k1_plain"],
          "bound_by": by1, "bound_route": route1, "library_ms": None,
          "w8_route": W8_ROUTE,
          "earlier_design_ms": popc["k1_ms"]},
@@ -4715,6 +4744,7 @@ def main() -> int:
          "launches": launches["K2"], "max_abs_err": k2_err,
          "ms": kt["k2_ms"], "plain_ms": kt["k2_plain"], "bound_ms": b2,
          "ms_d128": st["k2_ms"], "plain_ms_d128": st["k2_plain"],
+         "ms_d64": wt["k2_ms"], "plain_ms_d64": wt["k2_plain"],
          "bound_by": by2, "bound_route": route2, "library_ms": None,
          "w8_route": W8_ROUTE,
          "earlier_design_ms": popc["k2_one_run_ms"]},

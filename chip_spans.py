@@ -8,10 +8,11 @@ Run from the root of a checkout on a machine with one CUDA card:
         [--out build/spans]
 
 * On-cost: the host nanoseconds of one search's worth of the program's
-  spans and counters (``repro_torch.spans``: six nested spans, the tile
-  count and the K2 counter), micro-timed with no profiler recording and
-  under ``torch.profiler.profile`` (CPU and CUDA), the median of five
-  blocks each.
+  spans and counters (``repro_torch.spans``: six nested spans, K1's and
+  K2's tile counts, their counts of tiles on the CUDA cores, which ask
+  the library's route, and the K2 counter), micro-timed with no profiler
+  recording and under ``torch.profiler.profile`` (CPU and CUDA), the
+  median of five blocks each.
 * For each benchmark cell (``BENCHMARK.json``; default every cell), at its
   full size from ``--seed``: the store, engine and query pool made as
   ``knnbench/harness.py`` makes them, two warm-up searches, then the
@@ -46,10 +47,11 @@ sys.path[0:0] = [str(ROOT), str(ROOT / "src")]
 
 from knnbench import devtrace, gen, harness, program_spans  # noqa: E402
 from repro_torch import spans  # noqa: E402
+from repro_torch.kernels import topk_select as tsel  # noqa: E402
 
 PREFIXES = ("repro_torch.", "knnbench.")
 READERS = ("engine_host_ms", "glue_host_ms", "layout_host_ms",
-           "launch_host_ms", "k2_pruned_share")
+           "launch_host_ms", "k2_pruned_share", "cudacore_tile_share")
 TOP = 15
 DEV = "cuda"
 
@@ -69,9 +71,13 @@ def one_search_of_spans(dev) -> None:
             pass
         with spans.span(spans.EXECUTE):
             with spans.span(spans.K1):
-                pass
+                spans.count(spans.K1_TILES, 1)
+                if dev.type == "cuda":      # a launch asks its route
+                    tsel._count_cudacore(spans.K1_TILES_CUDACORE, 2, 32, 1)
             with spans.span(spans.K2):
                 spans.count(spans.K2_TILES, 1)
+                if dev.type == "cuda":
+                    tsel._count_cudacore(spans.K2_TILES_CUDACORE, 2, 32, 1)
                 spans.device_counter(dev)
             with spans.span(spans.ORIGINAL_IDS):
                 pass

@@ -20,8 +20,13 @@ codes, d=256, k=16, layout order), and stops at the first mismatch; then
 it times the two in turns there, and each ablation beside the committed
 build. Then the same two at kNN-SIFT's d=128, k=4 (4096 x 2^20, layout
 order): each held to the plain versions, and timed in turns, twice, the
-second time in the reverse order. Without a CUDA card it exits non-zero
-at once. To try another design of a kernel, add its substitution here.
+second time in the reverse order. Last, kNN-WordEmbed's d=64, k=2 (4096 x
+2^20, layout order), which has no tensor-core tile: the committed
+CUDA-core kernels (``W == 0``) held to the plain versions and timed
+twice. At each width the launches' count of the tiles that took the
+CUDA-core kernels must read 0 % for the tensor-core route and 100 % for
+the CUDA-core one. Without a CUDA card it exits non-zero at once. To try
+another design of a kernel, add its substitution here.
 """
 from __future__ import annotations
 
@@ -54,6 +59,11 @@ ABLATIONS = {
         ("xt + static_cast<size_t>(r) * 8 + 2 * (lane & 3)",
          "xt + static_cast<size_t>(r & 7) * 8 + 2 * (lane & 3)")],
 }
+
+
+# the share of K1's and K2's tiles each route's launches count as taking
+# the CUDA-core kernels, at d = 256 and d = 128
+SHARE = {cs.W8_ROUTE: 0.0, cs.POPC_ROUTE: 100.0}
 
 
 def kernel_name(mangled: str) -> str:
@@ -104,6 +114,9 @@ def main() -> int:
     d, k = cs.SIFT_BITS, cs.SIFT_K
     sq, sx = cs.clustered_store(np.random.default_rng(args.seed + 1), d,
                                 cs.N_ROWS, cs.N_QUERIES)
+    wd, wk = cs.WORDEMBED_BITS, cs.WORDEMBED_K
+    wq, wx = cs.clustered_store(np.random.default_rng(args.seed + 2), wd,
+                                cs.N_ROWS, cs.N_QUERIES)
 
     routes = {cs.W8_ROUTE: tsel._lib(),
               cs.POPC_ROUTE: variants[cs.POPC_ROUTE]}
@@ -116,6 +129,9 @@ def main() -> int:
             return cs.fail(f"route {name}: kernel != plain (cases K1 {k1} "
                            f"K2 {k2}; main shape K1 {kt['k1_err']} K2 "
                            f"{kt['k2_err']})")
+        if kt["cudacore_share"] != SHARE[name]:
+            return cs.fail(f"route {name}: {kt['cudacore_share']} % of "
+                           f"tiles counted on the CUDA cores")
     cs.route_comparison(q, x, routes, reps=args.reps)
 
     print(f"where the time goes ({cs.W8_ROUTE}, main shape):", flush=True)
@@ -137,9 +153,22 @@ def main() -> int:
         if kt["k1_err"] or kt["k2_err"]:
             return cs.fail(f"d={d} route {name}: kernel != plain (K1 "
                            f"{kt['k1_err']} K2 {kt['k2_err']})")
+        if kt["cudacore_share"] != SHARE[name]:
+            return cs.fail(f"d={d} route {name}: {kt['cudacore_share']} % "
+                           f"of tiles counted on the CUDA cores")
     cs.route_comparison(sq, sx, routes, reps=args.reps, d=d, k=k)
     cs.route_comparison(sq, sx, dict(reversed(routes.items())),
                         reps=args.reps, d=d, k=k)
+
+    # kNN-WordEmbed's width: W = 2 has no tensor-core tile, so the
+    # committed library runs the CUDA-core kernels (W == 0) there
+    kt = cs.kernel_timings(wq, wx, f"d={wd} k={wk} committed", d=wd, k=wk)
+    if kt["k1_err"] or kt["k2_err"] or kt["cudacore_share"] != 100.0:
+        return cs.fail(f"d={wd}: kernel != plain (K1 {kt['k1_err']} K2 "
+                       f"{kt['k2_err']}) or {kt['cudacore_share']} % of "
+                       f"tiles counted on the CUDA cores")
+    cs.kernel_timings(wq, wx, f"d={wd} k={wk} committed, again",
+                      with_plain=False, d=wd, k=wk)
     print(f"chip_topk_routes: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return 0

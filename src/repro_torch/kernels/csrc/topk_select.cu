@@ -73,8 +73,9 @@
 // run's skipped tiles through the same guard and adds them with one
 // atomic; a null counter adds no store and no launch.
 //
-// Plain C entry points, loaded with ctypes. Each returns cudaGetLastError()
-// (or the error of cudaFuncSetAttribute) as an int.
+// Plain C entry points, loaded with ctypes. Each launcher returns
+// cudaGetLastError() (or the error of cudaFuncSetAttribute) as an int;
+// topk_tc_route returns the route of a launch.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -721,6 +722,13 @@ constexpr bool tc_width(int nw) { return nw == 4 || nw == 8; }
 
 extern "C" {
 
+// The route K1 and K2 take for nw-word codes and a query block of bq rows:
+// 1 the tensor-core kernels, 0 the CUDA-core ones. Both launchers dispatch
+// by it, and the wrappers ask it which kernels a launch ran.
+int topk_tc_route(int nw, int bq) {
+  return tc_width(nw) && bq <= TC_MAX_BQ;
+}
+
 // K1. q (Q, nw), x (N, nw), en (Q/bq, N/bn) int32; hist (Q, bins) zeroed by
 // the caller; bmin (Q/bq, N/bn) fully written here; run_hist (Q, n_runs,
 // bins) fully written here, or null. One CTA per (run, query block).
@@ -732,7 +740,7 @@ int topk_hist_launch(const int* q, const int* x, const int* en, int* hist,
 #define HIST_TC(MB, Wt)                                                \
   launch_hist_tc<MB, Wt>(q, x, en, hist, bmin, run_hist, Q, N, n_valid, \
                          bins, bq, bn, n_runs, s)
-  if (tc_width(nw) && bq <= TC_MAX_BQ) DISPATCH_TC(nw, bq, HIST_TC);
+  if (topk_tc_route(nw, bq)) DISPATCH_TC(nw, bq, HIST_TC);
 #undef HIST_TC
 #define HIST_CALL(Wt) \
   launch_hist<Wt>(q, x, en, hist, bmin, run_hist, Q, N, nw, n_valid, bins, \
@@ -756,7 +764,7 @@ int topk_emit_launch(const int* q, const int* x, const int* en,
   launch_emit_tc<MB, Wt>(q, x, en, bm, r_star, lt_base, tie_base, out_d, \
                          out_i, pruned, Q, N, n_valid, id_base, bins, k, \
                          bq, bn, n_runs, s)
-  if (tc_width(nw) && bq <= TC_MAX_BQ) DISPATCH_TC(nw, bq, EMIT_TC);
+  if (topk_tc_route(nw, bq)) DISPATCH_TC(nw, bq, EMIT_TC);
 #undef EMIT_TC
 #define EMIT_CALL(Wt) \
   launch_emit<Wt>(q, x, en, bm, r_star, lt_base, tie_base, out_d, out_i, \

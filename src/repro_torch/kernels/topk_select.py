@@ -38,16 +38,20 @@ compute the same function tile for tile, one chunk of whole query blocks at
 a time so the (chunk, N) distance tensor stays bounded; ``chip_smoke.py``
 holds each kernel against its plain version on the card.
 
-**Spans and K2's pruning counter** (``repro_torch.spans``, only while a
-torch profiler records): each wrapper runs inside its span (``spans.K1``,
-``spans.K2``: argument preparation, the operator's dispatch, the launch).
-K2's wrapper counts the call's tiles, (Q/bq)·(N/bn), in ``spans.K2_TILES``
-and passes ``spans.device_counter`` as the operator's mutated optional
-``pruned`` argument: each CTA of the kernel ends by adding the tiles of its
-run that its block-min guard skipped, with one atomic, and the plain
-version adds its count of skipped tiles. With no profiler recording the
-counter is None, the kernel gets a null pointer and nothing more is
-written or launched.
+**Spans and counters** (``repro_torch.spans``, only while a torch
+profiler records): each wrapper runs inside its span (``spans.K1``,
+``spans.K2``: argument preparation, the operator's dispatch, the launch)
+and counts the call's tiles, (Q/bq)·(N/bn), in ``spans.K1_TILES`` or
+``spans.K2_TILES``. Each launch on the card also adds its tiles to
+``spans.K1_TILES_CUDACORE`` or ``spans.K2_TILES_CUDACORE`` when it took
+the CUDA-core kernels, and 0 when it took the tensor-core ones: the
+library's ``topk_tc_route``, the rule both launchers dispatch by, says
+which. K2's wrapper also passes ``spans.device_counter`` as the
+operator's mutated optional ``pruned`` argument: each CTA of the kernel
+ends by adding the tiles of its run that its block-min guard skipped,
+with one atomic, and the plain version adds its count of skipped tiles.
+With no profiler recording the counter is None, the kernel gets a null
+pointer and nothing more is written or launched.
 """
 from __future__ import annotations
 
@@ -135,6 +139,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {
     "topk_hist_launch": [_P] * 6 + [_I] * 8 + [_P],
     "topk_emit_launch": [_P] * 10 + [_I] * 10 + [_P],
+    "topk_tc_route": [_I, _I],
 }
 
 
@@ -153,6 +158,14 @@ def _lib() -> ctypes.CDLL:
 def _raise_on(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def _count_cudacore(name: str, W: int, bq: int, tiles: int) -> None:
+    """While a profiler records, add to the counter ``name`` the ``tiles``
+    of a launch of W-word codes in bq-row query blocks if the launcher's
+    route (``topk_tc_route``) gave it the CUDA-core kernels, else 0."""
+    if spans.recording():
+        spans.count(name, 0 if _lib().topk_tc_route(W, bq) else tiles)
 
 
 def _query_chunks(nqb: int, bq: int, N: int):
@@ -214,7 +227,9 @@ def hamming_hist_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
     tiles into R runs (module docstring) and returns, third, the (Q, R,
     bins) int32 histogram of each run, which sums to ``hist``. CUDA
     tensors go through the operator ``repro_torch::k1_hist``. Span
-    ``spans.K1``."""
+    ``spans.K1``; while a profiler records, the call adds its tiles to
+    ``spans.K1_TILES``, and a launch adds them to
+    ``spans.K1_TILES_CUDACORE`` if it took the CUDA-core kernels."""
     with spans.span(spans.K1):
         dev = _device_of(q_packed, x_packed)
         Q, W = q_packed.shape
@@ -225,6 +240,7 @@ def hamming_hist_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
         nqb, nnb = Q // bq, N // bn
         if runs is not None and int(runs) < 1:
             raise ValueError(f"runs must be >= 1, got {runs}")
+        spans.count(spans.K1_TILES, nqb * nnb)
         if dev.type == "cpu":
             return hamming_hist_plain(_codes(q_packed), _codes(x_packed),
                                       bins, nv, en, bq, bn,
@@ -271,6 +287,7 @@ def _k1_cuda(q, x, en, n_valid, bins, bq, bn, runs, want_runs):
         Q, N, W, n_valid, bins, bq, bn, runs, stream)
     _raise_on(err, "K1 (topk_hist_launch)")
     hamming_hist_kernel.launches += 1
+    _count_cudacore(spans.K1_TILES_CUDACORE, W, bq, (Q // bq) * (N // bn))
     return hist, bmin, run_hist
 
 
@@ -386,8 +403,10 @@ def hamming_emit_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
     (Q/bq)·(N/bn), to the counter ``spans.K2_TILES``, and the kernel (or
     the plain version) adds the tiles its block-min guard skipped to
     ``spans.device_counter``: ``spans.K2_TILES_PRUNED``, which equals
-    ``ops.hamming_topk(return_stats=True)``'s ``blocks_skipped``. Otherwise
-    the kernel gets a null counter and writes nothing more."""
+    ``ops.hamming_topk(return_stats=True)``'s ``blocks_skipped``; a launch
+    adds its tiles to ``spans.K2_TILES_CUDACORE`` if it took the CUDA-core
+    kernels. Otherwise the kernel gets a null counter and writes nothing
+    more."""
     with spans.span(spans.K2):
         dev = _device_of(q_packed, x_packed)
         Q, W = q_packed.shape
@@ -462,6 +481,7 @@ def _k2_cuda(q, x, en, bm, r, lt_base, tie_base, n_valid, id_base, bins,
         id_base, bins, k, bq, bn, lt_base.shape[1], stream)
     _raise_on(err, "K2 (topk_emit_launch)")
     hamming_emit_kernel.launches += 1
+    _count_cudacore(spans.K2_TILES_CUDACORE, W, bq, (Q // bq) * (N // bn))
     return out_d, out_i
 
 

@@ -4,9 +4,12 @@ records.
 The search path marks its layers with ``span(name)``: the engine's call
 (``SEARCH``), the planner (``PLAN``), the executor (``EXECUTE``), the K1 and
 K2 wrappers (``K1``, ``K2``) and the layout's id map (``ORIGINAL_IDS``).
-K2's wrapper counts the tiles of each pass (``count(K2_TILES, n)``) and
-hands its kernel ``device_counter(device)``, to which the kernel adds the
-tiles its block-min guard skipped (``K2_TILES_PRUNED``).
+The K1 and K2 wrappers count the tiles of each pass (``count(K1_TILES,
+n)``, ``K2_TILES``), and each launch on the card the tiles that took the
+CUDA-core kernels (``K1_TILES_CUDACORE``, ``K2_TILES_CUDACORE``: all of
+its tiles or 0, by the launcher's own route). K2's wrapper also hands its
+kernel ``device_counter(device)``, to which the kernel adds the tiles its
+block-min guard skipped (``K2_TILES_PRUNED``).
 
 With no profiler recording (``recording()`` false), ``span`` returns one
 shared null context, ``count`` adds nothing and ``device_counter`` is None:
@@ -39,7 +42,10 @@ EXECUTE = "repro_torch.execute"
 K1 = "repro_torch.k1"
 K2 = "repro_torch.k2"
 ORIGINAL_IDS = "repro_torch.layout.original_ids"
+K1_TILES = "k1.tiles"
+K1_TILES_CUDACORE = "k1.tiles_cudacore"
 K2_TILES = "k2.tiles"
+K2_TILES_CUDACORE = "k2.tiles_cudacore"
 K2_TILES_PRUNED = "k2.tiles_pruned"
 
 # true while a torch profiler records (torch.profiler.profile and

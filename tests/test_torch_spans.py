@@ -2,8 +2,10 @@
 null context, nothing counted, no K2 counter), on under
 ``torch.profiler.profile`` (the six spans of a search nested under
 ``repro_torch.search``, self times that add up), and K2's pruned-tile count
-equal to ``hamming_topk(return_stats=True)``'s mirror. Tiny stores, plain
-K1/K2."""
+equal to ``hamming_topk(return_stats=True)``'s mirror, with K1's tiles
+equal to K2's; a launch's tiles counted as CUDA-core by its library's
+route. Tiny stores, plain K1/K2."""
+import ctypes
 import threading
 from types import SimpleNamespace
 
@@ -139,6 +141,10 @@ def test_k2_pruned_count_equals_return_stats(d, store):
     c = spans.snapshot()["counters"]
     spans.reset()
     assert c[spans.K2_TILES] == st["blocks_total"] == 3 * 16
+    assert c[spans.K1_TILES] == c[spans.K2_TILES]
+    # the plain versions are neither kernel family: no route counter
+    assert spans.K1_TILES_CUDACORE not in c
+    assert spans.K2_TILES_CUDACORE not in c
     assert c[spans.K2_TILES_PRUNED] == int(st["blocks_skipped"])
     if store == "clustered":
         assert c[spans.K2_TILES_PRUNED] > 0
@@ -166,6 +172,50 @@ def test_k2_launch_gets_a_null_counter_without_one(monkeypatch):
     tsel.hamming_emit_kernel.launches = launches
     assert [a[9] for a in args] == [0, counter.data_ptr()]
     assert len(args[0]) == len(tsel.ARGTYPES["topk_emit_launch"])
+
+
+@pytest.mark.parametrize("tc_route", [0, 1])
+def test_launch_counts_its_tiles_by_the_librarys_route(tc_route,
+                                                       monkeypatch):
+    """The CUDA route's launches (their library stood in for) add their
+    tiles to the ``_cudacore`` counters when the library's
+    ``topk_tc_route`` gives the CUDA-core kernels, and 0 when it gives the
+    tensor-core ones, asked with the launch's (W, bq); with no profiler
+    recording the route is not asked and nothing is counted."""
+    asked = []
+    lib = SimpleNamespace(
+        topk_hist_launch=lambda *a: 0, topk_emit_launch=lambda *a: 0,
+        topk_tc_route=lambda nw, bq: asked.append((nw, bq)) or tc_route)
+    monkeypatch.setattr(tsel, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    launches = (tsel.hamming_hist_kernel.launches,
+                tsel.hamming_emit_kernel.launches)
+    q, x = _codes("uniform", 48, 64, 2), _codes("uniform", 2048, 64, 3)
+    en = torch.ones((3, 8), dtype=torch.int32)
+    r = torch.full((48,), 100, dtype=torch.int32)
+    base = torch.zeros((48, 1), dtype=torch.int32)
+
+    def launch_both():
+        tsel._k1_cuda(q, x, en, 2048, 65, 16, 256, 1, False)
+        tsel._k2_cuda(q, x, en, en, r, base, base, 2048, 0, 65, 2, 16, 256,
+                      None)
+
+    spans.reset()
+    launch_both()
+    assert asked == [] and spans.snapshot()["counters"] == {}
+    with _profile():
+        launch_both()
+        launch_both()
+    c = spans.snapshot()["counters"]
+    spans.reset()
+    tsel.hamming_hist_kernel.launches, tsel.hamming_emit_kernel.launches = (
+        launches)
+    assert asked == [(2, 16)] * 4
+    want = 0 if tc_route else 2 * 3 * 8
+    assert c == {spans.K1_TILES_CUDACORE: want,
+                 spans.K2_TILES_CUDACORE: want}
+    assert tsel.ARGTYPES["topk_tc_route"] == [ctypes.c_int] * 2
 
 
 def test_k2_cost_charges_the_counter():

@@ -123,6 +123,41 @@ def test_heavy_ties_at_r_star():
         _same_topk(*_topk_both(xj, qj, xt, qt, k, 9))
 
 
+@pytest.mark.parametrize("n_lt", [0, 1])
+def test_d64_k2_tie_groups_exceed_free_slots(n_lt):
+    """kNN-WordEmbed's width and k over a clustered store in which every
+    centre has a group of ~160 exact copies scattered over all tiles. A
+    query at a centre has r* = 0 and 2 free slots for the group; a query
+    one bit from its centre, itself stored once, has one row below r* = 1
+    and 1 free slot for the group."""
+    rng = np.random.default_rng(29)
+    d, centres, copies = 64, 8, 160
+    cent = rng.integers(0, 2, (centres, d)).astype(np.uint8)
+    noise = (rng.random((4096 - centres * copies, d)) < 1 / 16)
+    owner = rng.integers(0, centres, noise.shape[0])
+    q = cent.copy()
+    q[:, 0] ^= n_lt
+    # a noisy row equal to its query goes back to its centre
+    noise[(cent[owner] ^ noise == q[owner]).all(axis=1)] = 0
+    x = np.concatenate([np.repeat(cent, copies, axis=0),
+                        cent[owner] ^ noise])
+    x = x[rng.permutation(x.shape[0])]
+    if n_lt:
+        x[:centres] = q
+    xj = jbin.pack_bits(jnp.asarray(x))
+    qj = jbin.pack_bits(jnp.asarray(q))
+    j, t = _topk_both(xj, qj, _t(xj), _t(qj), 2, d + 1)
+    _same_topk(j, t)
+    full = (q[:, None] != x[None]).sum(axis=2)
+    r_star = np.sort(full, axis=1)[:, 1]
+    np.testing.assert_array_equal(t[0].numpy(),
+                                  np.sort(full, axis=1)[:, :2])
+    assert (r_star == n_lt).all()
+    free = 2 - (full < r_star[:, None]).sum(axis=1)
+    assert (free == 2 - n_lt).all()
+    assert ((full == r_star[:, None]).sum(axis=1) > 100).all()
+
+
 def test_k_exceeds_rows():
     xj, qj, xt, qt = _codes(2, 37, 3, 64)
     j, t = _topk_both(xj, qj, xt, qt, 50, 65)
