@@ -625,7 +625,7 @@ def max_abs_diff(pairs) -> int:
 # ---------------------------------------------------------------------------
 
 def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
-                shard=None, geometry=(None, None, None), seed=0):
+                shard=None, geometry=(None, None), seed=0):
     """Run K1 then K2 on one case, kernel and plain on the same card inputs;
     returns (k1_err, k2_err). K1 runs split into the runs the main path
     would use and returns the per-run histograms too; K2 runs at that run
@@ -636,7 +636,7 @@ def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
     Q, W = q.shape
     N = x.shape[0]
     lanes = max(bins, min(k, N))
-    qp, xp, bq, bn, sub = ops._topk_blocked(q, x, lanes, *geometry)
+    qp, xp, bq, bn = ops._topk_blocked(q, x, lanes, *geometry)
     nv = N if n_valid is None else n_valid
     tiles = (qp.shape[0] // bq, xp.shape[0] // bn)
     runs = tsel.default_runs(*tiles)
@@ -648,7 +648,7 @@ def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
                 < mask_p).to(torch.int32)
         en = mask
     hist_k, bmin_k, rh_k = tsel.hamming_hist_kernel(
-        qp, xp, bins, nv, mask, bq=bq, bn=bn, sub=sub, runs=runs)
+        qp, xp, bins, nv, mask, bq=bq, bn=bn, runs=runs)
     hist_p, bmin_p, rh_p = tsel.hamming_hist_plain(qp, xp, bins, nv, en, bq,
                                                    bn, runs)
     torch.cuda.synchronize()
@@ -664,7 +664,7 @@ def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
     if shard is not None:
         lo, hi = shard          # lo a multiple of bn: shard tiles are whole
         h0, _ = tsel.hamming_hist_kernel(qp, xp[:lo], bins, lo, None,
-                                         bq=bq, bn=bn, sub=sub)
+                                         bq=bq, bn=bn)
         c0 = torch.cumsum(h0[:Q], dim=-1, dtype=torch.int32)
         at = lambda c, i: torch.gather(c, 1, i[:, None].long())[:, 0]
         lt0 = torch.where(r_star > 0, at(c0, torch.clamp(r_star - 1, min=0)),
@@ -679,11 +679,11 @@ def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
         ms = None if mask is None else mask[:, j0:j1]
         runs = tsel.default_runs(tiles[0], j1 - j0)
         _, _, rhs = tsel.hamming_hist_kernel(qp, xs, bins, nvs, ms, bq=bq,
-                                             bn=bn, sub=sub, runs=runs)
+                                             bn=bn, runs=runs)
     bases = ops._run_bases(rhs, r_p, nlt_p, sb)
     emit = lambda rb: tsel.hamming_emit_kernel(
         qp, xs, r_p, nlt_p, bins, k, nvs, block_min=bms, block_mask=ms,
-        slot_base=sb, id_base=ib, bq=bq, bn=bn, sub=sub, run_bases=rb)
+        slot_base=sb, id_base=ib, bq=bq, bn=bn, run_bases=rb)
     d_r, i_r = emit(bases)
     d_1, i_1 = emit(None)
     d_p, i_p = tsel.hamming_emit_plain(qp, xs, r_p, nlt_p, bins, k, nvs,
@@ -716,10 +716,10 @@ def run_cases(main_q, main_x, sift_q, sift_x):
         ("n_valid < N", rand_codes(64, 256), rand_codes(5000, 256), 257, 16,
          {"n_valid": 3000}),
         ("block_mask with zeros", rand_codes(96, 256), rand_codes(9000, 256),
-         257, 16, {"mask_p": 0.5, "geometry": (32, 504, 24)}),
+         257, 16, {"mask_p": 0.5, "geometry": (32, 504)}),
         ("slot_base/id_base (shard 2 of 2)", rand_codes(64, 256),
          rand_codes(8000, 256), 257, 16,
-         {"shard": (4032, 8064), "geometry": (32, 504, 24)}),
+         {"shard": (4032, 8064), "geometry": (32, 504)}),
         ("heavy ties d=8 k=3", rand_codes(4, 8) & 0xFF,
          rand_codes(4096, 8) & 0xFF, 9, 3, {}),
         ("heavy ties d=8 k=512", rand_codes(4, 8) & 0xFF,
@@ -729,7 +729,7 @@ def run_cases(main_q, main_x, sift_q, sift_x):
          rand_codes(3000, 384), 385, 16, {}),
         ("bq=64 (65.8 KB shared histogram, two queries per warp)",
          rand_codes(100, 256), rand_codes(3000, 256), 257, 16,
-         {"geometry": (64, 512, 8)}),
+         {"geometry": (64, 512)}),
         ("a decode batch: 8 queries, bq=8 (half of one m16 fragment)",
          rand_codes(8, 256), rand_codes(5000, 256), 257, 16, {}),
         ("24 queries, bq=24 (one and a half m16 fragments)",
@@ -745,12 +745,12 @@ def run_cases(main_q, main_x, sift_q, sift_x):
          129, 16, {"n_valid": 3000}),
         ("d=128 block_mask with zeros", rand_codes(96, 128),
          rand_codes(9000, 128), 129, 16,
-         {"mask_p": 0.5, "geometry": (32, 504, 24)}),
+         {"mask_p": 0.5, "geometry": (32, 504)}),
         ("d=128 slot_base/id_base (shard 2 of 2)", rand_codes(64, 128),
          rand_codes(8000, 128), 129, 16,
-         {"shard": (4032, 8064), "geometry": (32, 504, 24)}),
+         {"shard": (4032, 8064), "geometry": (32, 504)}),
         ("d=128 bq=64 (four m16 fragments)", rand_codes(100, 128),
-         rand_codes(3000, 128), 129, 16, {"geometry": (64, 512, 8)}),
+         rand_codes(3000, 128), 129, 16, {"geometry": (64, 512)}),
         ("d=128 bq=24 (one and a half m16 fragments)", rand_codes(24, 128),
          rand_codes(5000, 128), 129, 16, {}),
         ("d=128 bq=8 (half of one m16 fragment)", rand_codes(8, 128),
@@ -765,7 +765,7 @@ def run_cases(main_q, main_x, sift_q, sift_x):
         q, x = rand_codes(Q, d), rand_codes(N, d)
         gd, gi, _ = ops.hamming_topk(q, x, k, d + 1, return_stats=True)
         cd, ci, _ = ops.hamming_topk(q.cpu(), x.cpu(), k, d + 1, bq=32,
-                                     bn=1032, sub=24, return_stats=True)
+                                     bn=1032, return_stats=True)
         if not (torch.equal(gd.cpu(), cd) and torch.equal(gi.cpu(), ci)):
             raise AssertionError(f"hamming_topk on the card != on the CPU "
                                  f"(d={d})")
@@ -856,12 +856,12 @@ def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
     Q, W = q.shape
     N = x.shape[0]
     bins = d + 1
-    qp, xp, bq, bn, sub = ops._topk_blocked(q, x, bins, None, None, None)
+    qp, xp, bq, bn = ops._topk_blocked(q, x, bins, None, None)
     tiles = (qp.shape[0] // bq, xp.shape[0] // bn)
     runs = tsel.default_runs(*tiles)
     ones = torch.ones(tiles, dtype=torch.int32, device=DEV)
     hist, bmin, run_hist = tsel.hamming_hist_kernel(
-        qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs)
+        qp, xp, bins, N, bq=bq, bn=bn, runs=runs)
     cum = torch.cumsum(hist[:Q], dim=-1, dtype=torch.int32)
     _, r_star, n_lt, _ = ops._radius_from_cum(cum, k)
     r_p = torch.nn.functional.pad(r_star, (0, qp.shape[0] - Q), value=-1)
@@ -870,10 +870,10 @@ def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
     bases = ops._run_bases(run_hist, r_p, nlt_p)
 
     k1_ms, k1_out = cuda_ms(lambda: tsel.hamming_hist_kernel(
-        qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs), N_TIMED)
+        qp, xp, bins, N, bq=bq, bn=bn, runs=runs), N_TIMED)
     emit = lambda rb: tsel.hamming_emit_kernel(
         qp, xp, r_p, nlt_p, bins, k, N, block_min=bmin, bq=bq, bn=bn,
-        sub=sub, run_bases=rb)
+        run_bases=rb)
     k2_ms, k2_out = cuda_ms(lambda: emit(bases), N_TIMED)
     k2_one_ms, k2_one = cuda_ms(lambda: emit(None), N_TIMED)
     k1_plain = k2_plain = k1_err = k2_err = None
@@ -900,7 +900,7 @@ def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
     k1_bytes = 4 * (Q * W + N * W + Q * bins + bmin.numel())
     k2_bytes = 4 * (Q * W + rows_read * W + 2 * bmin.numel() + 3 * Q
                     + 2 * Q * k)
-    print(f"  {stats_label}: geometry bq={bq} bn={bn} sub={sub} "
+    print(f"  {stats_label}: geometry bq={bq} bn={bn} "
           f"tiles={tiles} runs={runs}; K1 {k1_ms:.3f} ms (plain {k1_plain} "
           f"ms), K2 {k2_ms:.3f} ms at {runs} runs, {k2_one_ms:.3f} ms at 1 "
           f"(plain {k2_plain} ms), pass-2 blocks_skipped {skipped:.4f}, "
@@ -988,10 +988,10 @@ def route_comparison(q, x, libs, reps=N_TIMED, check=True, quiet=False,
     are wrong by design); ``quiet`` prints nothing."""
     Q, N = q.shape[0], x.shape[0]
     bins = d + 1
-    qp, xp, bq, bn, sub = ops._topk_blocked(q, x, bins, None, None, None)
+    qp, xp, bq, bn = ops._topk_blocked(q, x, bins, None, None)
     runs = tsel.default_runs(qp.shape[0] // bq, xp.shape[0] // bn)
     hist, bmin, run_hist = tsel.hamming_hist_kernel(
-        qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs)
+        qp, xp, bins, N, bq=bq, bn=bn, runs=runs)
     _, r_star, n_lt, _ = ops._radius_from_cum(
         torch.cumsum(hist[:Q], dim=-1, dtype=torch.int32), k)
     r_p = torch.nn.functional.pad(r_star, (0, qp.shape[0] - Q), value=-1)
@@ -999,13 +999,13 @@ def route_comparison(q, x, libs, reps=N_TIMED, check=True, quiet=False,
     bases = ops._run_bases(run_hist, r_p, nlt_p)
     emit = lambda rb=bases: tsel.hamming_emit_kernel(
         qp, xp, r_p, nlt_p, bins, k, N, block_min=bmin, bq=bq, bn=bn,
-        sub=sub, run_bases=rb)
+        run_bases=rb)
     ref1, ref2 = (hist, bmin, run_hist), emit()
     out = {}
     for name, lib in libs.items():
         with topk_library(lib):
             k1_ms, o1 = cuda_ms(lambda: tsel.hamming_hist_kernel(
-                qp, xp, bins, N, bq=bq, bn=bn, sub=sub, runs=runs), reps)
+                qp, xp, bins, N, bq=bq, bn=bn, runs=runs), reps)
             k2_ms, o2 = cuda_ms(emit, reps)
             k2_one_ms, o3 = cuda_ms(lambda: emit(None), reps)
         err = max_abs_diff([*zip(o1, ref1), *zip(o2, ref2), *zip(o3, ref2)])
@@ -1175,7 +1175,7 @@ def check_masked(label, lay, q, dd, ii, probe, cand_ids, sample):
     block. The program's mask row must enable exactly those blocks, and
     the result must equal a brute force over their rows (ties by layout
     position)."""
-    mask, bq, bn, _ = layout._enable_mask(
+    mask, bq, bn = layout._enable_mask(
         lay, q.shape[0], q.shape[1], K, D_BITS, probe, cand_ids,
         backend=device.backend_of(q))
     starts = lay.starts.cpu().numpy().astype(np.int64)

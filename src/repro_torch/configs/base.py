@@ -76,7 +76,7 @@ class RetrievalConfig:
     interpolation: float = 0.25    # lambda for kNN-LM mixing
     # per-device scan chunk ("board capacity") for the MATERIALIZING selects
     # and "fused_scan" only — the single-shot "fused" path streams the whole
-    # datastore in one invocation and tiles via kernels/tuning.py, so this
+    # datastore in one invocation and tiles by topk_select.geometry, so this
     # is a no-op for it
     chunk_size: int = 1 << 16
     # top-k select path: "auto" | "counting" | "bisect" | "fused" |

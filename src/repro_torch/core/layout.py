@@ -245,22 +245,18 @@ def position_block_mask_from_inv(inv: torch.Tensor, cand: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _enable_mask(layout: BucketLayout, Q: int, W: int, k: int, d: int,
-                 probe=None, cand_ids=None, bq=None, bn=None, sub=None,
-                 backend=None):
+                 probe=None, cand_ids=None, bq=None, bn=None, backend=None):
     """The geometry ``masked_topk`` runs under and its enable mask:
-    (mask or None, bq, bn, sub). ``bn`` defaults to
-    ``tuning.layout_blocks`` (aligned to the mean bucket size) when there
-    is a probe."""
-    from repro_torch.kernels import ops, tuning
+    (mask or None, bq, bn). ``bn`` defaults to ``topk_select.geometry``'s
+    for the mean bucket size when there is a probe."""
+    from repro_torch.kernels import ops
 
     n = layout.n
     lanes = max(d + 1, min(k, n))
-    if bn is None and (probe is not None or cand_ids is not None):
-        _, bn, _ = tuning.layout_blocks(Q, n, W, lanes,
-                                        layout.mean_bucket_rows,
-                                        backend=backend)
-    bq, bn, sub, q_pad, n_pad = ops.topk_geometry(Q, n, W, lanes, bq, bn,
-                                                  sub, backend=backend)
+    probed = probe is not None or cand_ids is not None
+    bq, bn, q_pad, n_pad = ops.topk_geometry(
+        Q, n, W, lanes, bq, bn, backend=backend,
+        bucket_rows=layout.mean_bucket_rows if probed else 0)
     n_qblocks, n_nblocks = q_pad // bq, n_pad // bn
     mask = None
     if probe is not None:
@@ -269,14 +265,14 @@ def _enable_mask(layout: BucketLayout, Q: int, W: int, k: int, d: int,
         pmask = position_block_mask(layout, cand_ids, bq, bn, n_qblocks,
                                     n_nblocks)
         mask = pmask if mask is None else torch.maximum(mask, pmask)
-    return mask, bq, bn, sub
+    return mask, bq, bn
 
 
 def masked_topk(layout: BucketLayout, q_packed: torch.Tensor, k: int, d: int,
                 probe: torch.Tensor | None = None,
                 cand_ids: torch.Tensor | None = None,
                 bq: int | None = None, bn: int | None = None,
-                sub: int | None = None, return_stats: bool = False):
+                return_stats: bool = False):
     """Index-probed top-k straight through the fused kernel pair (K1 + K2).
 
     ``probe`` ((Q, P) bucket ids) and/or ``cand_ids`` ((Q, C) original
@@ -289,11 +285,11 @@ def masked_topk(layout: BucketLayout, q_packed: torch.Tensor, k: int, d: int,
     from repro_torch.kernels import ops
 
     Q, W = q_packed.shape
-    mask, bq, bn, sub = _enable_mask(
-        layout, Q, W, k, d, probe, cand_ids, bq, bn, sub,
+    mask, bq, bn = _enable_mask(
+        layout, Q, W, k, d, probe, cand_ids, bq, bn,
         backend=device_mod.backend_of(q_packed))
     out = ops.hamming_topk(q_packed, layout.codes, k, d + 1,
-                           block_mask=mask, bq=bq, bn=bn, sub=sub,
+                           block_mask=mask, bq=bq, bn=bn,
                            return_stats=return_stats)
     dd, ii = out[0], out[1]
     ids = original_ids(layout, dd, ii, d)

@@ -1,6 +1,5 @@
 """QueryPlan IR: one planner and one executor behind every search path
-(port of ``repro.core.plan``, with the generated decision table that
-DESIGN.md embeds and its check).
+(port of ``repro.core.plan``).
 
 * **IR** — a :class:`QueryPlan` of four typed stages: :class:`ProbeStage`,
   :class:`CandidateStage` (full scan, and which physical layout it
@@ -23,11 +22,7 @@ DESIGN.md embeds and its check).
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
-import difflib
-import json
-import sys
 import warnings
 from typing import Optional, Sequence, Tuple
 
@@ -254,7 +249,8 @@ class QueryPlan:
 
     def geometry(self) -> dict:
         """Block geometry + cost hints the kernels will run under, computed
-        by the SAME heuristic the kernels consult (kernels/tuning.py).
+        by the SAME rules the kernels are tiled by (``kernels/tuning.py``,
+        ``topk_select.geometry``).
         Sharded plans additionally carry a ``merge`` sub-dict
         (``tuning.shard_hints``): shard geometry and the predicted
         cross-rank merge traffic of every strategy."""
@@ -302,8 +298,6 @@ class QueryPlan:
                     k_k, n_blocks * n_sh, l), 6),
                 "scores_flops": flops, "plane_bytes": plane_bytes,
                 "flops_per_byte": round(flops / max(plane_bytes, 1), 2),
-                "hint_source": tuning.hint_source(
-                    backend, "approx", self.q, n_eff, self.w, 1),
             }
         if self.select.path not in ("fused", "fused_scan"):
             # mirror the executor's resolution exactly (falsy -> default)
@@ -1114,257 +1108,3 @@ def execute(plan: QueryPlan, q_packed: torch.Tensor, *,
             return dd, layout_mod.to_original_ids(perm, ii)
         return _scan_select(codes, q_packed, plan.k, plan,
                             id_offset=id_offset)
-
-
-# ---------------------------------------------------------------------------
-# the generated decision table (DESIGN.md embeds it; check_design checks it)
-# ---------------------------------------------------------------------------
-
-# DESIGN.md's markers, written by ``repro``'s generator
-TABLE_BEGIN = "<!-- BEGIN GENERATED PLANNER TABLE (python -m repro.core.plan --table) -->"
-TABLE_END = "<!-- END GENERATED PLANNER TABLE -->"
-# the one wording of DESIGN.md's table (generated by ``repro``) that the
-# port's planner words otherwise: its composite path is torch.topk
-DESIGN_WORDING = ("XLA top_k", "top_k")
-
-
-def _table_scenarios():
-    """Canonical scenario cells: every planner rule appears at least once.
-    Fixed shapes + backend="cpu" so the table is machine-independent."""
-    flat = StoreStats(n=1 << 17, d=128, w=4, q=256, backend="cpu")
-    lay = dataclasses.replace(flat, has_layout=True, mean_bucket_rows=256,
-                              n_buckets=512)
-    k = 16
-    with warnings.catch_warnings():
-        # the local_sort fallback warns by design; the table just records it
-        warnings.simplefilter("ignore")
-        return _scenario_rows(flat, lay, k)
-
-
-def _scenario_rows(flat, lay, k):
-    return [
-        ("full scan / auto / no layout", plan_local(flat, k)),
-        ("full scan / auto / prebuilt layout", plan_local(lay, k)),
-        ("full scan / auto / config demands layout, none prebuilt",
-         plan_local(flat, k, layout_policy="require")),
-        ("forced counting (paper-faithful reference)",
-         plan_local(flat, k, select="counting")),
-        ("forced bisect (large (d+1)*N, scatter-free)",
-         plan_local(flat, k, select="bisect")),
-        ("forced fused / no layout",
-         plan_local(flat, k, select="fused")),
-        ("forced fused_scan (datastore exceeds one invocation)",
-         plan_local(flat, k, select="fused_scan")),
-        ("forced approx / recall_target=0.9 (MXU partial-reduce tier)",
-         plan_local(flat, k, select="approx", recall_target=0.9)),
-        ("forced approx / recall_target=1.0 (exact pool, bit-identical "
-         "to fused)",
-         plan_local(flat, k, select="approx")),
-        ("forced-plan override: layout off on a layout engine",
-         plan_local(lay, k, force="layout=off")),
-        ("IVF probe / bucket-contiguous layout",
-         plan_index(dataclasses.replace(lay, index="kmeans"), k,
-                    kind="kmeans", nprobe=2)),
-        ("IVF probe / approx select over the masked layout",
-         plan_index(dataclasses.replace(lay, index="kmeans"), k,
-                    kind="kmeans", nprobe=2, select="approx",
-                    recall_target=0.95)),
-        ("IVF probe / reorder=False (gather fallback)",
-         plan_index(dataclasses.replace(flat, index="kmeans"), k,
-                    kind="kmeans", nprobe=2, use_layout=False)),
-        ("LSH probe / 4 tables / table-0-contiguous layout",
-         plan_index(dataclasses.replace(lay, index="lsh"), k, kind="lsh",
-                    n_tables=4)),
-        ("kd-tree forest (host traversal)",
-         plan_index(dataclasses.replace(flat, index="kdtree"), k,
-                    kind="kdtree")),
-        ("sharded / auto / exact (k_local=k): distributed counting select",
-         plan_sharded(dataclasses.replace(flat, n_shards=8), k,
-                      axes=("data",))),
-        ("sharded / approx: hist_merge over per-shard candidate pools",
-         plan_sharded(dataclasses.replace(flat, n_shards=8), k,
-                      axes=("data",), select="approx", recall_target=0.95)),
-        ("sharded / forced concat_sort merge (legacy fallback)",
-         plan_sharded(dataclasses.replace(flat, n_shards=8), k,
-                      axes=("data",), merge="concat_sort")),
-        ("sharded / 64 shards: auto upgrades to the hierarchical tree "
-         "merge",
-         plan_sharded(dataclasses.replace(flat, n_shards=64), k,
-                      axes=("data",))),
-        ("sharded / forced hist_tree fanout=4 at 8 shards",
-         plan_sharded(dataclasses.replace(flat, n_shards=8), k,
-                      axes=("data",), merge="hist_tree", fanout=4)),
-        ("shard loss: degraded-but-exact answer over the survivors",
-         dataclasses.replace(
-             plan_sharded(dataclasses.replace(flat, n_shards=8), k,
-                          axes=("data",)),
-             reason="shard fault tolerance: a dead shard is excluded via "
-                    "the participation mask (shard_participate) — its "
-                    "n_valid is zeroed inside the kernels and id bases "
-                    "renumber over the masked scan, so the answer is "
-                    "bit-identical to a from-scratch search over only the "
-                    "surviving rows; every response carries a "
-                    "CoverageReport (per-query coverage_frac + dead-shard "
-                    "list, dist/health.py), and row-range replicas "
-                    "(dist/sharding.ReplicaMap) restore full coverage "
-                    "when a primary dies")),
-        ("sharded / exact + reorder_local (hist_merge over sorted shards)",
-         plan_sharded(dataclasses.replace(flat, n_shards=8), k,
-                      axes=("data",), reorder_local=True)),
-        ("sharded / fused / statistical reduction + reorder_local",
-         plan_sharded(dataclasses.replace(flat, n_shards=8), k,
-                      axes=("data",), k_local=4, select="fused",
-                      reorder_local=True)),
-        ("sharded / reorder_local with a non-fused select (ignored)",
-         plan_sharded(dataclasses.replace(flat, n_shards=8), k,
-                      axes=("data",), select="counting",
-                      reorder_local=True)),
-        ("serving degradation rung: hamming-prefix probe, reduced nprobe",
-         plan_index(lay, k, kind="hamming_prefix", nprobe=8)),
-        ("serving degradation rung: approx tier before retrieval_off",
-         dataclasses.replace(
-             plan_local(flat, k, select="approx", recall_target=0.9,
-                        layout_policy="off"),
-             reason="degradation ladder: when masked probing is exhausted "
-                    "the server downshifts to the compute-bound approx "
-                    "tier (bounded recall loss, recall_target=0.9) before "
-                    "dropping retrieval entirely")),
-        ("mutable store: search over one installed epoch",
-         dataclasses.replace(
-             plan_local(lay, k),
-             reason="epoch pinning: the mutable store's flush() installs "
-                    "a dense, identity-perm BucketLayout of exactly the "
-                    "live rows (slack + tombstones trimmed at install), "
-                    "so the planner sees an ordinary prebuilt layout and "
-                    "every rule above applies unchanged — readers keep "
-                    "the pinned epoch for the whole search")),
-        ("tenant arena: mixed-tenant batch over one packed epoch",
-         dataclasses.replace(
-             plan_local(lay, k),
-             reason="tenant packing: every tenant's epoch concatenates "
-                    "into one bn-aligned codes array and tenancy becomes "
-                    "a per-query-block mask over the region's tiles, so "
-                    "a mixed-tenant batch runs ONE fused hist+emit pair "
-                    "with zero kernel changes; all-ones pad rows keep "
-                    "regions aligned and are corrected exactly on the "
-                    "host (b_pad histogram subtraction + tie-base shift) "
-                    "— bit-identical to per-tenant searches")),
-    ]
-
-
-def decision_table() -> str:
-    """The planner's rules, rendered as a markdown table over the canonical
-    scenarios: what DESIGN.md embeds, word for word, except that the
-    auto->composite reason names ``top_k`` where ``repro`` writes ``XLA
-    top_k`` (:data:`DESIGN_WORDING`)."""
-    def cand_cell(p):
-        c = p.candidates.kind
-        return c if p.candidates.layout == "none" else \
-            f"{c} ({p.candidates.layout})"
-
-    def sel_cell(p):
-        s = p.select.path
-        if p.candidates.kind == "gather":
-            return f"{s} over gathered candidates"
-        if s in ("composite", "counting", "bisect"):
-            s += f" / {p.select.method}, chunked"
-        elif s == "fused_scan":
-            s += ", chunked"
-        elif s == "approx":
-            s += (f" rt={p.select.recall_target:g}, MXU matmul + "
-                  f"partial reduce")
-        else:
-            s += ", single-shot"
-        return s
-
-    def merge_cell(p):
-        if p.merge.kind == "none":
-            return "none"
-        if p.merge.strategy == "hist_tree":
-            m = (f"hist_tree fanout={p.merge.fanout} (exact, tree psum "
-                 f"of histograms)")
-        elif p.merge.strategy == "hist_merge":
-            m = "hist_merge (exact, psum of histograms)"
-        else:
-            m = f"concat_sort k'={p.merge.k_local}"
-        if p.merge.reorder_local:
-            m += ", reorder_local"
-        return m
-
-    lines = [
-        "| scenario | probe | candidates | select | merge | why |",
-        "|---|---|---|---|---|---|",
-    ]
-    for label, p in _table_scenarios():
-        probe = p.probe.kind + (f" nprobe={p.probe.nprobe}"
-                                if p.probe.nprobe else "")
-        lines.append(
-            f"| {label} | {probe} | {cand_cell(p)} | {sel_cell(p)} | "
-            f"{merge_cell(p)} | {p.reason} |")
-    return "\n".join(lines)
-
-
-def extract_design_table(text: str) -> Optional[str]:
-    """The generated table committed inside DESIGN.md, or None."""
-    try:
-        start = text.index(TABLE_BEGIN) + len(TABLE_BEGIN)
-        end = text.index(TABLE_END)
-    except ValueError:
-        return None
-    return text[start:end].strip()
-
-
-def check_design(path: str) -> int:
-    """0 if DESIGN.md's embedded table matches the planner's rules. The
-    file is only read; ``repro`` generated its table, so the one recorded
-    wording (:data:`DESIGN_WORDING`) is normalised, nothing else."""
-    with open(path) as f:
-        committed = extract_design_table(f.read())
-    current = decision_table()
-    if committed is not None:
-        committed = committed.replace(*DESIGN_WORDING)
-    if committed is None:
-        print(f"{path}: no generated planner table "
-              f"(markers {TABLE_BEGIN!r} .. {TABLE_END!r})", file=sys.stderr)
-        return 1
-    if committed == current:
-        print(f"{path}: planner decision table up to date")
-        return 0
-    print(f"{path}: planner decision table DRIFTED from the planner's "
-          f"rules — regenerate with `python -m repro.core.plan --table`:",
-          file=sys.stderr)
-    sys.stderr.writelines(difflib.unified_diff(
-        committed.splitlines(keepends=True),
-        current.splitlines(keepends=True),
-        fromfile="DESIGN.md", tofile="planner"))
-    print(file=sys.stderr)
-    return 1
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(
-        prog="python -m repro_torch.core.plan",
-        description="QueryPlan planner introspection")
-    ap.add_argument("--table", action="store_true",
-                    help="print the generated decision table (markdown)")
-    ap.add_argument("--json", action="store_true",
-                    help="print every scenario's full explain() as JSON")
-    ap.add_argument("--check-design", metavar="PATH",
-                    help="verify PATH's embedded table matches the planner")
-    args = ap.parse_args(argv)
-    if args.check_design:
-        return check_design(args.check_design)
-    if args.json:
-        print(json.dumps({label: p.explain()
-                          for label, p in _table_scenarios()}, indent=1))
-        return 0
-    print(decision_table())
-    return 0
-
-
-if __name__ == "__main__":
-    # `python -m repro_torch.core.plan` runs this file as __main__ after the
-    # package imported it as repro_torch.core.plan: delegate to that module
-    # so one copy of the IR classes is live
-    from repro_torch.core import plan as _canonical
-    raise SystemExit(_canonical.main())

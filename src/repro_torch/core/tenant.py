@@ -128,8 +128,9 @@ class TenantArena:
     """Pack N tenants into one arena; search them in one kernel pair.
 
     ``bn`` is FIXED at construction: region boundaries are bn-tile
-    boundaries, and a tuning-derived bn (which drifts with Q and N) would
-    silently misalign them — the mask would leak rows across tenants.
+    boundaries, and ``topk_select.geometry``'s bn (which drifts with Q
+    and N) would silently misalign them — the mask would leak rows across
+    tenants.
     ``store_kw`` forwards to every tenant's ``MutableStore``
     (slack_frac/min_slack/max_pending/...). The packed arena and every
     tenant's epochs live on ``device`` (CUDA unless ``device="cpu"``)."""
@@ -316,10 +317,8 @@ class TenantArena:
         dev = self.device
         lanes = max(bins, k_k)
         q_raw = sum(host[t].shape[0] for t in tids)
-        # sub (the TPU kernels' in-tile step) is unused by the port's
-        # kernels: the arena's fixed bn is its own sub, so any bn tiles
-        bq, bn, sub, _, n_pad = ops.topk_geometry(
-            q_raw, N, W, lanes, None, self.bn, self.bn,
+        bq, bn, _, n_pad = ops.topk_geometry(
+            q_raw, N, W, lanes, None, self.bn,
             backend=device_mod.backend_of(dev))
         if bn != self.bn or n_pad != N:
             raise RuntimeError(f"packed arena of {N} rows does not tile at "
@@ -371,7 +370,7 @@ class TenantArena:
         rows = torch.arange(qp_total, device=dev)
 
         hist, block_min, *run_hist = topk_select.hamming_hist_kernel(
-            qp, xp, bins, N, block_mask=mask, bq=bq, bn=bn, sub=sub,
+            qp, xp, bins, N, block_mask=mask, bq=bq, bn=bn,
             runs=runs if emit == "split" else None)
         hist[rows, b_pad] -= P.to(torch.int32)
         cum = torch.cumsum(hist, dim=-1, dtype=torch.int32)
@@ -391,7 +390,7 @@ class TenantArena:
             run_bases = ops._run_bases(rh, r_p, tie_start)
         out_d, out_i = topk_select.hamming_emit_kernel(
             qp, xp, r_p, tie_start, bins, k_e, N, block_min=block_min,
-            block_mask=mask, bq=bq, bn=bn, sub=sub, run_bases=run_bases)
+            block_mask=mask, bq=bq, bn=bn, run_bases=run_bases)
 
         # reconstruct the per-tenant slot sequence: real below-radius rows
         # sit at [0, n_lt) (pads trail them in scan order), real ties at

@@ -6,8 +6,7 @@
 // Both compute what the Pallas kernels compute, on the same (bq, bn) tiles,
 // so the histogram, the (Q/bq, N/bn) block-min summary and the emitted
 // (dists, ids) slots are bit-identical to them and to the plain PyTorch
-// versions in topk_select.py. `sub`, the TPU's VMEM sub-step, has no
-// counterpart here.
+// versions in topk_select.py, whose `geometry` chooses (bq, bn).
 //
 // What bounds them on this card: the distances. At Q=4096, N=2^20, d=256
 // a pass scores 4.3e9 (query, row) pairs from only ~0.03 GB of codes, so

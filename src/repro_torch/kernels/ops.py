@@ -4,8 +4,9 @@ single-device half of ``repro.kernels.ops``).
 
 Shapes are padded to block multiples here so the kernels stay simple;
 padded dataset rows are masked exactly inside the kernels by ``n_valid``.
-Block shapes come from ``kernels/tuning.py`` for the backend of the
-tensors' device unless explicitly overridden.
+Block shapes come from ``topk_select.geometry`` (K1/K2) and
+``tuning.distance_blocks`` (K3) for the backend of the tensors' device
+unless explicitly overridden.
 
 ``hamming_topk`` is the engine's single-shot fused select: one K1 + one K2
 launch over the WHOLE datastore for any N, with the pass-1 block-min
@@ -43,7 +44,7 @@ from repro_torch.kernels import tuning
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  refuse_grad)
 from repro_torch.kernels.hamming import hamming_distance_kernel
-from repro_torch.kernels.topk_select import (default_runs,
+from repro_torch.kernels.topk_select import (default_runs, geometry,
                                              hamming_emit_kernel,
                                              hamming_hist_kernel)
 
@@ -78,42 +79,44 @@ def hamming_distance(q_packed: torch.Tensor, x_packed: torch.Tensor,
 
 def topk_geometry(Q: int, N: int, W: int, lanes: int,
                   bq: int | None = None, bn: int | None = None,
-                  sub: int | None = None, backend: str | None = None):
+                  backend: str | None = None, bucket_rows: int = 0):
     """The padded grid geometry ``hamming_topk`` will run under:
-    (bq, bn, sub, q_pad, n_pad). ``lanes = max(bins, min(k, N))``.
-    ``backend`` pins the heuristic to a named backend; None uses
-    ``device.default_backend()``."""
-    hbq, hbn, hsub = tuning.topk_blocks(Q, N, W, lanes, backend=backend)
-    bq, bn, sub = bq or hbq, bn or hbn, sub or hsub
-    sub = min(sub, bn)
-    return bq, bn, sub, _round_up(Q, bq), _round_up(N, bn)
+    (bq, bn, q_pad, n_pad), from ``topk_select.geometry`` where ``bq`` or
+    ``bn`` is not given. ``lanes = max(bins, min(k, N))``. ``backend``
+    names the backend to tile for; None uses
+    ``device.default_backend()``. ``bucket_rows`` > 0 pulls bn toward a
+    bucket-clustered layout's bucket size."""
+    hbq, hbn = geometry(Q, N, W, lanes,
+                        backend or device_mod.default_backend(), bucket_rows)
+    bq, bn = bq or hbq, bn or hbn
+    return bq, bn, _round_up(Q, bq), _round_up(N, bn)
 
 
 def _topk_blocked(q_packed: torch.Tensor, x_packed: torch.Tensor, lanes: int,
-                  bq: int | None, bn: int | None, sub: int | None):
+                  bq: int | None, bn: int | None):
     """Shared pad-to-blocks prologue for the two-pass kernels, tiled for
     the backend of the tensors' device."""
     Q, W = q_packed.shape
     N = x_packed.shape[0]
-    bq, bn, sub, q_pad, n_pad = topk_geometry(
-        Q, N, W, lanes, bq, bn, sub, backend=device_mod.backend_of(q_packed))
+    bq, bn, q_pad, n_pad = topk_geometry(
+        Q, N, W, lanes, bq, bn, backend=device_mod.backend_of(q_packed))
     qp = _pad_rows(q_packed.to(torch.int32), q_pad)
     xp = _pad_rows(x_packed.to(torch.int32), n_pad)
-    return qp, xp, bq, bn, sub
+    return qp, xp, bq, bn
 
 
 def hamming_hist(q_packed: torch.Tensor, x_packed: torch.Tensor, bins: int,
-                 n_valid=None, bq: int | None = None, bn: int | None = None,
-                 sub: int | None = None) -> torch.Tensor:
+                 n_valid=None, bq: int | None = None,
+                 bn: int | None = None) -> torch.Tensor:
     """Fused distance+histogram: (Q, W) x (N, W) -> (Q, bins) int32.
 
     Pass 1 of the two-pass counting select. Rows with global id >= n_valid
     (default: all N rows valid) — including the block-alignment padding
     added here — are masked exactly inside the kernel."""
     Q, N = q_packed.shape[0], x_packed.shape[0]
-    qp, xp, bq, bn, sub = _topk_blocked(q_packed, x_packed, bins, bq, bn, sub)
+    qp, xp, bq, bn = _topk_blocked(q_packed, x_packed, bins, bq, bn)
     nv = N if n_valid is None else int(n_valid)
-    hist, _ = hamming_hist_kernel(qp, xp, bins, nv, bq=bq, bn=bn, sub=sub)
+    hist, _ = hamming_hist_kernel(qp, xp, bins, nv, bq=bq, bn=bn)
     return hist[:Q]
 
 
@@ -175,7 +178,7 @@ def _finalize_slots(out_d: torch.Tensor, out_i: torch.Tensor,
 def hamming_topk(q_packed: torch.Tensor, x_packed: torch.Tensor, k: int,
                  bins: int, n_valid=None, block_mask=None,
                  bq: int | None = None, bn: int | None = None,
-                 sub: int | None = None, return_stats: bool = False):
+                 return_stats: bool = False):
     """Single-shot fused two-pass top-k over the WHOLE datastore:
     (Q, W) x (N, W) -> (dists (Q, k), ids (Q, k)) int32.
 
@@ -207,16 +210,15 @@ def hamming_topk(q_packed: torch.Tensor, x_packed: torch.Tensor, k: int,
                            "block_min": torch.zeros((0, 0), dtype=torch.int32,
                                                     device=dev)},)
         return out
-    qp, xp, bq, bn, sub = _topk_blocked(q_packed, x_packed,
-                                        max(bins, k_k), bq, bn, sub)
+    qp, xp, bq, bn = _topk_blocked(q_packed, x_packed, max(bins, k_k), bq,
+                                   bn)
     nv = N if n_valid is None else int(n_valid)
 
     # pass 1: the race -> per-query radius r*, the counts below it, the
     # block-min summary pass 2 prunes with, and each run's histogram
     runs = default_runs(qp.shape[0] // bq, xp.shape[0] // bn)
     hist, block_min, run_hist = hamming_hist_kernel(
-        qp, xp, bins, nv, block_mask=block_mask, bq=bq, bn=bn, sub=sub,
-        runs=runs)
+        qp, xp, bins, nv, block_mask=block_mask, bq=bq, bn=bn, runs=runs)
     cum = torch.cumsum(hist[:Q], dim=-1, dtype=torch.int32)
     _, r_star, n_lt, n_emit = _radius_from_cum(cum, k_k)
 
@@ -228,7 +230,7 @@ def hamming_topk(q_packed: torch.Tensor, x_packed: torch.Tensor, k: int,
     out_d, out_i = hamming_emit_kernel(qp, xp, r_p, nlt_p, bins, k_k, nv,
                                        block_min=block_min,
                                        block_mask=block_mask,
-                                       bq=bq, bn=bn, sub=sub,
+                                       bq=bq, bn=bn,
                                        run_bases=_run_bases(run_hist, r_p,
                                                             nlt_p))
     out_d, out_i = _finalize_slots(out_d[:Q], out_i[:Q], n_emit, k, k_k,
@@ -424,7 +426,7 @@ def hamming_topk_sharded(q_packed: torch.Tensor, x_local: torch.Tensor,
                          n_total=None, perm=None, block_mask=None,
                          participate=None, tree_fanout: int = 0,
                          bq: int | None = None, bn: int | None = None,
-                         sub: int | None = None, emit: str = "split",
+                         emit: str = "split",
                          mark: Optional[Callable[[str], None]] = None):
     """Distributed counting select — the sharded fused top-k WITHOUT a
     concat/sort merge. Every rank of ``mesh`` calls it (SPMD); collectives
@@ -492,15 +494,15 @@ def hamming_topk_sharded(q_packed: torch.Tensor, x_local: torch.Tensor,
     psum = ((lambda v: _tree_psum(v, mesh, axes, tree_fanout))
             if tree_fanout >= 2 else (lambda v: _psum(v, mesh, axes)))
 
-    qp, xp, bq, bn, sub = _topk_blocked(q_packed, x_local, max(bins, k_k),
-                                        bq, bn, sub)
+    qp, xp, bq, bn = _topk_blocked(q_packed, x_local, max(bins, k_k), bq,
+                                   bn)
 
     # pass 1 locally, then merge the partial histograms: ONE global race
     mark("k1")
     runs = (default_runs(qp.shape[0] // bq, xp.shape[0] // bn)
             if emit == "split" else None)
     out1 = hamming_hist_kernel(qp, xp, bins, nv, block_mask=block_mask,
-                               bq=bq, bn=bn, sub=sub, runs=runs)
+                               bq=bq, bn=bn, runs=runs)
     hist, block_min = out1[0], out1[1]
     hist_loc = hist[:Q]
     mark("hist_reduce")
@@ -524,7 +526,7 @@ def hamming_topk_sharded(q_packed: torch.Tensor, x_local: torch.Tensor,
     od, oi = hamming_emit_kernel(
         qp, xp, r_p, tb_p, bins, k_k, nv, block_min=block_min,
         block_mask=block_mask, slot_base=sb_p,
-        id_base=None if perm is not None else ib, bq=bq, bn=bn, sub=sub,
+        id_base=None if perm is not None else ib, bq=bq, bn=bn,
         run_bases=(None if runs is None else
                    _run_bases(out1[2], r_p, tb_p, slot_base=sb_p)))
     od, oi = od[:Q], oi[:Q]

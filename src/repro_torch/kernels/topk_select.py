@@ -15,8 +15,8 @@ The (Q, N) distance matrix never leaves the kernels:
 
 Both take the valid-row count ``n_valid`` (rows with global id >= n_valid
 are excluded exactly), a per-tile enable mask (a zero tile is outside the
-candidate set) and the (bq, bn, sub) geometry; ``sub`` is the TPU kernels'
-VMEM sub-step, kept for parity and unused here.
+candidate set) and the (bq, bn) geometry, which ``geometry`` chooses
+unless the caller sets it.
 
 **Runs.** The N tiles split into R runs of ``ceil(N/bn / R)`` consecutive
 tiles (the last runs may be empty). K1 can also return the (Q, R, bins)
@@ -72,15 +72,17 @@ _PLAIN_CHUNK_ELEMS = 1 << 27
 _HIST_THREADS = 256
 _TARGET_CTAS = 2048
 _SMEM_LIMIT = 232448
+# geometry's rows, per backend: (budget of 4 * bq * step * lanes bytes,
+# most data blocks before bn grows, bytes of a grown bn's code tile)
+_GEOMETRY = {"gpu": (1 << 20, 1024, 2 << 20), "cpu": (4 << 20, 16, 1 << 20)}
 
 
-def _check_geometry(Q: int, N: int, bq: int, bn: int, sub: int):
+def _check_geometry(Q: int, N: int, bq: int, bn: int):
     bq, bn = min(bq, Q), min(bn, N)
-    sub = min(sub, bn)
-    if Q % bq or N % bn or bn % sub:
+    if Q % bq or N % bn:
         raise ValueError(f"geometry does not tile: Q={Q} N={N} bq={bq} "
-                         f"bn={bn} sub={sub}")
-    return bq, bn, sub
+                         f"bn={bn}")
+    return bq, bn
 
 
 def _tile_mask(mask, shape, fill: int, dev) -> torch.Tensor:
@@ -125,6 +127,50 @@ def default_runs(n_qblocks: int, n_nblocks: int) -> int:
     ``_TARGET_CTAS`` CTAs in all, and every run non-empty."""
     want = max(1, min(n_nblocks, -(-_TARGET_CTAS // max(n_qblocks, 1))))
     return max(1, _run_span(n_nblocks, _run_span(n_nblocks, want)))
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _round_down(n: int, m: int) -> int:
+    return max(m, n // m * m)
+
+
+def geometry(Q: int, N: int, W: int, lanes: int, backend: str,
+             bucket_rows: int = 0) -> tuple[int, int]:
+    """(bq, bn): the query and data block K1 and K2 run a (Q, W) x (N, W)
+    select under on ``backend`` ("gpu" or "cpu"; any other raises),
+    ``lanes = max(bins, min(k, N))``.
+
+    Both passes take the same geometry, so the block-min summary means the
+    same tiles in both. bq is at most 32, so W = 4 and 8 take the
+    tensor-core kernels (``TC_MAX_BQ``). bn is a multiple of a rounding
+    step that keeps 4 * bq * step * lanes bytes within the row's budget;
+    it is at most 512 rows until the store holds more than the row's
+    block count of tiles, then grows up to the row's code-tile bytes.
+    With ``bucket_rows`` (a bucket-clustered layout, whose enable mask is
+    per data block) bn is pulled down toward the bucket size. These are
+    the tiles ``repro``'s rule gives the same shapes (tests hold them to
+    it and pin the benchmark cells'): a change of the card's geometry is
+    an edit of the ``"gpu"`` row here."""
+    if backend not in _GEOMETRY:
+        raise ValueError(f"no K1/K2 geometry for backend {backend!r} "
+                         f"(have {sorted(_GEOMETRY)})")
+    budget, max_blocks, tile_bytes = _GEOMETRY[backend]
+    lanes = max(lanes, 1)
+    bq = min(_round_up(Q, 8), 32)
+    step = min(_round_down(budget // (4 * bq * lanes), 8), 256)
+    while bq > 8 and 4 * bq * step * lanes > budget:
+        bq = _round_down(bq // 2, 8)
+    bn = min(_round_up(N, step), _round_down(512, step))
+    if N > bn * max_blocks:
+        want = _round_up(-(-N // max_blocks), step)
+        bn = max(bn, min(want, _round_down(tile_bytes // (4 * max(W, 1)),
+                                           step)))
+    if bucket_rows > 0:
+        bn = max(step, min(bn, _round_up(bucket_rows, step)))
+    return bq, bn
 
 
 def _run_of_row(N: int, bn: int, runs: int, dev) -> torch.Tensor:
@@ -216,7 +262,7 @@ def hamming_hist_plain(q: torch.Tensor, x: torch.Tensor, bins: int,
 
 def hamming_hist_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
                         bins: int, n_valid=None, block_mask=None,
-                        bq: int = 64, bn: int = 1024, sub: int = 64,
+                        bq: int = 64, bn: int = 1024,
                         runs: int | None = None):
     """q: (Q, W), x: (N, W) -> (hist (Q, bins) int32,
     block_min (Q/bq, N/bn) int32). Replaces ``hamming_hist_pallas``.
@@ -234,7 +280,7 @@ def hamming_hist_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
         dev = _device_of(q_packed, x_packed)
         Q, W = q_packed.shape
         N = x_packed.shape[0]
-        bq, bn, sub = _check_geometry(Q, N, bq, bn, sub)
+        bq, bn = _check_geometry(Q, N, bq, bn)
         nv = N if n_valid is None else int(n_valid)
         en = _tile_mask(block_mask, (Q // bq, N // bn), 1, dev)
         nqb, nnb = Q // bq, N // bn
@@ -378,7 +424,7 @@ def hamming_emit_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
                         r_star, n_lt, bins: int, k: int, n_valid=None,
                         block_min=None, block_mask=None, slot_base=None,
                         id_base=None, bq: int = 64, bn: int = 1024,
-                        sub: int = 64, run_bases=None):
+                        run_bases=None):
     """Emit the top-k winners given the pass-1 radius. Replaces
     ``hamming_emit_pallas``.
 
@@ -411,7 +457,7 @@ def hamming_emit_kernel(q_packed: torch.Tensor, x_packed: torch.Tensor,
         dev = _device_of(q_packed, x_packed)
         Q, W = q_packed.shape
         N = x_packed.shape[0]
-        bq, bn, sub = _check_geometry(Q, N, bq, bn, sub)
+        bq, bn = _check_geometry(Q, N, bq, bn)
         nv = N if n_valid is None else int(n_valid)
         ib = 0 if id_base is None else int(id_base)
         tiles = (Q // bq, N // bn)

@@ -30,7 +30,6 @@ from repro_torch.kernels import tuning as ttuning
 @pytest.fixture(autouse=True)
 def _empty_caches(monkeypatch):
     monkeypatch.setattr(jtuning, "_CACHE", jtuning.AutotuneCache(""))
-    monkeypatch.setattr(ttuning, "_CACHE", ttuning.AutotuneCache(""))
 
 
 def _codes(seed, n, q, d):
@@ -243,6 +242,8 @@ def test_plans_execute_and_explain_like_the_reference():
                               select="approx", recall_target=rt)
         assert tp.compact() == jp.compact() and tp.reason == jp.reason
         te, je = tp.explain(), jp.explain()
+        # the port has no autotune cache: its geometry names no source
+        assert je["geometry"].pop("hint_source") == "default"
         for key in ("geometry", "predicted_pruning", "stages"):
             assert te[key] == je[key], key
         td, ti = tplan.execute(tp, tq, codes=tx)
@@ -263,14 +264,15 @@ def test_plans_execute_and_explain_like_the_reference():
 
 
 def test_approx_blocks_rows():
-    """cpu and tpu rows are the reference's; the gpu row caps bn at 2^15,
-    so the main shape (N = 2^20) runs 32 blocks of 32768 rows."""
-    for be in ("cpu", "tpu"):
-        for N in (1, 100, 5000, 1 << 16, 1 << 20, 1 << 24):
-            assert (ttuning.approx_blocks(8, N, 8, backend=be)
-                    == jtuning.approx_blocks(8, N, 8, backend=be))
+    """The cpu row is the reference's; the gpu row caps bn at 2^15, so the
+    main shape (N = 2^20) runs 32 blocks of 32768 rows."""
+    for N in (1, 100, 5000, 1 << 16, 1 << 20, 1 << 24):
+        assert (ttuning.approx_blocks(8, N, 8, backend="cpu")
+                == jtuning.approx_blocks(8, N, 8, backend="cpu"))
     assert ttuning.approx_blocks(4096, 1 << 20, 8, backend="gpu") == 1 << 15
     assert ttuning.approx_blocks(8, 5000, 8, backend="gpu") == 256
+    assert ttuning.approx_blocks(64, 1 << 20, 4, backend="gpu") == 1 << 15
+    assert ttuning.approx_blocks(64, 1 << 20, 4, backend="cpu") == 8192
     g = tplan.plan_local(
         tplan.StoreStats(n=1 << 20, d=256, w=8, q=4096, backend="gpu"), 16,
         select="approx", recall_target=0.9).geometry()

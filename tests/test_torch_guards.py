@@ -250,9 +250,9 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     rng = np.random.default_rng(0)
     x = carry.codes(rng.integers(0, 1 << 32, (600, 2), dtype=np.uint32), "cpu")
     q = carry.codes(rng.integers(0, 1 << 32, (8, 2), dtype=np.uint32), "cpu")
-    hist, bmin = tsel.hamming_hist_kernel(q, x, 65, bq=8, bn=200, sub=8)
+    hist, bmin = tsel.hamming_hist_kernel(q, x, 65, bq=8, bn=200)
     out = tsel.hamming_emit_kernel(q, x, torch.full((8,), 30), torch.zeros(8),
-                                   65, 4, bq=8, bn=200, sub=8)
+                                   65, 4, bq=8, bn=200)
     dist = tham.hamming_distance_kernel(q, x, bq=8, bn=200)
     assert torch.equal(dist, tham.hamming_distance_plain(q, x))
     eng = engine.KNNEngine(codes=x, d=64).with_layout()
@@ -272,10 +272,10 @@ def test_wrappers_refuse_other_devices_instead_of_falling_back():
     q = torch.zeros((8, 2), dtype=torch.int32, device="meta")
     x = torch.zeros((64, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        tsel.hamming_hist_kernel(q, x, 65, bq=8, bn=64, sub=8)
+        tsel.hamming_hist_kernel(q, x, 65, bq=8, bn=64)
     with pytest.raises(ValueError, match="tensors on"):
         tsel.hamming_hist_kernel(torch.zeros((8, 2), dtype=torch.int32), x,
-                                 65, bq=8, bn=64, sub=8)
+                                 65, bq=8, bn=64)
     with pytest.raises(ValueError, match="unsupported device"):
         tham.hamming_distance_kernel(q, x, bq=8, bn=64)
     with pytest.raises(ValueError, match="tensors on"):

@@ -138,13 +138,13 @@ def test_masked_topk_matches_reference(kmeans, data, geometry):
     qt = carry.codes(qc, "cpu")
     out = tlay.masked_topk(ti.layout, qt, 10, D, probe=torch.from_numpy(probe),
                            cand_ids=torch.from_numpy(cand), bq=bq, bn=bn,
-                           sub=sub, return_stats=True)
+                           return_stats=True)
     _same(ref, out)
     for key in ("blocks_total", "blocks_skipped", "p1_blocks_skipped"):
         assert int(out[2][key]) == int(ref[2][key]), key
     mask, *_ = tlay._enable_mask(ti.layout, 20, qt.shape[1], 10, D,
                                  torch.from_numpy(probe),
-                                 torch.from_numpy(cand), bq, bn, sub)
+                                 torch.from_numpy(cand), bq, bn)
     for qi in (0, 13):
         pos = tlay.enabled_positions(ti.layout, mask[qi // bq], bn)
         dist = tbin.hamming_xor(qt[qi:qi + 1], ti.layout.codes[pos])[0]

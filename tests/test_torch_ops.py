@@ -3,7 +3,7 @@ fused select, over tests/test_fused_topk.py's shapes and k values.
 
 The port runs K1/K2's plain PyTorch versions on CPU tensors, the reference
 its Pallas kernels in interpret mode; both run at the reference's
-(bq, bn, sub) geometry, and (dists, ids), the block-min summary and the
+(bq, bn) geometry, and (dists, ids), the block-min summary and the
 pruning stats (``return_stats``) must match exactly."""
 import numpy as np
 import jax.numpy as jnp
@@ -49,8 +49,8 @@ def _topk_both(xj, qj, xt, qt, k, bins, **kw):
                           return_stats=True, **kw)
     if tmask is not None:
         kw["block_mask"] = tmask
-    t = tops.hamming_topk(qt, xt, k, bins, bq=bq, bn=bn, sub=sub,
-                          return_stats=True, **kw)
+    t = tops.hamming_topk(qt, xt, k, bins, bq=bq, bn=bn, return_stats=True,
+                          **kw)
     return j, t
 
 

@@ -328,7 +328,7 @@ def test_block_mask_matches_reference(worlds, emit, k, one_tile):
         masks[1, 0, 3] = 1
     codes = np.concatenate([CODES[s * 600:s * 600 + 576] for s in range(4)])
     got = _run(worlds, 4, tasks.topk_sharded, codes, QUERIES, k, BINS,
-               {"block_masks": masks, "bq": 8, "bn": 64, "sub": 8,
+               {"block_masks": masks, "bq": 8, "bn": 64,
                 "emit": emit})
     glob = np.concatenate(list(masks), axis=1)
     d, i = jops.hamming_topk(jnp.asarray(QUERIES), jnp.asarray(codes), k,
@@ -348,7 +348,7 @@ def test_split_emit_matches_single_run(worlds, kw):
     histograms plus the shard's) fills exactly the slots of the single-run
     emit; bn = 32 gives each shard 8 runs."""
     outs = [_run(worlds, 4, tasks.topk_sharded, PADDED, QUERIES, 40, BINS,
-                 dict(kw, bq=8, bn=32, sub=8, emit=emit))
+                 dict(kw, bq=8, bn=32, emit=emit))
             for emit in ("split", "single")]
     _same(outs[0], outs[1], "split vs single")
 

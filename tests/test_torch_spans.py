@@ -137,7 +137,7 @@ def test_k2_pruned_count_equals_return_stats(d, store):
     spans.reset()
     with _profile():
         dd, ii, st = ops.hamming_topk(q, x, 8, d + 1, bq=16, bn=256,
-                                      sub=64, return_stats=True)
+                                      return_stats=True)
     c = spans.snapshot()["counters"]
     spans.reset()
     assert c[spans.K2_TILES] == st["blocks_total"] == 3 * 16
@@ -148,7 +148,7 @@ def test_k2_pruned_count_equals_return_stats(d, store):
     assert c[spans.K2_TILES_PRUNED] == int(st["blocks_skipped"])
     if store == "clustered":
         assert c[spans.K2_TILES_PRUNED] > 0
-    d0, i0 = ops.hamming_topk(q, x, 8, d + 1, bq=16, bn=256, sub=64)
+    d0, i0 = ops.hamming_topk(q, x, 8, d + 1, bq=16, bn=256)
     assert torch.equal(dd, d0) and torch.equal(ii, i0)
 
 

@@ -50,8 +50,8 @@ def _case(name):
     if d < 32:
         q, x = q & ((1 << d) - 1), x & ((1 << d) - 1)
     bins = d + 1
-    qp, xp, bq, bn, sub = tops._topk_blocked(q, x, max(bins, min(k, N)),
-                                             kw.get("bq"), kw.get("bn"), None)
+    qp, xp, bq, bn = tops._topk_blocked(q, x, max(bins, min(k, N)),
+                                        kw.get("bq"), kw.get("bn"))
     nv = kw.get("n_valid", N)
     tiles = (qp.shape[0] // bq, xp.shape[0] // bn)
     mask = None
@@ -60,15 +60,14 @@ def _case(name):
             (rng.random(tiles) < kw["mask_p"]).astype(np.int32))
         assert 0 < int(mask.sum()) < mask.numel()
     hist, bmin = tsel.hamming_hist_kernel(qp, xp, bins, nv, mask, bq=bq,
-                                          bn=bn, sub=sub)
+                                          bn=bn)
     _, r, n_lt, _ = tops._radius_from_cum(
         torch.cumsum(hist, dim=-1, dtype=torch.int32), min(k, nv))
     r = torch.where(torch.arange(qp.shape[0]) < Q, r, -1).to(torch.int32)
     sb, ib, lo = torch.zeros_like(r), 0, 0
     if "shard" in kw:                    # pass 2 over rows [lo, N) only
         lo = kw["shard"]
-        h0, _ = tsel.hamming_hist_kernel(qp, xp[:lo], bins, lo, bq=bq, bn=bn,
-                                         sub=sub)
+        h0, _ = tsel.hamming_hist_kernel(qp, xp[:lo], bins, lo, bq=bq, bn=bn)
         c0 = torch.cumsum(h0, dim=-1, dtype=torch.int32)
         rc = r.clamp(min=0).long()[:, None]
         sb = torch.where(r > 0, torch.gather(c0, 1, (rc - 1).clamp(min=0))
@@ -79,15 +78,14 @@ def _case(name):
         bmin = bmin[:, lo // bn:].contiguous()
         mask = None if mask is None else mask[:, lo // bn:].contiguous()
     return dict(q=qp, x=xp[lo:], r=r, n_lt=n_lt, bins=bins, k=k, nv=nv,
-                bmin=bmin, mask=mask, sb=sb, ib=ib, bq=bq, bn=bn, sub=sub)
+                bmin=bmin, mask=mask, sb=sb, ib=ib, bq=bq, bn=bn)
 
 
 def _emit(c, run_bases=None):
     return tsel.hamming_emit_kernel(
         c["q"], c["x"], c["r"], c["n_lt"], c["bins"], c["k"], c["nv"],
         block_min=c["bmin"], block_mask=c["mask"], slot_base=c["sb"],
-        id_base=c["ib"], bq=c["bq"], bn=c["bn"], sub=c["sub"],
-        run_bases=run_bases)
+        id_base=c["ib"], bq=c["bq"], bn=c["bn"], run_bases=run_bases)
 
 
 @pytest.mark.parametrize("runs", RUNS)
@@ -96,10 +94,10 @@ def test_run_histograms_sum_to_the_histogram(name, runs):
     c = _case(name)
     hist, bmin, run_hist = tsel.hamming_hist_kernel(
         c["q"], c["x"], c["bins"], c["nv"], c["mask"], bq=c["bq"],
-        bn=c["bn"], sub=c["sub"], runs=runs)
+        bn=c["bn"], runs=runs)
     ref_hist, ref_bmin = tsel.hamming_hist_kernel(
         c["q"], c["x"], c["bins"], c["nv"], c["mask"], bq=c["bq"],
-        bn=c["bn"], sub=c["sub"])
+        bn=c["bn"])
     assert run_hist.shape == (c["q"].shape[0], runs, c["bins"])
     assert run_hist.dtype == torch.int32
     assert torch.equal(run_hist.sum(dim=1, dtype=torch.int32), hist)
@@ -116,7 +114,7 @@ def test_run_histograms_sum_to_the_histogram(name, runs):
                                         None if c["mask"] is None else
                                         c["mask"][:, j * span:(j + 1) * span]
                                         .contiguous(), bq=c["bq"],
-                                        bn=c["bn"], sub=c["sub"])
+                                        bn=c["bn"])
         assert torch.equal(run_hist[:, j], h)
 
 
@@ -126,7 +124,7 @@ def test_run_split_emit_equals_single_run(name, runs):
     c = _case(name)
     _, _, run_hist = tsel.hamming_hist_kernel(
         c["q"], c["x"], c["bins"], c["nv"], c["mask"], bq=c["bq"],
-        bn=c["bn"], sub=c["sub"], runs=runs)
+        bn=c["bn"], runs=runs)
     bases = tops._run_bases(run_hist, c["r"], c["n_lt"], c["sb"])
     assert bases[0].shape == bases[1].shape == (c["q"].shape[0], runs)
     d1, i1 = _emit(c)
@@ -138,14 +136,15 @@ def test_run_split_emit_equals_single_run(name, runs):
 
 def test_single_run_emit_matches_reference_on_the_shard_case():
     """The single-run emit that the run split is held to, against
-    ``hamming_emit_pallas`` (interpret mode) on the shard case."""
+    ``hamming_emit_pallas`` (interpret mode) on the shard case, its
+    in-tile sub-step a whole tile."""
     c = _case("slot_base/id_base (shard 2 of 2)")
     j = lambda t: jnp.asarray(t.numpy())
     jd, ji = hamming_emit_pallas(
         j(c["q"]), j(c["x"]), j(c["r"]), j(c["n_lt"]), c["bins"], c["k"],
         n_valid=jnp.int32(c["nv"]), block_min=j(c["bmin"]),
         slot_base=j(c["sb"]), id_base=jnp.int32(c["ib"]), bq=c["bq"],
-        bn=c["bn"], sub=c["sub"], interpret=True)
+        bn=c["bn"], sub=c["bn"], interpret=True)
     td, ti = _emit(c)
     assert np.array_equal(np.asarray(jd), td.numpy())
     assert np.array_equal(np.asarray(ji), ti.numpy())
@@ -202,7 +201,7 @@ def test_hamming_topk_over_runs_matches_reference(monkeypatch, target, runs):
                                sub=sub)
     td, ti = tops.hamming_topk(carry.codes(np.asarray(qj), "cpu"),
                                carry.codes(np.asarray(xj), "cpu"), k, d + 1,
-                               n_valid=2900, bq=bq, bn=bn, sub=sub)
+                               n_valid=2900, bq=bq, bn=bn)
     assert np.array_equal(np.asarray(jd), td.numpy())
     assert np.array_equal(np.asarray(ji), ti.numpy())
 

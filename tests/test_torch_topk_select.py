@@ -4,7 +4,7 @@ K1 (pass-1 histogram + block-min summary) and K2 (pass-2 emit) of
 repro_torch.kernels.topk_select run their plain PyTorch versions on CPU
 tensors; the reference runs its Pallas kernels in interpret mode, as
 tests/test_fused_topk.py does. Both get the SAME padded inputs and the
-reference's (bq, bn, sub) geometry, and every integer output — hist,
+reference's (bq, bn) geometry, and every integer output — hist,
 block_min, emitted (dists, ids) slots, the finished (dists, ids) and the
 pruning stats — must match exactly."""
 import numpy as np
@@ -54,8 +54,8 @@ def _topk_both(xj, qj, xt, qt, k, bins, **kw):
                           return_stats=True, **kw)
     if tmask is not None:
         kw["block_mask"] = tmask
-    t = tops.hamming_topk(qt, xt, k, bins, bq=bq, bn=bn, sub=sub,
-                          return_stats=True, **kw)
+    t = tops.hamming_topk(qt, xt, k, bins, bq=bq, bn=bn, return_stats=True,
+                          **kw)
     return j, t
 
 
@@ -78,8 +78,7 @@ def test_pass1_hist_and_block_min_match_reference(q, n, d):
     nv = n - n // 3                      # n_valid < N: tail rows excluded
     jh, jb = hamming_hist_pallas(qp, xp, bins, jnp.int32(nv), bq=bq, bn=bn,
                                  sub=sub, interpret=True)
-    th, tb = tsel.hamming_hist_kernel(_t(qp), _t(xp), bins, nv, bq=bq, bn=bn,
-                                      sub=sub)
+    th, tb = tsel.hamming_hist_kernel(_t(qp), _t(xp), bins, nv, bq=bq, bn=bn)
     assert _eq(jh, th) and _eq(jb, tb)
     assert tsel.hamming_hist_kernel.launches == 0      # plain path on CPU
 
@@ -110,7 +109,7 @@ def test_pass2_emit_with_slot_and_id_base_matches_reference():
     td, ti = tsel.hamming_emit_kernel(
         _t(qp), _t(xp[lo:]), _t(r), _t(tb), bins, k,
         block_min=_t(bm[:, j0:]), slot_base=_t(sb), id_base=lo,
-        bq=bq, bn=bn, sub=sub)
+        bq=bq, bn=bn)
     assert _eq(jd, td) and _eq(ji, ti)
     assert int((ti >= lo).sum()) > 0 and int((ti == 0).sum()) > 0
     assert tsel.hamming_emit_kernel.launches == 0
@@ -213,7 +212,7 @@ def test_hamming_hist_pad_path(q, n, d):
     xj, qj, xt, qt = _codes(4, n, q, d)
     bq, bn, sub, _, _ = jops.topk_geometry(q, n, qj.shape[1], d + 1)
     jh = jops.hamming_hist(qj, xj, d + 1, bq=bq, bn=bn, sub=sub)
-    th = tops.hamming_hist(qt, xt, d + 1, bq=bq, bn=bn, sub=sub)
+    th = tops.hamming_hist(qt, xt, d + 1, bq=bq, bn=bn)
     assert _eq(jh, th) and int(th.sum()) == q * n
 
 
@@ -250,4 +249,4 @@ def test_geometry_must_tile():
     q = torch.zeros((10, 2), dtype=torch.int32)
     x = torch.zeros((100, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="does not tile"):
-        tsel.hamming_hist_kernel(q, x, 65, bq=8, bn=32, sub=8)
+        tsel.hamming_hist_kernel(q, x, 65, bq=8, bn=32)
