@@ -22,9 +22,10 @@ kernel launch counts set to 0 just before it and read just after:
   (the same source built with its tensor-core dispatch taken out) are
   timed in turns, the latter held to the former. The same full-shape
   check runs at kNN-SIFT's d = 128, k = 4 and at kNN-WordEmbed's d = 64,
-  k = 2 (the CUDA-core kernels), over 2^20 clustered codes each; the tiles
-  the launches count as taking the CUDA-core kernels must be 0 % at
-  d = 256 and 128 and 100 % at d = 64.
+  k = 2, over 2^20 clustered codes each; the tiles the launches count as
+  taking the CUDA-core kernels must be 0 % at d = 256, 128 and 64. At
+  d = 64 the two routes are timed in turns too, the CUDA-core one held
+  to the tensor-core one bit for bit (no cell runs it any more).
 * the board scan — the same store through ``KNNEngine.search(...,
   method="pallas")`` under the counting (the paper's temporal sort over
   board-sized chunks of 65,536 rows), composite and bisect selects: K3
@@ -246,8 +247,7 @@ D_BITS = 256             # kNN-TagSpace: d = 256, k = 16, 4096 queries
 K = 16
 N_QUERIES = 4096
 SIFT_BITS, SIFT_K = 128, 4   # kNN-SIFT: d = 128, k = 4 (K1/K2's W = 4 tile)
-# kNN-WordEmbed: d = 64, k = 2 (no tensor-core tile: the CUDA-core K1/K2)
-WORDEMBED_BITS, WORDEMBED_K = 64, 2
+WORDEMBED_BITS, WORDEMBED_K = 64, 2   # kNN-WordEmbed: d = 64, k = 2 (W = 2)
 N_CLUSTERS = 1024
 FLIP_LOG2 = 4            # each code bit flips from its cluster centre w.p. 1/16
 N_CHECK = 64             # queries held against the on-card brute force
@@ -697,11 +697,12 @@ def kernel_case(name, q, x, bins, k, *, n_valid=None, mask_p=None,
     return k1, k2
 
 
-def run_cases(main_q, main_x, sift_q, sift_x):
+def run_cases(main_q, main_x, sift_q, sift_x, we_q, we_x):
     """K1/K2 against their plain versions on the edge cases, the first
     256 queries of each main-shape store (d=256 ``main_*``, d=128
-    ``sift_*``) over all of its rows, and the whole select on the card
-    against the CPU. -> (K1 err, K2 err), the largest of any case."""
+    ``sift_*``, d=64 ``we_*``) over all of its rows, and the whole select
+    on the card against the CPU. -> (K1 err, K2 err), the largest of any
+    case."""
     rng = np.random.default_rng(1)
 
     def rand_codes(n, d):
@@ -756,12 +757,40 @@ def run_cases(main_q, main_x, sift_q, sift_x):
         ("d=128 bq=8 (half of one m16 fragment)", rand_codes(8, 128),
          rand_codes(5000, 128), 129, 16, {}),
     ]
+    # d = 64 (W = 2) on its m16n8k128 tile, the same edges, and ties at r*
+    # in groups of ~600 equal rows with 2 slots
+    few = rand_codes(8, 64)
+    cases += [
+        ("d=64 main-shape 256 queries x all rows", we_q[:256], we_x, 65,
+         WORDEMBED_K, {}),
+        ("d=64 ragged N", rand_codes(40, 64), rand_codes(5001, 64), 65,
+         WORDEMBED_K, {}),
+        ("d=64 n_valid < N", rand_codes(64, 64), rand_codes(5000, 64), 65,
+         16, {"n_valid": 3000}),
+        ("d=64 block_mask with zeros", rand_codes(96, 64),
+         rand_codes(9000, 64), 65, 16,
+         {"mask_p": 0.5, "geometry": (32, 504)}),
+        ("d=64 slot_base/id_base (shard 2 of 2)", rand_codes(64, 64),
+         rand_codes(8000, 64), 65, 16,
+         {"shard": (4032, 8064), "geometry": (32, 504)}),
+        ("d=64 bq=64 (four m16 fragments)", rand_codes(100, 64),
+         rand_codes(3000, 64), 65, 16, {"geometry": (64, 512)}),
+        ("d=64 bq=24 (one and a half m16 fragments)", rand_codes(24, 64),
+         rand_codes(5000, 64), 65, 16, {}),
+        ("d=64 bq=8 (half of one m16 fragment)", rand_codes(8, 64),
+         rand_codes(5000, 64), 65, 16, {}),
+        ("d=64 heavy ties k=2 (8 distinct rows)",
+         torch.cat([few[:4], rand_codes(28, 64)]),
+         few[torch.from_numpy(rng.integers(0, 8, 5000)).to(DEV)], 65,
+         WORDEMBED_K, {}),
+    ]
     for name, q, x, bins, k, kw in cases:
         a, b = kernel_case(name, q, x, bins, k, **kw)
         k1, k2 = max(k1, a), max(k2, b)
 
     # the whole select on the card against the same select on the CPU
-    for Q, N, d, k in ((33, 4097, 160, 24), (33, 4097, 128, SIFT_K)):
+    for Q, N, d, k in ((33, 4097, 160, 24), (33, 4097, 128, SIFT_K),
+                       (33, 4097, 64, WORDEMBED_K)):
         q, x = rand_codes(Q, d), rand_codes(N, d)
         gd, gi, _ = ops.hamming_topk(q, x, k, d + 1, return_stats=True)
         cd, ci, _ = ops.hamming_topk(q.cpu(), x.cpu(), k, d + 1, bq=32,
@@ -917,11 +946,11 @@ def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
             "k2_bytes": k2_bytes}
 
 
-# K1/K2 at d = 256 and 128 on each route: the committed tensor-core
+# K1/K2 at d = 256, 128 and 64 on each route: the committed tensor-core
 # kernels, and the CUDA-core ones (the design they had before, still the
 # route of other widths and of query blocks wider than 64) built from the
 # same source with the tensor-core dispatch taken out
-W8_ROUTE = "b1 (mma.sync m16n8k256 AND-popc)"
+W8_ROUTE = "b1 (mma.sync AND-popc)"
 POPC_ROUTE = "popc (CUDA cores)"
 POPC_VARIANT = [("return tc_width(nw) && bq <= TC_MAX_BQ;", "return 0;")]
 
@@ -4543,7 +4572,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # kNN-SIFT's store at the same scale (d=128, layout order), for K1/K2's
-    # W = 4 tile; kNN-WordEmbed's (d=64), for the CUDA-core K1/K2
+    # W = 4 tile; kNN-WordEmbed's (d=64), for the W = 2 one
     sift_q, sift_x = clustered_store(np.random.default_rng(args.seed + 2),
                                      SIFT_BITS, N_ROWS, N_QUERIES)
     we_q, we_x = clustered_store(np.random.default_rng(args.seed + 3),
@@ -4551,7 +4580,8 @@ def main() -> int:
 
     # phase 3: each kernel against its plain version
     print("kernels vs plain (bit-for-bit):", flush=True)
-    k1_err, k2_err = run_cases(q, eng.layout.codes, sift_q, sift_x)
+    k1_err, k2_err = run_cases(q, eng.layout.codes, sift_q, sift_x, we_q,
+                               we_x)
     if k1_err or k2_err:
         return fail(f"kernel != plain: K1 err {k1_err}, K2 err {k2_err}")
     k3_err = run_k3_cases(q, eng.codes[:K3_CHUNK])
@@ -4585,11 +4615,14 @@ def main() -> int:
     k1_err, k2_err = max(k1_err, wt["k1_err"]), max(k2_err, wt["k2_err"])
     shares = [kt["cudacore_share"], st["cudacore_share"],
               wt["cudacore_share"]]
-    if shares != [0.0, 0.0, 100.0]:
+    if shares != [0.0, 0.0, 0.0]:
         return fail(f"tiles counted on the CUDA cores at d=256, 128, 64: "
-                    f"{shares} %, expected 0, 0, 100")
+                    f"{shares} %, expected 0, 0, 0")
     routes = route_comparison(q, eng.layout.codes, {
         W8_ROUTE: tsel._lib(), POPC_ROUTE: popc_lib})
+    we_routes = route_comparison(we_q, we_x, {
+        W8_ROUTE: tsel._lib(), POPC_ROUTE: popc_lib}, d=WORDEMBED_BITS,
+        k=WORDEMBED_K)
 
     # phase 5: the same store on insertion order through select="fused"
     flat = eng._replace(layout=None)
@@ -4707,7 +4740,8 @@ def main() -> int:
         "insertion_order_blocks_skipped_frac": ft["skipped"],
         "insertion_order_k1_ms": ft["k1_ms"],
         "insertion_order_k2_ms": ft["k2_ms"], "runs": kt["runs"],
-        "k2_one_run_ms": kt["k2_one_run_ms"], "w8_routes": routes}),
+        "k2_one_run_ms": kt["k2_one_run_ms"], "w8_routes": routes,
+        "d64_routes": we_routes}),
         flush=True)
     print("board_scan: " + json.dumps(bs), flush=True)
     print("index_path: " + json.dumps(ip), flush=True)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1 and K2 on each of their d = 256 and d = 128 routes on the card, and
+"""K1 and K2 on each of their d = 256, 128 and 64 routes on the card, and
 where their time goes.
 
 Run from the root of a checkout on a machine with one CUDA card:
@@ -20,13 +20,13 @@ codes, d=256, k=16, layout order), and stops at the first mismatch; then
 it times the two in turns there, and each ablation beside the committed
 build. Then the same two at kNN-SIFT's d=128, k=4 (4096 x 2^20, layout
 order): each held to the plain versions, and timed in turns, twice, the
-second time in the reverse order. Last, kNN-WordEmbed's d=64, k=2 (4096 x
-2^20, layout order), which has no tensor-core tile: the committed
-CUDA-core kernels (``W == 0``) held to the plain versions and timed
-twice. At each width the launches' count of the tiles that took the
-CUDA-core kernels must read 0 % for the tensor-core route and 100 % for
-the CUDA-core one. Without a CUDA card it exits non-zero at once. To try
-another design of a kernel, add its substitution here.
+second time in the reverse order. Last, the same at kNN-WordEmbed's
+d=64, k=2 (4096 x 2^20, layout order): the committed m16n8k128 tile and
+the CUDA-core kernels (``W == 0``). At each width the launches' count of
+the tiles that took the CUDA-core kernels must read 0 % for the
+tensor-core route and 100 % for the CUDA-core one. Without a CUDA card it
+exits non-zero at once. To try another design of a kernel, add its
+substitution here.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ ABLATIONS = {
 
 
 # the share of K1's and K2's tiles each route's launches count as taking
-# the CUDA-core kernels, at d = 256 and d = 128
+# the CUDA-core kernels, at d = 256, 128 and 64
 SHARE = {cs.W8_ROUTE: 0.0, cs.POPC_ROUTE: 100.0}
 
 
@@ -111,19 +111,17 @@ def main() -> int:
 
     q, x = cs.clustered_store(np.random.default_rng(args.seed), cs.D_BITS,
                               cs.N_ROWS, cs.N_QUERIES)
-    d, k = cs.SIFT_BITS, cs.SIFT_K
-    sq, sx = cs.clustered_store(np.random.default_rng(args.seed + 1), d,
-                                cs.N_ROWS, cs.N_QUERIES)
-    wd, wk = cs.WORDEMBED_BITS, cs.WORDEMBED_K
-    wq, wx = cs.clustered_store(np.random.default_rng(args.seed + 2), wd,
-                                cs.N_ROWS, cs.N_QUERIES)
+    sq, sx = cs.clustered_store(np.random.default_rng(args.seed + 1),
+                                cs.SIFT_BITS, cs.N_ROWS, cs.N_QUERIES)
+    wq, wx = cs.clustered_store(np.random.default_rng(args.seed + 2),
+                                cs.WORDEMBED_BITS, cs.N_ROWS, cs.N_QUERIES)
 
     routes = {cs.W8_ROUTE: tsel._lib(),
               cs.POPC_ROUTE: variants[cs.POPC_ROUTE]}
     for name, lib in routes.items():
         print(f"route {name}:", flush=True)
         with cs.topk_library(lib):
-            k1, k2 = cs.run_cases(q, x, sq, sx)
+            k1, k2 = cs.run_cases(q, x, sq, sx, wq, wx)
             kt = cs.kernel_timings(q, x, "main shape")
         if k1 or k2 or kt["k1_err"] or kt["k2_err"]:
             return cs.fail(f"route {name}: kernel != plain (cases K1 {k1} "
@@ -145,30 +143,25 @@ def main() -> int:
         print(f"  ablation {name}: K1 {t['k1_ms']:.3f} ms, K2 "
               f"{t['k2_ms']:.3f} ms", flush=True)
 
-    # kNN-SIFT's width: the committed tensor-core kernels and the CUDA-core
-    # ones (W == 0), each held to the plain versions, then timed in turns
-    for name, lib in routes.items():
-        with cs.topk_library(lib):
-            kt = cs.kernel_timings(sq, sx, f"d={d} k={k} {name}", d=d, k=k)
-        if kt["k1_err"] or kt["k2_err"]:
-            return cs.fail(f"d={d} route {name}: kernel != plain (K1 "
-                           f"{kt['k1_err']} K2 {kt['k2_err']})")
-        if kt["cudacore_share"] != SHARE[name]:
-            return cs.fail(f"d={d} route {name}: {kt['cudacore_share']} % "
-                           f"of tiles counted on the CUDA cores")
-    cs.route_comparison(sq, sx, routes, reps=args.reps, d=d, k=k)
-    cs.route_comparison(sq, sx, dict(reversed(routes.items())),
-                        reps=args.reps, d=d, k=k)
-
-    # kNN-WordEmbed's width: W = 2 has no tensor-core tile, so the
-    # committed library runs the CUDA-core kernels (W == 0) there
-    kt = cs.kernel_timings(wq, wx, f"d={wd} k={wk} committed", d=wd, k=wk)
-    if kt["k1_err"] or kt["k2_err"] or kt["cudacore_share"] != 100.0:
-        return cs.fail(f"d={wd}: kernel != plain (K1 {kt['k1_err']} K2 "
-                       f"{kt['k2_err']}) or {kt['cudacore_share']} % of "
-                       f"tiles counted on the CUDA cores")
-    cs.kernel_timings(wq, wx, f"d={wd} k={wk} committed, again",
-                      with_plain=False, d=wd, k=wk)
+    # kNN-SIFT's and kNN-WordEmbed's widths: the committed tensor-core
+    # kernels and the CUDA-core ones (W == 0), each held to the plain
+    # versions, then timed in turns, twice, the second time reversed
+    for d, k, qs, xs in ((cs.SIFT_BITS, cs.SIFT_K, sq, sx),
+                         (cs.WORDEMBED_BITS, cs.WORDEMBED_K, wq, wx)):
+        for name, lib in routes.items():
+            with cs.topk_library(lib):
+                kt = cs.kernel_timings(qs, xs, f"d={d} k={k} {name}", d=d,
+                                       k=k)
+            if kt["k1_err"] or kt["k2_err"]:
+                return cs.fail(f"d={d} route {name}: kernel != plain (K1 "
+                               f"{kt['k1_err']} K2 {kt['k2_err']})")
+            if kt["cudacore_share"] != SHARE[name]:
+                return cs.fail(f"d={d} route {name}: "
+                               f"{kt['cudacore_share']} % of tiles counted "
+                               f"on the CUDA cores")
+        cs.route_comparison(qs, xs, routes, reps=args.reps, d=d, k=k)
+        cs.route_comparison(qs, xs, dict(reversed(routes.items())),
+                            reps=args.reps, d=d, k=k)
     print(f"chip_topk_routes: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return 0

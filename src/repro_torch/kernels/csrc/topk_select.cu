@@ -26,16 +26,17 @@
 // global row order while it runs 128 x 16 CTAs at the main shape, not one
 // CTA per query block (128 CTAs on 132 SMs).
 //
-// d = 256 and d = 128 (W = 8, 4; bq <= 64) run on the tensor cores,
-// through mma.sync m16n8k256 on single bits: a warp's tile is the query
-// block (m16 fragments held in registers for the whole CTA) against an n8
-// chunk of data rows, one load a lane, and popc(q & ~x) + popc(~q & x) is
-// the distance itself, with no conversion of the packed words: two AND-popc
-// products at d = 256; one at d = 128, whose 256 k-bits hold [q, ~q]
-// against [~x, x]. On the H100 it beat both the CUDA-core kernels and a +-1
-// int8 product (m16n8k32 on bits expanded to bytes), which was measured
-// and dropped (PERF.md). Other widths and wider query blocks take the
-// CUDA-core kernels, with the query row in registers at W = 8.
+// d = 256, 128 and 64 (W = 8, 4, 2; bq <= 64) run on the tensor cores,
+// through mma.sync on single bits: a warp's tile is the query block (m16
+// fragments held in registers for the whole CTA) against an n8 chunk of
+// data rows, one load a lane, and popc(q & ~x) + popc(~q & x) is the
+// distance itself, with no conversion of the packed words: two m16n8k256
+// AND-popc products at d = 256; one at d = 128, whose 256 k-bits hold
+// [q, ~q] against [~x, x]; one m16n8k128 product at d = 64, whose 128
+// k-bits hold the same. On the H100 it beat both the CUDA-core kernels and
+// a +-1 int8 product (m16n8k32 on bits expanded to bytes), which was
+// measured and dropped (PERF.md). Other widths and wider query blocks take
+// the CUDA-core kernels, with the query row in registers at W = 8.
 // The codes go straight from L2 to the fragments, without a cp.async ring
 // in shared memory: a lane's B operand is 4 or 8 contiguous bytes of a row,
 // used once per CTA by all of its query fragments, so a ring would add a
@@ -302,7 +303,7 @@ __global__ void emit_kernel(const int* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// d = 128 and 256 (W = 4, 8) on the tensor cores
+// d = 64, 128 and 256 (W = 2, 4, 8) on the tensor cores
 // ---------------------------------------------------------------------------
 
 // The widest query block the tensor-core kernels take (MB <= 4 m16
@@ -321,15 +322,30 @@ __device__ __forceinline__ void mma_b1(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// D += A.B with AND + popcount over 128 single-bit k: A 16 x 128 (row g in
+// a0, g+8 in a1; k-slot of 32 bits t), B 128 x 8 (column g, slot t), C as
+// in mma_b1.
+__device__ __forceinline__ void mma_b1_k128(int (&c)[4], unsigned a0,
+                                            unsigned a1, unsigned b) {
+  asm("mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 // Lane (g, t)'s share of an n8 chunk of W-word data rows (zeros past
 // `rows`), one load: at W = 8 words 2t and 2t+1 of chunk row g, 8 bytes (a
 // warp's load is the chunk's 256 contiguous bytes); at W = 4 word t in .x,
-// 4 bytes (128 a warp), and .y = 0.
+// 4 bytes (128 a warp), and .y = 0; at W = 2 word t & 1 in .x (the chunk's
+// 64 bytes, each word loaded by lanes t and t ^ 2), and .y = 0.
 template <int W>
 __device__ __forceinline__ int2 load_chunk(const int* xt, int c, int rows,
                                            int lane) {
   const int r = c * 8 + (lane >> 2);
-  if constexpr (W == 4) {
+  if constexpr (W == 2) {
+    return make_int2(
+        r < rows ? __ldg(xt + static_cast<size_t>(r) * 2 + (lane & 1)) : 0, 0);
+  } else if constexpr (W == 4) {
     return make_int2(
         r < rows ? __ldg(xt + static_cast<size_t>(r) * 4 + (lane & 3)) : 0, 0);
   } else {
@@ -351,11 +367,16 @@ __device__ __forceinline__ int2 load_chunk(const int* xt, int c, int rows,
 // bit of a query meets the same bit of the row; two products, a with ~x,
 // then na = ~a with x. W = 4: lane t puts query word t in k-slot t and its
 // complement in slot 4+t, and row word t's complement in B's slot t and the
-// word itself in slot 4+t; one product.
+// word itself in slot 4+t; one product. W = 2 (m16n8k128, k-slots 0-3 of
+// lanes t = 0-3): lane t holds query word t & 1, complemented at t >= 2
+// (q0, q1, ~q0, ~q1), in a[m][0] (row g) and a[m][1] (row g+8), and B is
+// row word t & 1, complemented at t < 2 (~x0, ~x1, x0, x1); one product.
 template <int MB, int W>
 struct TcTile {
-  static_assert(W == 4 || W == 8, "tensor-core rows are 128 or 256 bits");
+  static_assert(W == 2 || W == 4 || W == 8,
+                "tensor-core rows are 64, 128 or 256 bits");
   unsigned a[MB][4], na[MB][4];     // na: W == 8 only
+  unsigned nx;                      // W == 2 only: ~0 where B holds ~x
 
   __device__ __forceinline__ void load(const int* qblk, int bq, int lane) {
 #pragma unroll
@@ -363,7 +384,13 @@ struct TcTile {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = 16 * m + (lane >> 2) + 8 * h;
-        if constexpr (W == 4) {
+        if constexpr (W == 2) {
+          const unsigned w =
+              row < bq ? static_cast<unsigned>(__ldg(qblk + row * 2 +
+                                                     (lane & 1)))
+                       : 0u;
+          a[m][h] = lane & 2 ? ~w : w;
+        } else if constexpr (W == 4) {
           const unsigned w =
               row < bq ? static_cast<unsigned>(__ldg(qblk + row * 4 +
                                                      (lane & 3)))
@@ -381,6 +408,7 @@ struct TcTile {
           na[m][2 + h] = ~a[m][2 + h];
         }
       }
+    if constexpr (W == 2) nx = lane & 2 ? 0u : ~0u;
   }
 
   __device__ __forceinline__ void dist(int2 xw, int (&d)[MB][4]) const {
@@ -388,7 +416,9 @@ struct TcTile {
 #pragma unroll
     for (int m = 0; m < MB; ++m) {
       d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0;
-      if constexpr (W == 4) {
+      if constexpr (W == 2) {
+        mma_b1_k128(d[m], a[m][0], a[m][1], b0 ^ nx);
+      } else if constexpr (W == 4) {
         mma_b1(d[m], a[m], ~b0, b0);
       } else {
         const unsigned b1 = static_cast<unsigned>(xw.y);
@@ -690,14 +720,19 @@ int launch_emit(const int* q, const int* x, const int* en, const int* bm,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Code widths with a tensor-core tile: 128 and 256 bits.
-constexpr bool tc_width(int nw) { return nw == 4 || nw == 8; }
+// Code widths with a tensor-core tile: 64, 128 and 256 bits.
+constexpr bool tc_width(int nw) { return nw == 2 || nw == 4 || nw == 8; }
 
 // The tensor-core instance for nw-word codes (tc_width) and a query block
 // of bq <= TC_MAX_BQ rows (MB = bq / 16 rounded up; 3 takes 4).
 #define DISPATCH_TC(NW, BQ, CALL)             \
   do {                                        \
     const int mb_ = ((BQ) + 15) / 16;         \
+    if ((NW) == 2) {                          \
+      if (mb_ == 1) return CALL(1, 2);        \
+      if (mb_ == 2) return CALL(2, 2);        \
+      return CALL(4, 2);                      \
+    }                                         \
     if ((NW) == 4) {                          \
       if (mb_ == 1) return CALL(1, 4);        \
       if (mb_ == 2) return CALL(2, 4);        \

@@ -225,7 +225,7 @@ def test_launcher_argtypes_match_the_c_entry_points():
 
 
 # ---------------------------------------------------------------------------
-# the d = 256 and d = 128 tensor-core distance tiles, emulated lane by lane
+# the d = 256, 128 and 64 tensor-core distance tiles, emulated lane by lane
 # ---------------------------------------------------------------------------
 
 def _bits(w):
@@ -238,7 +238,8 @@ def _load_a(q_rows, bq, mb, w):
     """TcTile<MB, W>::load: each lane (g, t)'s a[m][0..3] for query rows
     16m+g (h = 0) and 16m+g+8 (h = 1), zero words past bq. W = 8: a[m][h]
     = word 2t, a[m][2 + h] = word 2t+1. W = 4: a[m][h] = word t, a[m][2 +
-    h] its complement."""
+    h] its complement. W = 2: a[m][h] = word t & 1, complemented at t >= 2;
+    a[m][2 + h] unused."""
     a = np.zeros((32, mb, 4), np.uint32)
     for lane in range(32):
         g, t = lane >> 2, lane & 3
@@ -250,6 +251,8 @@ def _load_a(q_rows, bq, mb, w):
                 if w == 8:
                     a[lane, m, h] = words[2 * t]
                     a[lane, m, 2 + h] = words[2 * t + 1]
+                elif w == 2:
+                    a[lane, m, h] = ~words[t & 1] if t & 2 else words[t & 1]
                 else:
                     a[lane, m, h] = words[t]
                     a[lane, m, 2 + h] = ~words[t]
@@ -258,14 +261,15 @@ def _load_a(q_rows, bq, mb, w):
 
 def _load_chunk(x_rows, c, rows, w):
     """load_chunk<W>: each lane (g, t)'s int2 of chunk row c*8 + g, zeros
-    past ``rows``: words 2t, 2t+1 at W = 8; word t and 0 at W = 4."""
+    past ``rows``: words 2t, 2t+1 at W = 8; word t and 0 at W = 4; word
+    t & 1 and 0 at W = 2."""
     b = np.zeros((32, 2), np.uint32)
     for lane in range(32):
         g, t = lane >> 2, lane & 3
         r = c * 8 + g
         if r < rows:
-            b[lane] = x_rows[r, 2 * t:2 * t + 2] if w == 8 else (x_rows[r, t],
-                                                                 0)
+            b[lane] = (x_rows[r, 2 * t:2 * t + 2] if w == 8 else
+                       (x_rows[r, t % w], 0))
     return b
 
 
@@ -285,7 +289,27 @@ def _mma_b1(a, b):
         for j in range(2):
             k0 = 32 * t + 128 * j
             B[k0:k0 + 32, g] = _bits(b[lane, j])
-    C = A @ B
+    return _fragment_c(A @ B)
+
+
+def _mma_b1_k128(a, b):
+    """mma.sync m16n8k128 .b1 AND-popc on per-lane registers, through
+    PTX's fragment layout for that shape: A is two .b32 a lane, a0 row g
+    and a1 row g+8, both k = 32t + i; B one .b32, column g, k = 32t + i;
+    C as at k256. a (32, 2), b (32,) -> (32, 4) accumulators."""
+    A = np.zeros((16, 128), np.int64)
+    B = np.zeros((128, 8), np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        A[g, 32 * t:32 * t + 32] = _bits(a[lane, 0])
+        A[g + 8, 32 * t:32 * t + 32] = _bits(a[lane, 1])
+        B[32 * t:32 * t + 32, g] = _bits(b[lane])
+    return _fragment_c(A @ B)
+
+
+def _fragment_c(C):
+    """The (16, 8) product as each lane (g, t)'s c0, c1 (row g, columns
+    2t, 2t+1) and c2, c3 (the same of row g+8). -> (32, 4)."""
     return np.array([[C[(lane >> 2) + 8 * (i >> 1), 2 * (lane & 3) + (i & 1)]
                       for i in range(4)] for lane in range(32)])
 
@@ -294,8 +318,9 @@ def _tile(q_rows, x_rows, bq, rows, w):
     """The kernels' distance tile for one warp and n8 chunk 0, lane by lane:
     the registers that TcTile<MB, W>::load and load_chunk<W> fill, the
     products of TcTile::dist (W = 8: a with ~b, then ~a with b; W = 4: one,
-    a with (~b0, b0)), and each lane's d[m][2h + e] read back as query
-    16m+g+8h, chunk row 2t+e -> (16 * MB, 8) distances."""
+    a with (~b0, b0); W = 2: one m16n8k128, a with b0 complemented at
+    t < 2), and each lane's d[m][2h + e] read back as query 16m+g+8h,
+    chunk row 2t+e -> (16 * MB, 8) distances."""
     mb = {1: 1, 2: 2, 3: 4, 4: 4}[-(-bq // 16)]     # DISPATCH_TC
     a = _load_a(q_rows, bq, mb, w)
     b = _load_chunk(x_rows, 0, rows, w)
@@ -303,6 +328,10 @@ def _tile(q_rows, x_rows, bq, rows, w):
     for m in range(mb):
         if w == 8:
             d = _mma_b1(a[:, m], ~b) + _mma_b1(~a[:, m], b)
+        elif w == 2:
+            nx = np.array([0 if lane & 2 else 0xFFFFFFFF
+                           for lane in range(32)], np.uint32)
+            d = _mma_b1_k128(a[:, m, :2], b[:, 0] ^ nx)
         else:
             d = _mma_b1(a[:, m], np.stack([~b[:, 0], b[:, 0]], axis=1))
         for lane in range(32):
@@ -328,14 +357,22 @@ def test_tensor_core_tile_emulation_equals_hamming_d128(bq, rows):
     _check_tile(bq, rows, 4)
 
 
+@pytest.mark.parametrize("bq,rows", TILE_CASES)
+def test_tensor_core_tile_emulation_equals_hamming_d64(bq, rows):
+    """The d = 64 tensor-core tile, one m16n8k128 product
+    (``_check_tile``)."""
+    _check_tile(bq, rows, 2)
+
+
 def _check_tile(bq, rows, w):
     """The tensor-core tile at d = 32 * w, emulated lane by lane (each
     side's registers loaded as the kernel indexes them, the product taken
     through PTX's fragment layout, so a wrong index on either side fails),
     against ``binary.hamming_xor`` on zero-padded rows: random words with
     the top bit set half the time, zero-padded codes (d = 200 in 256 bits,
-    72 in 128), identical rows (distance 0), complements (32 * w), query
-    rows past bq and chunk rows past ``rows``, and the bins - 1 clamp."""
+    72 in 128, 40 in 64), identical rows (distance 0), complements
+    (32 * w), query rows past bq and chunk rows past ``rows``, and the
+    bins - 1 clamp."""
     from repro_torch.core.binary import hamming_xor
 
     rng = np.random.default_rng(20 + bq)
@@ -343,8 +380,11 @@ def _check_tile(bq, rows, w):
     x = rng.integers(0, 1 << 32, (8, w), dtype=np.uint32)
     q[::2, w - 1] |= np.uint32(1 << 31)
     for a in (q, x):                              # zero padding
-        a[1, w - 2] &= np.uint32((1 << 8) - 1)
-        a[1, w - 1] = 0
+        if w == 2:
+            a[1, 1] &= np.uint32((1 << 8) - 1)
+        else:
+            a[1, w - 2] &= np.uint32((1 << 8) - 1)
+            a[1, w - 1] = 0
     x[2] = q[2]                                   # distance 0
     x[0] = ~q[0]                                  # distance 32 * w
     got = _tile(q, x, bq, rows, w)
@@ -357,6 +397,6 @@ def _check_tile(bq, rows, w):
     assert np.array_equal(got[:bq, :rows], np.asarray(
         jbin.hamming_xor(j(q[:bq]), j(x[:rows]))))
     assert got[2, 2] == 0 and got[0, 0] == 32 * w
-    for bins in (257, 129, 9):                    # the kernels' clamp
+    for bins in (257, 129, 65, 9):                # the kernels' clamp
         assert np.array_equal(np.minimum(got, bins - 1),
                               np.minimum(want.numpy(), bins - 1))
