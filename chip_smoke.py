@@ -25,7 +25,11 @@ kernel launch counts set to 0 just before it and read just after:
   k = 2, over 2^20 clustered codes each; the tiles the launches count as
   taking the CUDA-core kernels must be 0 % at d = 256, 128 and 64. At
   d = 64 the two routes are timed in turns too, the CUDA-core one held
-  to the tensor-core one bit for bit (no cell runs it any more).
+  to the tensor-core one bit for bit. At d = 1024, k = 40 (binary-
+  quantised text embeddings, 2^20 clustered codes) the CUDA-core kernels,
+  the only route of that width, are held to the plain versions and timed,
+  every tile counted on the CUDA cores, and the main path's search there
+  is checked against the on-card brute force and timed.
 * the board scan — the same store through ``KNNEngine.search(...,
   method="pallas")`` under the counting (the paper's temporal sort over
   board-sized chunks of 65,536 rows), composite and bisect selects: K3
@@ -248,6 +252,8 @@ K = 16
 N_QUERIES = 4096
 SIFT_BITS, SIFT_K = 128, 4   # kNN-SIFT: d = 128, k = 4 (K1/K2's W = 4 tile)
 WORDEMBED_BITS, WORDEMBED_K = 64, 2   # kNN-WordEmbed: d = 64, k = 2 (W = 2)
+# binary-quantised text embeddings: d = 1024, k = 40 (W = 32, bq = 16)
+BINEMBED_BITS, BINEMBED_K = 1024, 40
 N_CLUSTERS = 1024
 FLIP_LOG2 = 4            # each code bit flips from its cluster centre w.p. 1/16
 N_CHECK = 64             # queries held against the on-card brute force
@@ -807,12 +813,12 @@ def run_cases(main_q, main_x, sift_q, sift_x, we_q, we_x):
 # phases 4-5: the main path
 # ---------------------------------------------------------------------------
 
-def brute_force_check(eng, q, dd, ii, sample):
+def brute_force_check(eng, q, dd, ii, sample, k=K):
     """Distances of the sampled queries == the on-card brute force; every
     returned id is a distinct row at exactly its reported distance."""
     qs = q[sample]
     full = binary.hamming_xor(qs, eng.codes)                 # (S, N)
-    ref_d, _ = topk.topk_ref(full, K)
+    ref_d, _ = topk.topk_ref(full, k)
     if not torch.equal(ref_d, dd[sample]):
         raise AssertionError("distances differ from the brute force")
     ids = ii[sample].long()
@@ -844,6 +850,45 @@ def drive(label, eng, q, sample, **kw):
           f"median search {ms:.3f} ms, {N_QUERIES / ms * 1e3:.0f} queries/s",
           flush=True)
     return launches, ms, (dd, ii)
+
+
+def binembed_path(seed: int):
+    """1024-bit codes, k = 40, at 4096 x 2^20 seeded clustered codes: the
+    CUDA-core K1/K2 at W = 32 in 16-row query blocks (K1's 65.6 KB shared
+    histogram), bit for bit against their plain versions with their times
+    (``kernel_timings``; every tile counted on the CUDA cores), then
+    ``KNNEngine(codes, 1024).with_layout().search(q, 40)`` with one K1
+    and one K2 launch, its sampled rows held to the on-card brute force,
+    and its median time. -> kernel_timings' dict with the search's."""
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(0, 1 << 32, size=(N_CLUSTERS, BINEMBED_BITS // 32),
+                           dtype=np.uint32)
+    codes_np = clustered_codes(rng, N_ROWS, centers)
+    q = carry.codes(clustered_codes(rng, N_QUERIES, centers), DEV)
+    t0 = time.perf_counter()
+    eng = carry.engine(codes_np, BINEMBED_BITS, device=DEV).with_layout()
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    kt = kernel_timings(q, eng.layout.codes,
+                        f"d={BINEMBED_BITS} k={BINEMBED_K} layout order",
+                        d=BINEMBED_BITS, k=BINEMBED_K)
+    sample = torch.from_numpy(rng.choice(N_QUERIES, N_CHECK,
+                                         replace=False)).to(DEV)
+    tsel.reset_launch_counts()
+    dd, ii = eng.search(q, BINEMBED_K)
+    torch.cuda.synchronize()
+    launches = (tsel.hamming_hist_kernel.launches,
+                tsel.hamming_emit_kernel.launches)
+    if launches != (1, 1):
+        raise AssertionError(f"d={BINEMBED_BITS}: launches {launches}, "
+                             f"expected one K1 and one K2 per search")
+    brute_force_check(eng, q, dd, ii, sample, BINEMBED_K)
+    ms, _ = cuda_ms(lambda: eng.search(q, BINEMBED_K), N_TIMED)
+    print(f"  d={BINEMBED_BITS} k={BINEMBED_K} with_layout().search: layout "
+          f"built in {layout_s:.2f} s, launches {launches}, brute-force "
+          f"check ok, median search {ms:.3f} ms, "
+          f"{N_QUERIES / ms * 1e3:.0f} queries/s", flush=True)
+    return {**kt, "search_ms": ms, "layout_s": layout_s}
 
 
 def k2_pruned_check(q, x, d=D_BITS, k=K):
@@ -4623,6 +4668,13 @@ def main() -> int:
     we_routes = route_comparison(we_q, we_x, {
         W8_ROUTE: tsel._lib(), POPC_ROUTE: popc_lib}, d=WORDEMBED_BITS,
         k=WORDEMBED_K)
+    bt = binembed_path(args.seed + 4)
+    if bt["k1_err"] or bt["k2_err"] or bt["cudacore_share"] != 100.0:
+        return fail(f"d={BINEMBED_BITS}: kernel != plain (K1 err "
+                    f"{bt['k1_err']}, K2 err {bt['k2_err']}) or "
+                    f"{bt['cudacore_share']} % of tiles on the CUDA cores, "
+                    f"expected 100")
+    k1_err, k2_err = max(k1_err, bt["k1_err"]), max(k2_err, bt["k2_err"])
 
     # phase 5: the same store on insertion order through select="fused"
     flat = eng._replace(layout=None)
@@ -4741,7 +4793,9 @@ def main() -> int:
         "insertion_order_k1_ms": ft["k1_ms"],
         "insertion_order_k2_ms": ft["k2_ms"], "runs": kt["runs"],
         "k2_one_run_ms": kt["k2_one_run_ms"], "w8_routes": routes,
-        "d64_routes": we_routes}),
+        "d64_routes": we_routes, "d1024_search_ms": bt["search_ms"],
+        "d1024_blocks_skipped_frac": bt["skipped"],
+        "d1024_layout_s": bt["layout_s"]}),
         flush=True)
     print("board_scan: " + json.dumps(bs), flush=True)
     print("index_path: " + json.dumps(ip), flush=True)
@@ -4770,6 +4824,7 @@ def main() -> int:
          "ms": kt["k1_ms"], "plain_ms": kt["k1_plain"], "bound_ms": b1,
          "ms_d128": st["k1_ms"], "plain_ms_d128": st["k1_plain"],
          "ms_d64": wt["k1_ms"], "plain_ms_d64": wt["k1_plain"],
+         "ms_d1024": bt["k1_ms"], "plain_ms_d1024": bt["k1_plain"],
          "bound_by": by1, "bound_route": route1, "library_ms": None,
          "w8_route": W8_ROUTE,
          "earlier_design_ms": popc["k1_ms"]},
@@ -4779,6 +4834,7 @@ def main() -> int:
          "ms": kt["k2_ms"], "plain_ms": kt["k2_plain"], "bound_ms": b2,
          "ms_d128": st["k2_ms"], "plain_ms_d128": st["k2_plain"],
          "ms_d64": wt["k2_ms"], "plain_ms_d64": wt["k2_plain"],
+         "ms_d1024": bt["k2_ms"], "plain_ms_d1024": bt["k2_plain"],
          "bound_by": by2, "bound_route": route2, "library_ms": None,
          "w8_route": W8_ROUTE,
          "earlier_design_ms": popc["k2_one_run_ms"]},

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K1 and K2 on each of their d = 256, 128 and 64 routes on the card, and
-where their time goes.
+"""K1 and K2 on each of their d = 256, 128 and 64 routes, and at d = 1024,
+on the card, and where their time goes.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -24,7 +24,11 @@ second time in the reverse order. Last, the same at kNN-WordEmbed's
 d=64, k=2 (4096 x 2^20, layout order): the committed m16n8k128 tile and
 the CUDA-core kernels (``W == 0``). At each width the launches' count of
 the tiles that took the CUDA-core kernels must read 0 % for the
-tensor-core route and 100 % for the CUDA-core one. Without a CUDA card it
+tensor-core route and 100 % for the CUDA-core one. Then 1024-bit codes at
+k=40 (``chip_smoke.binembed_path``: 4096 x 2^20, layout order), which
+only the CUDA-core kernels take: K1/K2 held to the plain versions and
+timed, 100 % of tiles on the CUDA cores, and the main path's search held
+to the on-card brute force and timed. Without a CUDA card it
 exits non-zero at once. To try another design of a kernel, add its
 substitution here.
 """
@@ -162,6 +166,15 @@ def main() -> int:
         cs.route_comparison(qs, xs, routes, reps=args.reps, d=d, k=k)
         cs.route_comparison(qs, xs, dict(reversed(routes.items())),
                             reps=args.reps, d=d, k=k)
+
+    # 1024-bit codes, k = 40: no tensor-core tile, so the committed build
+    # runs the CUDA-core kernels at W = 32 in 16-row query blocks
+    bt = cs.binembed_path(args.seed + 3)
+    if bt["k1_err"] or bt["k2_err"] or bt["cudacore_share"] != 100.0:
+        return cs.fail(f"d={cs.BINEMBED_BITS}: kernel != plain (K1 "
+                       f"{bt['k1_err']} K2 {bt['k2_err']}) or "
+                       f"{bt['cudacore_share']} % of tiles counted on the "
+                       f"CUDA cores, expected 100")
     print(f"chip_topk_routes: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return 0

@@ -81,6 +81,52 @@ def reorder_by_assignment(codes: torch.Tensor, assign: torch.Tensor,
                         starts=starts)
 
 
+# bytes of the temporaries one chunk of rows may take while the prefix
+# key is built: while the bits are counted, two (rows, 4W) uint8 bit
+# planes and the int64 copy of one that the sum makes on the card; while
+# the key bits are gathered, three (rows, bits) int32
+_CHUNK_BYTES = 256 << 20
+
+
+def _row_chunks(codes: torch.Tensor, row_bytes: int):
+    """Consecutive row slices of ``codes``, each of at most
+    ``_CHUNK_BYTES // row_bytes`` rows."""
+    step = max(1, _CHUNK_BYTES // max(row_bytes, 1))
+    for r0 in range(0, codes.shape[0], step):
+        yield codes[r0:r0 + step]
+
+
+def _bit_counts(codes: torch.Tensor, d: int) -> torch.Tensor:
+    """(d,) int64: the ones of each bit position over all rows, counted
+    exactly a chunk of rows at a time, from the codes' bytes: byte k of a
+    row holds bits 8k..8k+7 (little-endian words), and one pass counts
+    bit b of every byte."""
+    w = codes.shape[1]
+    counts = torch.zeros((4 * w, 8), dtype=torch.int64, device=codes.device)
+    for chunk in _row_chunks(codes, 40 * w):
+        by = chunk.to(torch.int32).contiguous().view(torch.uint8)
+        for b in range(8):
+            counts[:, b] += ((by >> b) & 1).sum(dim=0, dtype=torch.int64)
+    return counts.reshape(-1)[:d]
+
+
+def _prefix_key(codes: torch.Tensor, words: torch.Tensor,
+                shifts: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 key of each packed row: bit j is bit ``shifts[j]`` of
+    word ``words[j]`` ((bits,) int64 and int32 on the codes' device),
+    gathered straight from the packed words, never unpacking them."""
+    dev = codes.device
+    weights = 1 << torch.arange(words.shape[0], dtype=torch.int32, device=dev)
+    key = torch.empty((codes.shape[0],), dtype=torch.int32, device=dev)
+    r0 = 0
+    for chunk in _row_chunks(codes, 12 * max(words.shape[0], 1)):
+        sel = (chunk.to(torch.int32)[:, words] >> shifts) & 1
+        key[r0:r0 + chunk.shape[0]] = (sel * weights).sum(dim=-1,
+                                                          dtype=torch.int32)
+        r0 += chunk.shape[0]
+    return key
+
+
 def hamming_prefix_assign(codes: torch.Tensor, d: int, bits: int,
                           positions: torch.Tensor | None = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -91,20 +137,26 @@ def hamming_prefix_assign(codes: torch.Tensor, d: int, bits: int,
     integer counts times the f32 reciprocal of N — how ``jnp.mean``
     computes them on XLA's CPU backend — so equal and near-equal means
     order identically in both packages and ``perm`` agrees bit-for-bit.
+    The store is never unpacked whole: the counts and the key are built a
+    chunk of rows at a time (``_CHUNK_BYTES``).
 
     Returns (assign (N,) int32 in [0, 2^bits), positions (bits,) int32)."""
-    b = binary.unpack_bits(codes, d)                       # (N, d)
     if positions is None:
-        n = max(b.shape[0], 1)     # no rows: every mean ties, as NaN do
+        n = max(codes.shape[0], 1)  # no rows: every mean ties, as NaN do
         recip = torch.tensor(np.float32(1.0) / np.float32(n),
-                             dtype=torch.float32, device=b.device)
-        means = b.sum(dim=0, dtype=torch.int64).to(torch.float32) * recip
+                             dtype=torch.float32, device=codes.device)
+        means = _bit_counts(codes, d).to(torch.float32) * recip
         positions = torch.argsort(torch.abs(means - 0.5),
                                   stable=True)[:bits].to(torch.int32)
-    sel = b[:, positions.long()].to(torch.int32)           # (N, bits)
-    weights = 1 << torch.arange(positions.shape[0], dtype=torch.int32,
-                                device=b.device)
-    return (sel * weights).sum(dim=-1, dtype=torch.int32), positions
+    # the positions' words and shifts are worked out on the host: set-up
+    # then loads no kernel module that the store and the reorder do not
+    # load anyway (a first use costs tens of ms on the card)
+    pos = torch.as_tensor(positions).tolist()
+    words = torch.tensor([p // binary.WORD for p in pos], dtype=torch.int64,
+                         device=codes.device)
+    shifts = torch.tensor([p % binary.WORD for p in pos], dtype=torch.int32,
+                          device=codes.device)
+    return _prefix_key(codes, words, shifts), positions
 
 
 def default_bits(n: int) -> int:
@@ -147,11 +199,10 @@ def local_sort(codes: torch.Tensor, d: int, bits: int | None = None,
     n = codes.shape[0]
     bits = bits if bits is not None else default_bits(n)
     bits = max(1, min(bits, d))
-    positions = torch.arange(bits, dtype=torch.int64,
-                             device=codes.device) * (d // bits)
-    b = binary.unpack_bits(codes, d)[:, positions].to(torch.int32)
-    weights = 1 << torch.arange(bits, dtype=torch.int32, device=codes.device)
-    key = (b * weights).sum(dim=-1, dtype=torch.int32)
+    pos = torch.arange(bits, dtype=torch.int64,
+                       device=codes.device) * (d // bits)
+    key = _prefix_key(codes, pos // binary.WORD,
+                      (pos % binary.WORD).to(torch.int32))
     if n_valid is not None:
         key = torch.where(torch.arange(n, device=codes.device) < int(n_valid),
                           key, 1 << 30)

@@ -7,6 +7,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import binary as jbin, layout as jlay
 from repro_torch import carry
@@ -31,13 +32,39 @@ def _same_layout(jl, tl):
         jl.n, jl.n_buckets, jl.mean_bucket_rows)
 
 
-@pytest.mark.parametrize("n,d", [(1000, 64), (4097, 256), (3000, 96),
-                                 (777, 32), (2048, 128)])
-@pytest.mark.parametrize("n_buckets", [None, 16, 1])
-def test_prefix_layout_matches_reference(n, d, n_buckets):
+# chunks of 28 rows at d=1024 (921 at d=32) for the bit counts and of 256
+# key rows at 12 bits: the chunk loops of the key run several times
+SMALL_CHUNK = 12 * 12 * 256
+LAYOUT_STORES = [(1000, 64), (4097, 256), (3000, 96), (777, 32), (2048, 128),
+                 (3000, 1024)]
+
+
+def _same_prefix_layout(n, d, n_buckets):
     xj, xt = _store(n + d, n, d)
     _same_layout(jlay.build_layout(xj, d, n_buckets=n_buckets),
                  tlay.build_layout(xt, d, n_buckets=n_buckets))
+    bits = ((n_buckets - 1).bit_length() if n_buckets
+            else tlay.default_bits(n))
+    ja, jpos = jlay.hamming_prefix_assign(xj, d, bits)
+    ta, tpos = tlay.hamming_prefix_assign(xt, d, bits)
+    assert np.array_equal(np.asarray(jpos), tpos.numpy())
+    assert np.array_equal(np.asarray(ja), ta.numpy())
+
+
+@pytest.mark.parametrize("n,d", LAYOUT_STORES)
+@pytest.mark.parametrize("n_buckets", [None, 16, 1])
+def test_prefix_layout_matches_reference(n, d, n_buckets, monkeypatch):
+    """With the chunk patched down, so that every chunk loop of the bit
+    counts and of the key runs several times."""
+    monkeypatch.setattr(tlay, "_CHUNK_BYTES", SMALL_CHUNK)
+    _same_prefix_layout(n, d, n_buckets)
+
+
+@pytest.mark.parametrize("n,d", LAYOUT_STORES)
+@pytest.mark.parametrize("n_buckets", [None, 16, 1])
+def test_prefix_layout_in_one_chunk_matches_reference(n, d, n_buckets):
+    """At the module's own chunk, which takes each of these stores whole."""
+    _same_prefix_layout(n, d, n_buckets)
 
 
 def test_balanced_bit_ties_order_identically():
@@ -55,6 +82,77 @@ def test_balanced_bit_ties_order_identically():
     assert np.array_equal(np.asarray(ja2), ta2.numpy())
 
 
+@pytest.mark.parametrize("d", [256, 1024])
+def test_balanced_bit_ties_order_identically_in_chunks(d, monkeypatch):
+    """The same ties, and positions given by the caller, with the bit
+    counts taken in chunks of 28 (d=1024) or 115 rows and the 10-bit key
+    in chunks of 307."""
+    monkeypatch.setattr(tlay, "_CHUNK_BYTES", SMALL_CHUNK)
+    xj, xt = _store(5, 1000, d, p=0.5)
+    ja, jpos = jlay.hamming_prefix_assign(xj, d, 10)
+    ta, tpos = tlay.hamming_prefix_assign(xt, d, 10)
+    assert np.array_equal(np.asarray(jpos), tpos.numpy())
+    assert np.array_equal(np.asarray(ja), ta.numpy())
+    ja2, _ = jlay.hamming_prefix_assign(xj, d, 10, positions=jpos[::-1])
+    ta2, pos2 = tlay.hamming_prefix_assign(xt, d, 10, positions=tpos.flip(0))
+    assert np.array_equal(np.asarray(ja2), ta2.numpy())
+    assert torch.equal(pos2, tpos.flip(0))
+
+
+class _Largest(TorchDispatchMode):
+    """Records the bytes of the largest tensor any operator returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.bytes = max(self.bytes, t.numel() * t.element_size())
+        return out
+
+
+def test_prefix_key_works_a_chunk_of_rows_at_a_time(monkeypatch):
+    """The bit counts and the key take the store in chunks of at most
+    _CHUNK_BYTES // (40 W) and _CHUNK_BYTES // (12 bits) rows, nothing is
+    unpacked, and no operator of the assignment or of local_sort returns
+    a tensor larger than the chunk or the packed codes: nothing of (N, d)
+    or (N, W, 32) is made. The result is the whole-store one."""
+    n, d = 5000, 1024
+    xj, xt = _store(41, n, d)
+    whole_a, whole_pos = tlay.hamming_prefix_assign(xt, d, 12)
+    whole_sort = tlay.local_sort(xt, d, n_valid=4000)
+    chunk = 40 * 32 * 700
+    monkeypatch.setattr(tlay, "_CHUNK_BYTES", chunk)
+    rows, unpacked = [], []
+    real_chunks = tlay._row_chunks
+
+    def chunks(codes, row_bytes):
+        for c in real_chunks(codes, row_bytes):
+            rows.append((c.shape[0], row_bytes))
+            yield c
+
+    monkeypatch.setattr(tlay, "_row_chunks", chunks)
+    monkeypatch.setattr(tlay.binary, "unpack_bits",
+                        lambda *a: unpacked.append(a))
+    with _Largest() as largest:
+        a, pos = tlay.hamming_prefix_assign(xt, d, 12)
+    # the counts: 7 chunks of 700 rows and one of 100; the key's 12 bits:
+    # one chunk, of up to 896,000 // 144 = 6222 rows
+    assert rows == ([(700, 40 * 32)] * 7 + [(100, 40 * 32)]
+                    + [(5000, 12 * 12)])
+    assert unpacked == [] and largest.bytes <= chunk
+    assert torch.equal(a, whole_a) and torch.equal(pos, whole_pos)
+    rows.clear()
+    with _Largest() as largest:
+        got = tlay.local_sort(xt, d, n_valid=4000)
+    assert rows == [(5000, 12 * 4)] and unpacked == []    # 4 key bits
+    assert largest.bytes <= max(chunk, xt.numel() * 4)
+    assert all(torch.equal(g, w) for g, w in zip(got, whole_sort))
+
+
 def test_assignment_layout_matches_reference():
     xj, xt = _store(9, 600, 64)
     assign = np.random.default_rng(9).integers(0, 13, 600).astype(np.int32)
@@ -70,13 +168,26 @@ def test_assignment_layout_matches_reference():
         tlay.build_layout(xt, 64, assign=torch.from_numpy(assign) - 1)
 
 
-@pytest.mark.parametrize("n_valid", [None, 700])
-def test_local_sort_matches_reference(n_valid):
-    xj, xt = _store(11, 1000, 128)
-    jc, jp = jlay.local_sort(xj, 128, n_valid=n_valid)
-    tc, tp = tlay.local_sort(xt, 128, n_valid=n_valid)
+def _same_local_sort(d, n_valid):
+    xj, xt = _store(11, 1000, d)
+    jc, jp = jlay.local_sort(xj, d, n_valid=n_valid)
+    tc, tp = tlay.local_sort(xt, d, n_valid=n_valid)
     assert np.array_equal(np.asarray(jc).view(np.int32), tc.numpy())
     assert np.array_equal(np.asarray(jp), tp.numpy())
+
+
+@pytest.mark.parametrize("n_valid", [None, 700])
+def test_local_sort_matches_reference(n_valid, monkeypatch):
+    # key chunks of 100 rows at 10 bits
+    monkeypatch.setattr(tlay, "_CHUNK_BYTES", 12 * 10 * 100)
+    _same_local_sort(128, n_valid)
+
+
+@pytest.mark.parametrize("n_valid", [None, 700])
+def test_local_sort_of_1024_bit_codes_matches_reference(n_valid,
+                                                         monkeypatch):
+    monkeypatch.setattr(tlay, "_CHUNK_BYTES", 12 * 10 * 100)
+    _same_local_sort(1024, n_valid)
 
 
 def test_permutation_helpers_match_reference():
