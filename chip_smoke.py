@@ -26,10 +26,11 @@ kernel launch counts set to 0 just before it and read just after:
   taking the CUDA-core kernels must be 0 % at d = 256, 128 and 64. At
   d = 64 the two routes are timed in turns too, the CUDA-core one held
   to the tensor-core one bit for bit. At d = 1024, k = 40 (binary-
-  quantised text embeddings, 2^20 clustered codes) the CUDA-core kernels,
-  the only route of that width, are held to the plain versions and timed,
-  every tile counted on the CUDA cores, and the main path's search there
-  is checked against the on-card brute force and timed.
+  quantised text embeddings, 2^20 clustered codes) both routes are held to
+  the plain versions and timed, the committed tile's tiles 0 % on the
+  CUDA cores and the CUDA-core build's 100 %, then timed in turns twice,
+  the second time reversed; the main path's search there is checked
+  against the on-card brute force and timed.
 * the board scan — the same store through ``KNNEngine.search(...,
   method="pallas")`` under the counting (the paper's temporal sort over
   board-sized chunks of 65,536 rows), composite and bisect selects: K3
@@ -852,14 +853,19 @@ def drive(label, eng, q, sample, **kw):
     return launches, ms, (dd, ii)
 
 
-def binembed_path(seed: int):
-    """1024-bit codes, k = 40, at 4096 x 2^20 seeded clustered codes: the
-    CUDA-core K1/K2 at W = 32 in 16-row query blocks (K1's 65.6 KB shared
-    histogram), bit for bit against their plain versions with their times
-    (``kernel_timings``; every tile counted on the CUDA cores), then
-    ``KNNEngine(codes, 1024).with_layout().search(q, 40)`` with one K1
-    and one K2 launch, its sampled rows held to the on-card brute force,
-    and its median time. -> kernel_timings' dict with the search's."""
+def binembed_path(seed: int, routes: dict):
+    """1024-bit codes, k = 40, at 4096 x 2^20 seeded clustered codes, in
+    16-row query blocks (K1's 65.6 KB shared histogram). K1/K2 from each
+    of ``routes`` ({name: library}, the committed one first; names from
+    ``ROUTE_SHARE``): bit for bit against their plain versions with their
+    times (``kernel_timings``), the share of tiles counted on the CUDA
+    cores held to the route's, then timed in turns twice, the second time
+    in the reverse order; then ``KNNEngine(codes, 1024).with_layout()
+    .search(q, 40)`` on the committed library with one K1 and one K2
+    launch, its sampled rows held to the on-card brute force, and its
+    median time. -> the committed route's kernel_timings dict with the
+    search's, the two turns (``route_comparison``'s), the queries and the
+    layout-ordered codes."""
     rng = np.random.default_rng(seed)
     centers = rng.integers(0, 1 << 32, size=(N_CLUSTERS, BINEMBED_BITS // 32),
                            dtype=np.uint32)
@@ -869,9 +875,24 @@ def binembed_path(seed: int):
     eng = carry.engine(codes_np, BINEMBED_BITS, device=DEV).with_layout()
     torch.cuda.synchronize()
     layout_s = time.perf_counter() - t0
-    kt = kernel_timings(q, eng.layout.codes,
-                        f"d={BINEMBED_BITS} k={BINEMBED_K} layout order",
-                        d=BINEMBED_BITS, k=BINEMBED_K)
+    dk = dict(d=BINEMBED_BITS, k=BINEMBED_K)
+    timings = {}
+    for name, lib in routes.items():
+        with topk_library(lib):
+            timings[name] = kernel_timings(
+                q, eng.layout.codes,
+                f"d={BINEMBED_BITS} k={BINEMBED_K} layout order {name}", **dk)
+        t = timings[name]
+        if t["k1_err"] or t["k2_err"]:
+            raise AssertionError(f"d={BINEMBED_BITS} route {name}: kernel != "
+                                 f"plain (K1 {t['k1_err']} K2 {t['k2_err']})")
+        if t["cudacore_share"] != ROUTE_SHARE[name]:
+            raise AssertionError(f"d={BINEMBED_BITS} route {name}: "
+                                 f"{t['cudacore_share']} % of tiles counted "
+                                 f"on the CUDA cores")
+    turns = [route_comparison(q, eng.layout.codes, libs, **dk)
+             for libs in (routes, dict(reversed(routes.items())))]
+    kt = timings[next(iter(routes))]
     sample = torch.from_numpy(rng.choice(N_QUERIES, N_CHECK,
                                          replace=False)).to(DEV)
     tsel.reset_launch_counts()
@@ -888,7 +909,8 @@ def binembed_path(seed: int):
           f"built in {layout_s:.2f} s, launches {launches}, brute-force "
           f"check ok, median search {ms:.3f} ms, "
           f"{N_QUERIES / ms * 1e3:.0f} queries/s", flush=True)
-    return {**kt, "search_ms": ms, "layout_s": layout_s}
+    return {**kt, "search_ms": ms, "layout_s": layout_s, "turns": turns,
+            "q": q, "codes": eng.layout.codes}
 
 
 def k2_pruned_check(q, x, d=D_BITS, k=K):
@@ -991,13 +1013,16 @@ def kernel_timings(q, x, stats_label, with_plain=True, d=D_BITS, k=K):
             "k2_bytes": k2_bytes}
 
 
-# K1/K2 at d = 256, 128 and 64 on each route: the committed tensor-core
-# kernels, and the CUDA-core ones (the design they had before, still the
-# route of other widths and of query blocks wider than 64) built from the
-# same source with the tensor-core dispatch taken out
+# K1/K2 at d = 1024, 256, 128 and 64 on each route: the committed
+# tensor-core kernels, and the CUDA-core ones (the design they had before,
+# still the route of other widths and of query blocks wider than the
+# tile's) built from the same source with the tensor-core dispatch taken
+# out; and the share of tiles each route's launches count as taking the
+# CUDA-core kernels
 W8_ROUTE = "b1 (mma.sync AND-popc)"
 POPC_ROUTE = "popc (CUDA cores)"
-POPC_VARIANT = [("return tc_width(nw) && bq <= TC_MAX_BQ;", "return 0;")]
+POPC_VARIANT = [("return tc_width(nw) && bq <= tc_max_bq(nw);", "return 0;")]
+ROUTE_SHARE = {W8_ROUTE: 0.0, POPC_ROUTE: 100.0}
 
 
 def start_variants(source: str, variants: dict):
@@ -4668,12 +4693,8 @@ def main() -> int:
     we_routes = route_comparison(we_q, we_x, {
         W8_ROUTE: tsel._lib(), POPC_ROUTE: popc_lib}, d=WORDEMBED_BITS,
         k=WORDEMBED_K)
-    bt = binembed_path(args.seed + 4)
-    if bt["k1_err"] or bt["k2_err"] or bt["cudacore_share"] != 100.0:
-        return fail(f"d={BINEMBED_BITS}: kernel != plain (K1 err "
-                    f"{bt['k1_err']}, K2 err {bt['k2_err']}) or "
-                    f"{bt['cudacore_share']} % of tiles on the CUDA cores, "
-                    f"expected 100")
+    bt = binembed_path(args.seed + 4, {
+        W8_ROUTE: tsel._lib(), POPC_ROUTE: popc_lib})
     k1_err, k2_err = max(k1_err, bt["k1_err"]), max(k2_err, bt["k2_err"])
 
     # phase 5: the same store on insertion order through select="fused"
@@ -4795,7 +4816,7 @@ def main() -> int:
         "k2_one_run_ms": kt["k2_one_run_ms"], "w8_routes": routes,
         "d64_routes": we_routes, "d1024_search_ms": bt["search_ms"],
         "d1024_blocks_skipped_frac": bt["skipped"],
-        "d1024_layout_s": bt["layout_s"]}),
+        "d1024_layout_s": bt["layout_s"], "d1024_routes": bt["turns"]}),
         flush=True)
     print("board_scan: " + json.dumps(bs), flush=True)
     print("index_path: " + json.dumps(ip), flush=True)

@@ -4,7 +4,7 @@ on the card, and where their time goes.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_topk_routes.py [--reps 5] [--seed 0]
+    python3 chip_topk_routes.py [--reps 5] [--seed 0] [--baseline FILE]
 
 It builds ``src/repro_torch/kernels/csrc/topk_select.cu`` from the
 checkout and prints ptxas's registers and spills for each of its kernels
@@ -24,18 +24,25 @@ second time in the reverse order. Last, the same at kNN-WordEmbed's
 d=64, k=2 (4096 x 2^20, layout order): the committed m16n8k128 tile and
 the CUDA-core kernels (``W == 0``). At each width the launches' count of
 the tiles that took the CUDA-core kernels must read 0 % for the
-tensor-core route and 100 % for the CUDA-core one. Then 1024-bit codes at
-k=40 (``chip_smoke.binembed_path``: 4096 x 2^20, layout order), which
-only the CUDA-core kernels take: K1/K2 held to the plain versions and
-timed, 100 % of tiles on the CUDA cores, and the main path's search held
-to the on-card brute force and timed. Without a CUDA card it
-exits non-zero at once. To try another design of a kernel, add its
-substitution here.
+tensor-core route and 100 % for the CUDA-core one. Then the same at
+1024-bit codes, k=40 (``chip_smoke.binembed_path``: 4096 x 2^20, layout
+order; the committed W = 32 tile, eight products a fragment, and the
+CUDA-core kernels), with the main path's search held to the on-card brute
+force and timed; then, at that shape, the other designs of the W = 32
+tile (W32_DESIGNS, held to the committed kernels bit for bit) and the
+ablations that reach it, timed beside the committed build. With
+``--baseline FILE`` (another ``topk_select.cu``, such as the parent
+commit's, under the gitignored ``build/``) it also builds FILE and prints,
+for each kernel instance both builds have, whether ``cuobjdump -sass``
+gives the same code. Without a CUDA card it exits non-zero at once. To try
+another design of a kernel, add its substitution here.
 """
 from __future__ import annotations
 
 import argparse
 import re
+import shutil
+import subprocess
 import sys
 import time
 
@@ -58,16 +65,35 @@ ABLATIONS = {
     "K1 without products (distances = the row's bytes)": [
         ("      tile.dist(cur, d);\n",
          "      for (int m = 0; m < MB; ++m)\n"
-         "        for (int i = 0; i < 4; ++i) d[m][i] = (cur.x >> 8 * i) & 255;\n")],
+         "        for (int i = 0; i < 4; ++i)\n"
+         "          d[m][i] = (reinterpret_cast<const int&>(cur) >> 8 * i)"
+         " & 255;\n")],
     "every load from the tile's first 8 rows (L1 hits)": [
         ("xt + static_cast<size_t>(r) * 8 + 2 * (lane & 3)",
          "xt + static_cast<size_t>(r & 7) * 8 + 2 * (lane & 3)")],
+    "W = 32: four AND-popc products a fragment instead of eight": [
+        ("        mma_b1(d[m], na, x[2 * i], x[2 * i + 1]);\n", "")],
+    "W = 32: every load from the tile's first 8 rows (L1 hits)": [
+        ("load_row32(xt + static_cast<size_t>(r) * 32, lane)",
+         "load_row32(xt + static_cast<size_t>(r & 7) * 32, lane)")],
 }
+# the ablations timed at d = 1024 (the others touch only W <= 8 code);
+# those named "W = 32: ..." are timed there alone
+D1024_ABLATIONS = ("K1 without its histogram adds",
+                   "K2 without ranking (phase B)",
+                   "K1 without products (distances = the row's bytes)",
+                   "W = 32: four AND-popc products a fragment instead of "
+                   "eight",
+                   "W = 32: every load from the tile's first 8 rows (L1 "
+                   "hits)")
 
-
-# the share of K1's and K2's tiles each route's launches count as taking
-# the CUDA-core kernels, at d = 256, 128 and 64
-SHARE = {cs.W8_ROUTE: 0.0, cs.POPC_ROUTE: 100.0}
+# other designs of the W = 32 tile, whose outputs must equal the committed
+# kernels': (old text, new text) pairs as in ABLATIONS
+W32_DESIGNS = {
+    "K2 at W = 32 in 256-row chunks (4 pieces in flight)": [
+        ("  constexpr int CH = tc_ch(MB);",
+         "  constexpr int CH = W == 32 ? 256 : tc_ch(MB);")],
+}
 
 
 def kernel_name(mangled: str) -> str:
@@ -90,10 +116,50 @@ def ptxas_lines(log: str):
             yield name, line.split(":", 1)[-1].strip()
 
 
+def sass_by_kernel(so) -> dict:
+    """{kernel name: its SASS, one line per instruction} of a built
+    library, from ``cuobjdump -sass`` (``sass_kernels``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return sass_kernels(subprocess.run(
+        [tool, "-sass", str(so)], capture_output=True, text=True,
+        check=True).stdout)
+
+
+def sass_kernels(text: str) -> dict:
+    """{kernel name: its SASS lines} of ``cuobjdump -sass``'s output, each
+    line's runs of blanks made one: the padding between an instruction and
+    its encoding is as wide as the library's longest instruction, so a
+    kernel added to the source widens it in every other kernel."""
+    kernels = {}
+    for block in text.split("Function : ")[1:]:
+        name, _, body = block.partition("\n")
+        kernels[kernel_name(name.strip())] = [
+            " ".join(line.split()) for line in body.splitlines()
+            if line.strip() and not line.strip().startswith(".")]
+    return kernels
+
+
+def compare_sass(committed, baseline) -> None:
+    """Print, for each kernel instance in both libraries, whether their
+    SASS is the same, and the instances only one of them has."""
+    new, old = sass_by_kernel(committed), sass_by_kernel(baseline)
+    for name in sorted(new.keys() & old.keys()):
+        diff = [(a, b) for a, b in zip(new[name], old[name]) if a != b]
+        same = ("same" if new[name] == old[name] else
+                f"differs, first at {diff[0]}" if diff else "differs")
+        print(f"  SASS {name}: {same} ({len(new[name])} lines, baseline "
+              f"{len(old[name])})", flush=True)
+    for name in sorted(new.keys() ^ old.keys()):
+        where = "committed" if name in new else "baseline"
+        print(f"  SASS {name}: only in the {where} build", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=cs.N_TIMED)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--baseline", default=None,
+                    help="another topk_select.cu whose SASS to compare")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         return cs.fail("torch.cuda.is_available() is false: this check "
@@ -103,7 +169,15 @@ def main() -> int:
     # the source itself is built once more as a variant with nothing
     # replaced, for ptxas's report even where its library is built already
     started = cs.start_variants(tsel._SOURCE, {
-        "as committed": [], cs.POPC_ROUTE: cs.POPC_VARIANT, **ABLATIONS})
+        "as committed": [], cs.POPC_ROUTE: cs.POPC_VARIANT, **ABLATIONS,
+        **W32_DESIGNS})
+    baseline = None
+    if args.baseline:
+        baseline = cs._build.BUILD / "baseline-topk_select.so"
+        base_proc = subprocess.Popen(
+            [cs._build._nvcc(), *cs._build.FLAGS, "-o", str(baseline),
+             args.baseline], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
     try:
         cs._build.build([tsel._SOURCE])
     finally:
@@ -112,6 +186,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, line in ptxas_lines(variants["as committed"].nvcc_log):
         print(f"  ptxas: {name}: {line}", flush=True)
+    for design in W32_DESIGNS:
+        for name, line in ptxas_lines(variants[design].nvcc_log):
+            if name.endswith(", 32>"):
+                print(f"  ptxas ({design}): {name}: {line}", flush=True)
+    if baseline is not None:
+        log, _ = base_proc.communicate()
+        if base_proc.returncode:
+            return cs.fail(f"nvcc failed for {args.baseline}:\n{log}")
+        print(f"SASS of {tsel._SOURCE} against {args.baseline}:", flush=True)
+        compare_sass(cs._build.library_path(tsel._SOURCE), baseline)
 
     q, x = cs.clustered_store(np.random.default_rng(args.seed), cs.D_BITS,
                               cs.N_ROWS, cs.N_QUERIES)
@@ -131,7 +215,7 @@ def main() -> int:
             return cs.fail(f"route {name}: kernel != plain (cases K1 {k1} "
                            f"K2 {k2}; main shape K1 {kt['k1_err']} K2 "
                            f"{kt['k2_err']})")
-        if kt["cudacore_share"] != SHARE[name]:
+        if kt["cudacore_share"] != cs.ROUTE_SHARE[name]:
             return cs.fail(f"route {name}: {kt['cudacore_share']} % of "
                            f"tiles counted on the CUDA cores")
     cs.route_comparison(q, x, routes, reps=args.reps)
@@ -139,7 +223,8 @@ def main() -> int:
     print(f"where the time goes ({cs.W8_ROUTE}, main shape):", flush=True)
     committed = tsel._lib()
     order = [("committed", committed),
-             *((name, variants[name]) for name in ABLATIONS),
+             *((name, variants[name]) for name in ABLATIONS
+               if not name.startswith("W = 32:")),
              ("committed again", committed)]
     for name, lib in order:
         t = cs.route_comparison(q, x, {name: lib}, reps=args.reps,
@@ -159,7 +244,7 @@ def main() -> int:
             if kt["k1_err"] or kt["k2_err"]:
                 return cs.fail(f"d={d} route {name}: kernel != plain (K1 "
                                f"{kt['k1_err']} K2 {kt['k2_err']})")
-            if kt["cudacore_share"] != SHARE[name]:
+            if kt["cudacore_share"] != cs.ROUTE_SHARE[name]:
                 return cs.fail(f"d={d} route {name}: "
                                f"{kt['cudacore_share']} % of tiles counted "
                                f"on the CUDA cores")
@@ -167,14 +252,25 @@ def main() -> int:
         cs.route_comparison(qs, xs, dict(reversed(routes.items())),
                             reps=args.reps, d=d, k=k)
 
-    # 1024-bit codes, k = 40: no tensor-core tile, so the committed build
-    # runs the CUDA-core kernels at W = 32 in 16-row query blocks
-    bt = cs.binembed_path(args.seed + 3)
-    if bt["k1_err"] or bt["k2_err"] or bt["cudacore_share"] != 100.0:
-        return cs.fail(f"d={cs.BINEMBED_BITS}: kernel != plain (K1 "
-                       f"{bt['k1_err']} K2 {bt['k2_err']}) or "
-                       f"{bt['cudacore_share']} % of tiles counted on the "
-                       f"CUDA cores, expected 100")
+    # 1024-bit codes, k = 40, in 16-row query blocks: the W = 32 tile and
+    # the CUDA-core kernels (binembed_path raises at a mismatch), then the
+    # tile's other designs and the ablations that reach it
+    bt = cs.binembed_path(args.seed + 3, routes)
+    dk = dict(d=cs.BINEMBED_BITS, k=cs.BINEMBED_K)
+    print(f"where the time goes ({cs.W8_ROUTE}, d={cs.BINEMBED_BITS}):",
+          flush=True)
+    order = [("committed", committed, True),
+             *((name, variants[name], True) for name in W32_DESIGNS),
+             *((name, variants[name], False) for name in D1024_ABLATIONS),
+             *((f"{name} again", variants[name], True)
+               for name in reversed(W32_DESIGNS)),
+             ("committed again", committed, True)]
+    for name, lib, check in order:
+        t = cs.route_comparison(bt["q"], bt["codes"], {name: lib},
+                                reps=args.reps, check=check, quiet=True,
+                                **dk)[name]
+        print(f"  {'design' if check else 'ablation'} {name}: K1 "
+              f"{t['k1_ms']:.3f} ms, K2 {t['k2_ms']:.3f} ms", flush=True)
     print(f"chip_topk_routes: ok in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return 0

@@ -26,19 +26,25 @@
 // global row order while it runs 128 x 16 CTAs at the main shape, not one
 // CTA per query block (128 CTAs on 132 SMs).
 //
-// d = 256, 128 and 64 (W = 8, 4, 2; bq <= 64) run on the tensor cores,
-// through mma.sync on single bits: a warp's tile is the query block (m16
-// fragments held in registers for the whole CTA) against an n8 chunk of
-// data rows, one load a lane, and popc(q & ~x) + popc(~q & x) is the
-// distance itself, with no conversion of the packed words: two m16n8k256
-// AND-popc products at d = 256; one at d = 128, whose 256 k-bits hold
-// [q, ~q] against [~x, x]; one m16n8k128 product at d = 64, whose 128
-// k-bits hold the same. On the H100 it beat both the CUDA-core kernels and
-// a +-1 int8 product (m16n8k32 on bits expanded to bytes), which was
-// measured and dropped (PERF.md). Other widths and wider query blocks take
-// the CUDA-core kernels, with the query row in registers at W = 8.
+// d = 1024, 256, 128 and 64 (W = 32, 8, 4, 2; bq <= 32 at W = 32, else
+// bq <= 64) run on the tensor cores, through mma.sync on single bits: a
+// warp's tile is the query block (m16 fragments held in registers for the
+// whole CTA) against an n8 chunk of data rows, one load a lane (two at
+// W = 32), and popc(q & ~x) + popc(~q & x) is the distance itself, with no
+// conversion of the packed words: two m16n8k256 AND-popc products at
+// d = 256, and that pair on each of the four 256-bit quarters at d = 1024
+// (eight); one at d = 128, whose 256 k-bits hold [q, ~q] against [~x, x];
+// one m16n8k128 product at d = 64, whose 128 k-bits hold the same. On the
+// H100 it beat both the CUDA-core kernels and a +-1 int8 product (m16n8k32
+// on bits expanded to bytes), which was measured and dropped (PERF.md).
+// Other widths and wider query blocks take the CUDA-core kernels, with the
+// query row in registers at W = 8. At d = 1024 the 1025 bins keep bq at
+// 16, so each query block rereads the whole store from L2 in each pass:
+// at 4096 x 2^20 serving every load from L1 took 24 % off K1 and 21 % off
+// K2, taking K1's products out 34 % (chip_topk_routes.py); those rereads
+// and the eight products a fragment bound the tile there together.
 // The codes go straight from L2 to the fragments, without a cp.async ring
-// in shared memory: a lane's B operand is 4 or 8 contiguous bytes of a row,
+// in shared memory: a lane's B operand is 4 to 32 contiguous bytes of a row,
 // used once per CTA by all of its query fragments, so a ring would add a
 // store and a load per byte and no reuse; and timing builds with parts of
 // the work taken out (chip_topk_routes.py) found neither the loads, nor
@@ -303,11 +309,12 @@ __global__ void emit_kernel(const int* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// d = 64, 128 and 256 (W = 2, 4, 8) on the tensor cores
+// d = 64, 128, 256 and 1024 (W = 2, 4, 8, 32) on the tensor cores
 // ---------------------------------------------------------------------------
 
 // The widest query block the tensor-core kernels take (MB <= 4 m16
-// fragments); wider blocks take the CUDA-core kernels.
+// fragments; tc_max_bq lowers it to 32 at W = 32); wider blocks take the
+// CUDA-core kernels.
 constexpr int TC_MAX_BQ = 64;
 constexpr int TC_THREADS = 256;
 constexpr int TC_WARPS = TC_THREADS / 32;
@@ -333,16 +340,45 @@ __device__ __forceinline__ void mma_b1_k128(int (&c)[4], unsigned a0,
       : "r"(a0), "r"(a1), "r"(b));
 }
 
-// Lane (g, t)'s share of an n8 chunk of W-word data rows (zeros past
-// `rows`), one load: at W = 8 words 2t and 2t+1 of chunk row g, 8 bytes (a
-// warp's load is the chunk's 256 contiguous bytes); at W = 4 word t in .x,
-// 4 bytes (128 a warp), and .y = 0; at W = 2 word t & 1 in .x (the chunk's
-// 64 bytes, each word loaded by lanes t and t ^ 2), and .y = 0.
+// Lane (g, t)'s words 8t .. 8t+7 of a 32-word row (W = 32).
+struct Chunk32 {
+  int4 lo, hi;
+};
+
+// What load_chunk<W> returns: an int2 at W <= 8, a Chunk32 at W = 32.
 template <int W>
-__device__ __forceinline__ int2 load_chunk(const int* xt, int c, int rows,
-                                           int lane) {
+struct ChunkOf {
+  using type = int2;
+};
+template <>
+struct ChunkOf<32> {
+  using type = Chunk32;
+};
+template <int W>
+using Chunk = typename ChunkOf<W>::type;
+
+// Words 8t .. 8t+7 of the 32-word row at p (lane t = lane & 3), as two
+// 16-byte loads: a quad of lanes reads the row's 128 contiguous bytes.
+__device__ __forceinline__ Chunk32 load_row32(const int* p, int lane) {
+  const int4* p4 = reinterpret_cast<const int4*>(p + 8 * (lane & 3));
+  return Chunk32{__ldg(p4), __ldg(p4 + 1)};
+}
+
+// Lane (g, t)'s share of an n8 chunk of W-word data rows (zeros past
+// `rows`), one load: at W = 32 words 8t .. 8t+7 of chunk row g, 32 bytes in
+// two loads (a warp's load is the chunk's 1 KB, contiguous); at W = 8
+// words 2t and 2t+1 of chunk row g, 8 bytes (the chunk's 256 contiguous
+// bytes); at W = 4 word t in .x, 4 bytes (128 a warp), and .y = 0; at W = 2
+// word t & 1 in .x (the chunk's 64 bytes, each word loaded by lanes t and
+// t ^ 2), and .y = 0.
+template <int W>
+__device__ __forceinline__ Chunk<W> load_chunk(const int* xt, int c,
+                                               int rows, int lane) {
   const int r = c * 8 + (lane >> 2);
-  if constexpr (W == 2) {
+  if constexpr (W == 32) {
+    return r < rows ? load_row32(xt + static_cast<size_t>(r) * 32, lane)
+                    : Chunk32{};
+  } else if constexpr (W == 2) {
     return make_int2(
         r < rows ? __ldg(xt + static_cast<size_t>(r) * 2 + (lane & 1)) : 0, 0);
   } else if constexpr (W == 4) {
@@ -429,6 +465,56 @@ struct TcTile {
   }
 };
 
+// W = 32 (d = 1024): W = 8's pair of products on each 256-bit quarter of
+// the code, eight m16n8k256 products into one accumulator a fragment. Lane
+// t holds words 8t .. 8t+7 of each of its rows, in A (query rows 16m+g and
+// 16m+g+8) and in B (load_chunk<32>) alike: in quarter i word 8t+2i goes in
+// k-slot t and word 8t+2i+1 in slot 4+t, so each bit of a query meets the
+// same bit of the row. a[m][i] is quarter i's A fragment; its complement is
+// taken at the product.
+template <int MB>
+struct TcTile<MB, 32> {
+  unsigned a[MB][4][4];
+
+  __device__ __forceinline__ void load(const int* qblk, int bq, int lane) {
+#pragma unroll
+    for (int m = 0; m < MB; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * m + (lane >> 2) + 8 * h;
+        const Chunk32 w = row < bq ? load_row32(qblk + row * 32, lane)
+                                   : Chunk32{};
+        const int words[8] = {w.lo.x, w.lo.y, w.lo.z, w.lo.w,
+                              w.hi.x, w.hi.y, w.hi.z, w.hi.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[m][i][h] = static_cast<unsigned>(words[2 * i]);
+          a[m][i][2 + h] = static_cast<unsigned>(words[2 * i + 1]);
+        }
+      }
+  }
+
+  __device__ __forceinline__ void dist(const Chunk32& xw,
+                                       int (&d)[MB][4]) const {
+    const unsigned x[8] = {
+        static_cast<unsigned>(xw.lo.x), static_cast<unsigned>(xw.lo.y),
+        static_cast<unsigned>(xw.lo.z), static_cast<unsigned>(xw.lo.w),
+        static_cast<unsigned>(xw.hi.x), static_cast<unsigned>(xw.hi.y),
+        static_cast<unsigned>(xw.hi.z), static_cast<unsigned>(xw.hi.w)};
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {
+      d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned(&ai)[4] = a[m][i];
+        const unsigned na[4] = {~ai[0], ~ai[1], ~ai[2], ~ai[3]};
+        mma_b1(d[m], ai, ~x[2 * i], ~x[2 * i + 1]);
+        mma_b1(d[m], na, x[2 * i], x[2 * i + 1]);
+      }
+    }
+  }
+};
+
 // K1 on the tensor cores: one CTA of 8 warps per (run, query block); warp
 // w takes n8 chunks w, w+8, ... of each tile, prefetching its next chunk
 // while the current one is scored, and adds each distance into the shared
@@ -477,9 +563,9 @@ __global__ void __launch_bounds__(TC_THREADS)
     const int rows = valid_rows(j, bn, n_valid);
     const int chunks = (rows + 7) >> 3;
     int local_min = bins;
-    int2 next = load_chunk<W>(xt, warp, rows, lane);
+    Chunk<W> next = load_chunk<W>(xt, warp, rows, lane);
     for (int c = warp; c < chunks; c += TC_WARPS) {
-      const int2 cur = next;
+      const Chunk<W> cur = next;
       next = load_chunk<W>(xt, c + TC_WARPS, rows, lane);
       int d[MB][4];
       tile.dist(cur, d);
@@ -585,7 +671,7 @@ __global__ void __launch_bounds__(TC_THREADS)
       int lmin[MB][2];
 #pragma unroll
       for (int m = 0; m < MB; ++m) lmin[m][0] = lmin[m][1] = bins;
-      int2 xs[PCS];                 // all of the warp's pieces, in flight
+      Chunk<W> xs[PCS];             // all of the warp's pieces, in flight
 #pragma unroll
       for (int p = 0; p < PCS; ++p)
         xs[p] = load_chunk<W>(xc, warp + p * TC_WARPS, crow, lane);
@@ -720,11 +806,18 @@ int launch_emit(const int* q, const int* x, const int* en, const int* bm,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Code widths with a tensor-core tile: 64, 128 and 256 bits.
-constexpr bool tc_width(int nw) { return nw == 2 || nw == 4 || nw == 8; }
+// Code widths with a tensor-core tile: 64, 128, 256 and 1024 bits.
+constexpr bool tc_width(int nw) {
+  return nw == 2 || nw == 4 || nw == 8 || nw == 32;
+}
+
+// The widest query block the tile takes at nw words: 32 at W = 32, whose
+// MB = 4 instance would hold 64 registers of query fragments a thread, and
+// is not built; TC_MAX_BQ at the other widths.
+constexpr int tc_max_bq(int nw) { return nw == 32 ? 32 : TC_MAX_BQ; }
 
 // The tensor-core instance for nw-word codes (tc_width) and a query block
-// of bq <= TC_MAX_BQ rows (MB = bq / 16 rounded up; 3 takes 4).
+// of bq <= tc_max_bq(nw) rows (MB = bq / 16 rounded up; 3 takes 4).
 #define DISPATCH_TC(NW, BQ, CALL)             \
   do {                                        \
     const int mb_ = ((BQ) + 15) / 16;         \
@@ -738,6 +831,10 @@ constexpr bool tc_width(int nw) { return nw == 2 || nw == 4 || nw == 8; }
       if (mb_ == 2) return CALL(2, 4);        \
       return CALL(4, 4);                      \
     }                                         \
+    if ((NW) == 32) {                         \
+      if (mb_ == 1) return CALL(1, 32);       \
+      return CALL(2, 32);                     \
+    }                                         \
     if (mb_ == 1) return CALL(1, 8);          \
     if (mb_ == 2) return CALL(2, 8);          \
     return CALL(4, 8);                        \
@@ -745,9 +842,10 @@ constexpr bool tc_width(int nw) { return nw == 2 || nw == 4 || nw == 8; }
 
 }  // namespace
 
-// Past the tensor-core dispatch: d = 256 (8 words, the main path's width)
-// gets the CUDA-core kernels with the query row in registers; every other
-// width takes the W == 0 ones.
+// Past the tensor-core dispatch (query blocks wider than tc_max_bq, and
+// widths without a tile): d = 256 (8 words, the main path's width) gets the
+// CUDA-core kernels with the query row in registers; every other width,
+// d = 1024 at bq > 32 among them, takes the W == 0 ones.
 #define DISPATCH_W(NW, CALL)            \
   switch (NW) {                         \
     case 8: return CALL(8);             \
@@ -760,7 +858,7 @@ extern "C" {
 // 1 the tensor-core kernels, 0 the CUDA-core ones. Both launchers dispatch
 // by it, and the wrappers ask it which kernels a launch ran.
 int topk_tc_route(int nw, int bq) {
-  return tc_width(nw) && bq <= TC_MAX_BQ;
+  return tc_width(nw) && bq <= tc_max_bq(nw);
 }
 
 // K1. q (Q, nw), x (N, nw), en (Q/bq, N/bn) int32; hist (Q, bins) zeroed by

@@ -144,8 +144,8 @@ def geometry(Q: int, N: int, W: int, lanes: int, backend: str,
     ``lanes = max(bins, min(k, N))``.
 
     Both passes take the same geometry, so the block-min summary means the
-    same tiles in both. bq is at most 32, so W = 2, 4 and 8 take the
-    tensor-core kernels (``TC_MAX_BQ``). bn is a multiple of a rounding
+    same tiles in both. bq is at most 32, so W = 2, 4, 8 and 32 take the
+    tensor-core kernels (``topk_tc_route``). bn is a multiple of a rounding
     step that keeps 4 * bq * step * lanes bytes within the row's budget;
     it is at most 512 rows until the store holds more than the row's
     block count of tiles, then grows up to the row's code-tile bytes.

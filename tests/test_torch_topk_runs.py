@@ -225,7 +225,8 @@ def test_launcher_argtypes_match_the_c_entry_points():
 
 
 # ---------------------------------------------------------------------------
-# the d = 256, 128 and 64 tensor-core distance tiles, emulated lane by lane
+# the d = 1024, 256, 128 and 64 tensor-core distance tiles, emulated lane
+# by lane
 # ---------------------------------------------------------------------------
 
 def _bits(w):
@@ -236,11 +237,13 @@ def _bits(w):
 
 def _load_a(q_rows, bq, mb, w):
     """TcTile<MB, W>::load: each lane (g, t)'s a[m][0..3] for query rows
-    16m+g (h = 0) and 16m+g+8 (h = 1), zero words past bq. W = 8: a[m][h]
+    16m+g (h = 0) and 16m+g+8 (h = 1), zero words past bq. W = 32: one
+    such fragment per 256-bit quarter i, a[m][i][h] = word 8t+2i and
+    a[m][i][2 + h] = word 8t+2i+1 (shape (32, mb, 4, 4)). W = 8: a[m][h]
     = word 2t, a[m][2 + h] = word 2t+1. W = 4: a[m][h] = word t, a[m][2 +
     h] its complement. W = 2: a[m][h] = word t & 1, complemented at t >= 2;
     a[m][2 + h] unused."""
-    a = np.zeros((32, mb, 4), np.uint32)
+    a = np.zeros((32, mb, 4, 4) if w == 32 else (32, mb, 4), np.uint32)
     for lane in range(32):
         g, t = lane >> 2, lane & 3
         for m in range(mb):
@@ -248,7 +251,11 @@ def _load_a(q_rows, bq, mb, w):
                 row = 16 * m + g + 8 * h
                 words = (q_rows[row] if row < bq
                          else np.zeros(q_rows.shape[1], np.uint32))
-                if w == 8:
+                if w == 32:
+                    for i in range(4):
+                        a[lane, m, i, h] = words[8 * t + 2 * i]
+                        a[lane, m, i, 2 + h] = words[8 * t + 2 * i + 1]
+                elif w == 8:
                     a[lane, m, h] = words[2 * t]
                     a[lane, m, 2 + h] = words[2 * t + 1]
                 elif w == 2:
@@ -260,15 +267,17 @@ def _load_a(q_rows, bq, mb, w):
 
 
 def _load_chunk(x_rows, c, rows, w):
-    """load_chunk<W>: each lane (g, t)'s int2 of chunk row c*8 + g, zeros
-    past ``rows``: words 2t, 2t+1 at W = 8; word t and 0 at W = 4; word
-    t & 1 and 0 at W = 2."""
-    b = np.zeros((32, 2), np.uint32)
+    """load_chunk<W>: each lane (g, t)'s words of chunk row c*8 + g, zeros
+    past ``rows``: words 8t .. 8t+7 at W = 32 (its Chunk32); an int2 of
+    words 2t, 2t+1 at W = 8, word t and 0 at W = 4, word t & 1 and 0 at
+    W = 2."""
+    b = np.zeros((32, 8 if w == 32 else 2), np.uint32)
     for lane in range(32):
         g, t = lane >> 2, lane & 3
         r = c * 8 + g
         if r < rows:
-            b[lane] = (x_rows[r, 2 * t:2 * t + 2] if w == 8 else
+            b[lane] = (x_rows[r, 8 * t:8 * t + 8] if w == 32 else
+                       x_rows[r, 2 * t:2 * t + 2] if w == 8 else
                        (x_rows[r, t % w], 0))
     return b
 
@@ -317,16 +326,22 @@ def _fragment_c(C):
 def _tile(q_rows, x_rows, bq, rows, w):
     """The kernels' distance tile for one warp and n8 chunk 0, lane by lane:
     the registers that TcTile<MB, W>::load and load_chunk<W> fill, the
-    products of TcTile::dist (W = 8: a with ~b, then ~a with b; W = 4: one,
-    a with (~b0, b0); W = 2: one m16n8k128, a with b0 complemented at
-    t < 2), and each lane's d[m][2h + e] read back as query 16m+g+8h,
-    chunk row 2t+e -> (16 * MB, 8) distances."""
+    products of TcTile::dist (W = 32: W = 8's pair on each quarter i, a[i]
+    with ~(b[2i], b[2i+1]), then ~a[i] with (b[2i], b[2i+1]), eight in
+    all; W = 8: a with ~b, then ~a with b; W = 4: one, a with (~b0, b0);
+    W = 2: one m16n8k128, a with b0 complemented at t < 2), and each
+    lane's d[m][2h + e] read back as query 16m+g+8h, chunk row 2t+e ->
+    (16 * MB, 8) distances."""
     mb = {1: 1, 2: 2, 3: 4, 4: 4}[-(-bq // 16)]     # DISPATCH_TC
     a = _load_a(q_rows, bq, mb, w)
     b = _load_chunk(x_rows, 0, rows, w)
     out = np.zeros((16 * mb, 8), np.int64)
     for m in range(mb):
-        if w == 8:
+        if w == 32:
+            d = sum(_mma_b1(a[:, m, i], ~b[:, 2 * i:2 * i + 2])
+                    + _mma_b1(~a[:, m, i], b[:, 2 * i:2 * i + 2])
+                    for i in range(4))
+        elif w == 8:
             d = _mma_b1(a[:, m], ~b) + _mma_b1(~a[:, m], b)
         elif w == 2:
             nx = np.array([0 if lane & 2 else 0xFFFFFFFF
@@ -351,6 +366,13 @@ def test_tensor_core_tile_emulation_equals_hamming(bq, rows):
     _check_tile(bq, rows, 8)
 
 
+@pytest.mark.parametrize("bq,rows", [c for c in TILE_CASES if c[0] <= 32])
+def test_tensor_core_tile_emulation_equals_hamming_d1024(bq, rows):
+    """The d = 1024 tensor-core tile, eight m16n8k256 products a fragment
+    (``_check_tile``); W = 32 takes query blocks of at most 32 rows."""
+    _check_tile(bq, rows, 32)
+
+
 @pytest.mark.parametrize("bq,rows", TILE_CASES)
 def test_tensor_core_tile_emulation_equals_hamming_d128(bq, rows):
     """The d = 128 tensor-core tile (``_check_tile``)."""
@@ -369,10 +391,10 @@ def _check_tile(bq, rows, w):
     side's registers loaded as the kernel indexes them, the product taken
     through PTX's fragment layout, so a wrong index on either side fails),
     against ``binary.hamming_xor`` on zero-padded rows: random words with
-    the top bit set half the time, zero-padded codes (d = 200 in 256 bits,
-    72 in 128, 40 in 64), identical rows (distance 0), complements
-    (32 * w), query rows past bq and chunk rows past ``rows``, and the
-    bins - 1 clamp."""
+    the top bit set half the time, zero-padded codes (d = 968 in 1024 bits,
+    200 in 256, 72 in 128, 40 in 64), identical rows (distance 0),
+    complements (32 * w), query rows past bq and chunk rows past ``rows``,
+    and the bins - 1 clamp."""
     from repro_torch.core.binary import hamming_xor
 
     rng = np.random.default_rng(20 + bq)
@@ -397,6 +419,6 @@ def _check_tile(bq, rows, w):
     assert np.array_equal(got[:bq, :rows], np.asarray(
         jbin.hamming_xor(j(q[:bq]), j(x[:rows]))))
     assert got[2, 2] == 0 and got[0, 0] == 32 * w
-    for bins in (257, 129, 65, 9):                # the kernels' clamp
+    for bins in (1025, 257, 129, 65, 9):          # the kernels' clamp
         assert np.array_equal(np.minimum(got, bins - 1),
                               np.minimum(want.numpy(), bins - 1))
